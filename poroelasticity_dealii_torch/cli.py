@@ -1,0 +1,59 @@
+"""Command-line interface of the port.
+
+``python -m poroelasticity_dealii_torch run DECK [--device cuda|cpu] [--x64]``
+runs a structured deck; ``check DECK`` parses and prints it; ``devices``
+lists the visible CUDA devices.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="poroelasticity_dealii_torch",
+        description="Biot poroelasticity solver on PyTorch/CUDA")
+    sub = parser.add_subparsers(dest="command", required=True)
+    run_p = sub.add_parser("run", help="run a simulation from a deck file")
+    run_p.add_argument("deck", help="parameter deck (.data/.prm)")
+    run_p.add_argument("--device", default="cuda",
+                       help="cuda, cuda:N or cpu (default cuda)")
+    run_p.add_argument("--x64", action="store_true",
+                       help="force float64 (overrides deck TPU/Dtype)")
+    chk = sub.add_parser("check", help="parse + validate a deck, print it")
+    chk.add_argument("deck")
+    sub.add_parser("devices", help="list visible CUDA devices")
+    args = parser.parse_args(argv)
+
+    from poroelasticity_dealii_tpu.config import format_deck, read_input_file
+
+    if args.command == "check":
+        data = read_input_file(args.deck)
+        sys.stdout.write(format_deck(data))
+        print(f"# derived: lambda={data.lame_constant:.6g} "
+              f"G={data.shear_modulus:.6g} K={data.bulk_modulus:.6g} "
+              f"Ks={data.grain_bulk_modulus:.6g} N={data.n_modulus:.6g} "
+              f"M={data.m_modulus:.6g}")
+        return 0
+
+    import torch
+
+    if args.command == "devices":
+        for i in range(torch.cuda.device_count()):
+            print(f"cuda:{i} {torch.cuda.get_device_name(i)}")
+        return 0
+
+    from . import resolve_device
+    from .models.runner import run_from_data
+    data = read_input_file(args.deck)
+    if args.x64:
+        data = dataclasses.replace(data, dtype="float64")
+    run_from_data(data, device=resolve_device(args.device))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,42 @@
+"""Carry solver state between the JAX package and this port.
+
+The discretization is rebuilt by each package from the same parsed deck,
+so a :class:`~.solvers.fss.State` is all that crosses: as numpy arrays in
+the JAX ``State`` field names (``p``, ``u``, ``eps_v``, ``eps_v0``,
+``strains``, and optionally the derived caches ``u_rows`` and ``mech_b``,
+which both packages keep in the same comp-major row layout).
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from .solvers.fss import State
+
+FIELDS = ("p", "u", "eps_v", "eps_v0", "strains")
+CACHES = ("u_rows", "mech_b")
+
+
+def state_from_numpy(fields: Mapping[str, np.ndarray], device="cpu",
+                     dtype: torch.dtype = None) -> State:
+    """Port ``State`` on ``device`` from numpy arrays keyed by field name
+    (a missing or None cache is left None)."""
+    def conv(a):
+        if a is None:
+            return None
+        t = torch.tensor(np.asarray(a), device=device)
+        return t if dtype is None else t.to(dtype)
+    kw = {k: conv(fields[k]) for k in FIELDS}
+    kw.update({k: conv(fields.get(k)) for k in CACHES})
+    return State(**kw)
+
+
+def state_to_numpy(state: State) -> dict:
+    """The inverse of :func:`state_from_numpy`: field name -> numpy array
+    (None where the state holds None)."""
+    return {k: (None if getattr(state, k) is None
+                else getattr(state, k).detach().cpu().numpy())
+            for k in FIELDS + CACHES}

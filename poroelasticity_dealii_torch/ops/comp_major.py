@@ -1,0 +1,325 @@
+"""Comp-major row layout and the Q2 elasticity, coupling and projection
+operators in it (port of ``poroelasticity_dealii_tpu/ops/pallas_comp_major.py``).
+
+The (2n+1)^3 x 3 Q2 node grid is split into 24 parity-comp planes per
+z-half-layer (2 parities per axis x 3 components); each plane is flattened
+over (y-half, x-half) into one row of (n+1)^2 lanes, zero-padded to a
+128-multiple W.  Row index = zh*24 + ((pz*2 + py)*2 + px)*3 + c, lane =
+yh*(n+1) + xh.  The whole mechanics CG runs in this layout: dots, axpys,
+norms and masks are layout-exact, so conversions happen once per solve.
+
+Three operators reach a hand-written CUDA kernel (``csrc/comp_major.cu``):
+
+* :func:`elasticity_rows_apply` — the Q2 elasticity apply in three masking
+  modes (UNMASKED ``A x``, FREE ``m A x``, CONSTRAINED
+  ``m A(m x) + (1-m) x``);
+* :func:`coupling_rows` — the mechanics RHS ``C p`` from the Q1 pressure;
+* :func:`projection_rows` — the all-Voigt strain-projection RHS from u.
+
+Each wrapper takes its plain PyTorch twin (``*_plain``) for CPU tensors and
+launches its kernel for CUDA tensors, counting launches in its
+``launches`` attribute.  The plain twins are vectorised over all cells: one
+advanced-index gather of the cells' local values, one matmul with the
+element matrix, one ``index_add_`` over a precomputed flat index.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from poroelasticity_dealii_tpu.ops.shape import node_lattice
+
+from . import _cuda
+
+UNMASKED, FREE, CONSTRAINED = 0, 1, 2
+
+
+def _width(n: int) -> int:
+    """Padded lane width: >= (n+1)^2 + max shift (n+2), 128-multiple."""
+    need = (n + 1) * (n + 1) + (n + 2)
+    return -(-need // 128) * 128
+
+
+def to_rows(u_flat: torch.Tensor, n: int) -> torch.Tensor:
+    """Flat dof vector ((2n+1)^3 * 3,) -> row layout ((n+1)*24, W)."""
+    g = 2 * n + 1
+    U = F.pad(u_flat.reshape(g, g, g, 3), (0, 0, 0, 1, 0, 1, 0, 1))
+    V = U.reshape(n + 1, 2, n + 1, 2, n + 1, 2, 3)       # zh pz yh py xh px c
+    V = V.permute(0, 1, 3, 5, 6, 2, 4)                   # zh pz py px c yh xh
+    R = V.reshape((n + 1) * 24, (n + 1) * (n + 1))
+    return F.pad(R, (0, _width(n) - R.shape[1]))
+
+
+def from_rows(R: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of :func:`to_rows` -> flat dof vector."""
+    g = 2 * n + 1
+    V = R[:, :(n + 1) * (n + 1)].reshape(n + 1, 2, 2, 2, 3, n + 1, n + 1)
+    V = V.permute(0, 1, 5, 2, 6, 3, 4)                   # zh pz yh py xh px c
+    U = V.reshape(2 * n + 2, 2 * n + 2, 2 * n + 2, 3)
+    return U[:g, :g, :g, :].reshape(-1)
+
+
+def to_rows_np(v, n: int, fill: float = 0.0) -> np.ndarray:
+    """Numpy :func:`to_rows` for setup-time constants (masks, diagonals);
+    phantom nodes and padding lanes get ``fill``."""
+    g = 2 * n + 1
+    U = np.full((2 * n + 2,) * 3 + (3,), fill, dtype=np.float64)
+    U[:g, :g, :g, :] = np.asarray(v, np.float64).reshape(g, g, g, 3)
+    V = U.reshape(n + 1, 2, n + 1, 2, n + 1, 2, 3)
+    V = V.transpose(0, 1, 3, 5, 6, 2, 4)
+    R = V.reshape((n + 1) * 24, (n + 1) * (n + 1))
+    out = np.full(((n + 1) * 24, _width(n)), fill, dtype=np.float64)
+    out[:, :R.shape[1]] = R
+    return out
+
+
+def _slice_params(n: int):
+    """Per local Q2 node a: (dz, row offset within the zh block, lane
+    shift) of its value relative to the cell's base position."""
+    lat = node_lattice(2, 3)                            # (27, 3) x-first
+    out = []
+    for a in range(27):
+        ox, oy, oz = int(lat[a, 0]), int(lat[a, 1]), int(lat[a, 2])
+        base = (((oz & 1) * 2 + (oy & 1)) * 2 + (ox & 1)) * 3
+        out.append((oz >> 1, base, (oy >> 1) * (n + 1) + (ox >> 1)))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# flat gather indices of the plain twins (cells enumerated z, y, x; real
+# cells only, so no phantom lane ever enters a product)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=16)
+def _u_index(n: int, device: torch.device) -> torch.Tensor:
+    """(81, n^3): flat row-layout index of local (node, comp) a*3+c of
+    every cell."""
+    W = _width(n)
+    iz, iy, ix = np.meshgrid(*(np.arange(n),) * 3, indexing="ij")
+    cell = (iz * 24 * W + iy * (n + 1) + ix).reshape(-1)
+    off = [(dz * 24 + base + c) * W + shift
+           for (dz, base, shift) in _slice_params(n) for c in range(3)]
+    idx = np.asarray(off)[:, None] + cell[None, :]
+    return torch.as_tensor(idx, dtype=torch.int64, device=device)
+
+
+@functools.lru_cache(maxsize=16)
+def _p_index(n: int, device: torch.device) -> torch.Tensor:
+    """(8, n^3): flat Q1-grid index of local Q1 node i of every cell."""
+    g1 = n + 1
+    iz, iy, ix = np.meshgrid(*(np.arange(n),) * 3, indexing="ij")
+    cell = ((iz * g1 + iy) * g1 + ix).reshape(-1)
+    lat = node_lattice(1, 3)
+    off = [(int(oz) * g1 + int(oy)) * g1 + int(ox) for (ox, oy, oz) in lat]
+    idx = np.asarray(off)[:, None] + cell[None, :]
+    return torch.as_tensor(idx, dtype=torch.int64, device=device)
+
+
+def _rows_shape(n: int):
+    return ((n + 1) * 24, _width(n))
+
+
+# ---------------------------------------------------------------------------
+# plain twins
+# ---------------------------------------------------------------------------
+
+def elasticity_rows_apply_plain(x, mask, ke, n: int, mode: int):
+    """Plain twin of :func:`elasticity_rows_apply`."""
+    G = _u_index(n, x.device)
+    xf = x.reshape(-1)
+    xin = xf * mask.reshape(-1) if mode == CONSTRAINED else xf
+    Ye = ke @ xin[G]                                    # (81, n^3)
+    y = torch.zeros_like(xf).index_add_(0, G.reshape(-1), Ye.reshape(-1))
+    y = y.view_as(x)
+    if mode == FREE:
+        return mask * y
+    if mode == CONSTRAINED:
+        return mask * y + (1.0 - mask) * x
+    return y
+
+
+def coupling_rows_plain(p, ce, n: int):
+    """Plain twin of :func:`coupling_rows`."""
+    Ye = ce @ p[_p_index(n, p.device)]                 # (81, n^3)
+    y = torch.zeros(_rows_shape(n), dtype=p.dtype, device=p.device)
+    y.view(-1).index_add_(0, _u_index(n, p.device).reshape(-1),
+                          Ye.reshape(-1))
+    return y
+
+
+def projection_rows_plain(x, pe, n: int):
+    """Plain twin of :func:`projection_rows`."""
+    C = pe.shape[0] // 8
+    g3 = (n + 1) ** 3
+    Ye = pe @ x.reshape(-1)[_u_index(n, x.device)]     # (8*C, n^3)
+    Gp = _p_index(n, x.device)                          # (8, n^3)
+    tgt = Gp[:, None, :] + g3 * torch.arange(C, device=x.device)[None, :,
+                                                                  None]
+    out = torch.zeros(C * g3, dtype=x.dtype, device=x.device)
+    out.index_add_(0, tgt.reshape(-1), Ye.reshape(-1))
+    return out.view(C, g3)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers: plain twin on CPU tensors, CUDA kernel on CUDA tensors
+# ---------------------------------------------------------------------------
+
+def _check(name, t, shape, dtype, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _require_cuda(x):
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"kernels take float32/float64, got {x.dtype}")
+    if x.numel() >= 2 ** 31:
+        raise ValueError("tensor too large for the kernels' int32 indexing")
+
+
+def elasticity_rows_apply(x, mask, ke, n: int, mode: int):
+    """Q2 elasticity apply in the row layout: UNMASKED ``A x``, FREE
+    ``m * A x`` (x zero at constrained rows and padding) or CONSTRAINED
+    ``m * A(m x) + (1 - m) x``.  ``ke``: (81, 81) element matrix, rows and
+    columns (local node * 3 + comp), x-fastest local nodes."""
+    if x.device.type == "cpu":
+        return elasticity_rows_apply_plain(x, mask, ke, n, mode)
+    _require_cuda(x)
+    rows = _rows_shape(n)
+    _check("x", x, rows, x.dtype, x.device)
+    _check("ke", ke, (81, 81), x.dtype, x.device)
+    if mode != UNMASKED:
+        _check("mask", mask, rows, x.dtype, x.device)
+    elif mask is not None:
+        raise ValueError("UNMASKED mode takes no mask")
+    y = torch.empty_like(x)
+    _cuda.launch("elasticity_rows_apply", x, x, mask, ke, y, n, rows[1],
+                 mode)
+    elasticity_rows_apply.launches += 1
+    return y
+
+
+def coupling_rows(p, ce, n: int):
+    """Mechanics RHS ``C p`` in the row layout from the flat Q1 pressure
+    ((n+1)^3,).  ``ce``: (81, 8), Biot coefficient folded in."""
+    if p.device.type == "cpu":
+        return coupling_rows_plain(p, ce, n)
+    _require_cuda(p)
+    _check("p", p, ((n + 1) ** 3,), p.dtype, p.device)
+    _check("ce", ce, (81, 8), p.dtype, p.device)
+    y = torch.empty(_rows_shape(n), dtype=p.dtype, device=p.device)
+    _cuda.launch("coupling_rows", p, p, ce, y, n, _width(n))
+    coupling_rows.launches += 1
+    return y
+
+
+def projection_rows(x, pe, n: int):
+    """All-Voigt strain-projection RHS (C, (n+1)^3) from u in the row
+    layout.  ``pe``: (8*C, 81), rows (Q1 local node * C + Voigt c)."""
+    if x.device.type == "cpu":
+        return projection_rows_plain(x, pe, n)
+    _require_cuda(x)
+    _check("x", x, _rows_shape(n), x.dtype, x.device)
+    if pe.shape[0] % 8 or pe.shape[1] != 81:
+        raise ValueError(f"pe has shape {tuple(pe.shape)}, expected (8*C, 81)")
+    _check("pe", pe, pe.shape, x.dtype, x.device)
+    C = pe.shape[0] // 8
+    out = torch.empty((C, (n + 1) ** 3), dtype=x.dtype, device=x.device)
+    _cuda.launch("projection_rows", x, x, pe, out, n, _width(n), C)
+    projection_rows.launches += 1
+    return out
+
+
+elasticity_rows_apply.launches = 0
+coupling_rows.launches = 0
+projection_rows.launches = 0
+KERNEL_WRAPPERS = (elasticity_rows_apply, coupling_rows, projection_rows)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the persistent-row-layout solve kit
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ElasticityRowOps:
+    """The comp-major row layout as the mechanics DOF-vector format, with
+    the operators the FSS step applies in it.
+
+    ``plain=True`` routes every operator to its plain twin even for CUDA
+    tensors (for comparing a run against the kernels); otherwise each
+    operator goes through its kernel wrapper."""
+    n: int
+    ke: torch.Tensor              # (81, 81) elasticity element matrix
+    ce: torch.Tensor              # (81, 8) coupling element matrix
+    pe: torch.Tensor              # (8*C, 81) strain-projection matrix
+    free_mask_rows: torch.Tensor  # Dirichlet mask in rows (padding = 0)
+    diag_rows: torch.Tensor       # Jacobi diagonal in rows (padding = 1)
+    plain: bool = False
+
+    def to_rows(self, u_flat):
+        return to_rows(u_flat, self.n)
+
+    def from_rows(self, R):
+        return from_rows(R, self.n)
+
+    def _apply(self, x, mask, mode):
+        fn = elasticity_rows_apply_plain if self.plain \
+            else elasticity_rows_apply
+        return fn(x, mask, self.ke, self.n, mode)
+
+    def apply_rows(self, x):
+        """Unconstrained ``A x``."""
+        return self._apply(x, None, UNMASKED)
+
+    def constrained_apply(self, x):
+        """``m * A(m x) + (1 - m) x``: identity on constrained dofs."""
+        return self._apply(x, self.free_mask_rows, CONSTRAINED)
+
+    def free_apply(self, x):
+        """``m * A x`` for x already in the free subspace (zero at
+        constrained rows and padding): equals :meth:`constrained_apply`
+        there, one input mask cheaper."""
+        return self._apply(x, self.free_mask_rows, FREE)
+
+    def coupling_rows(self, p):
+        fn = coupling_rows_plain if self.plain else coupling_rows
+        return fn(p, self.ce, self.n)
+
+    def projection_rows(self, x):
+        fn = projection_rows_plain if self.plain else projection_rows
+        return fn(x, self.pe, self.n)
+
+
+def make_row_ops(element_matrix: np.ndarray, n: int, free_mask_u,
+                 diag_elasticity, coupling_matrix: np.ndarray,
+                 projection_matrix: np.ndarray, dtype: torch.dtype,
+                 device: torch.device, plain: bool = False
+                 ) -> ElasticityRowOps:
+    """Build the row-layout mechanics kit for a 3D structured Q2 grid with
+    ``n`` cells per axis; constants are built in numpy and moved once."""
+    dev = lambda a: torch.as_tensor(np.asarray(a, np.float64),  # noqa: E731
+                                    dtype=dtype, device=device).contiguous()
+    return ElasticityRowOps(
+        n=n, ke=dev(element_matrix), ce=dev(coupling_matrix),
+        pe=dev(projection_matrix),
+        free_mask_rows=dev(to_rows_np(free_mask_u, n, fill=0.0)),
+        diag_rows=dev(to_rows_np(diag_elasticity, n, fill=1.0)),
+        plain=plain)

@@ -1,0 +1,386 @@
+"""Fixed-stress-split coupled Biot solver (port of
+``poroelasticity_dealii_tpu/solvers/fss.py``).
+
+One time step alternates a pressure inner loop (GMG- or Jacobi-CG on the
+fixed-stress-stabilised flow system) with a mechanics CG in the comp-major
+row layout and a batched strain-projection CG, until the flow residual
+falls below the FSS tolerance; the shear strains are projected once after
+the loop.  The loops run on the host and read one scalar per iteration.
+
+Semantics kept from the reference (deliberate quirks):
+
+* the volumetric strain moves only through the fixed-stress predictor
+  ``eps_v += (b/K) delta_p``; it is not resynchronised from u (unless the
+  deck's resync switch is on);
+* ``eps_v0`` is the t = 0 projection, fixed for all time;
+* the pressure update ``delta_p`` is reset once per FSS iteration and warm
+  starts each pressure CG inside it;
+* the FSS error starts at ``2 * pressure_tol``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from poroelasticity_dealii_tpu.config import InputData
+
+from ..ops import dense
+from ..ops.operators import SHEAR_ENTRIES, VOIGT_PAIRS, VOLUMETRIC_ENTRIES
+from ..ops.stencil import make_q1_slices_apply
+from . import structured
+from .cg import cg_solve, cg_solve_batched
+from .multigrid import build_gmg_pressure
+from .structured import GridDiscretization, _single_cell_spaces
+
+
+@dataclasses.dataclass
+class StepStats:
+    """Per-time-step convergence record, as host values."""
+    fss_iterations: int
+    pressure_error: float             # final FSS residual norm
+    pressure_iterations: int          # total inner pressure solves
+    pressure_cg_iterations: int
+    mech_cg_iterations: int
+    projection_cg_iterations: int
+    fss_error_history: np.ndarray     # (max_fss,) padded with -1
+    cg_converged: bool = True         # False if any linear solve ended
+    #                                   before its tolerance
+
+
+@dataclasses.dataclass
+class State:
+    """Restart state: pressure, displacement, strains."""
+    p: torch.Tensor                 # (n_pdofs,)
+    u: Optional[torch.Tensor]       # (n_udofs,); None after a want_u=False
+    #                                 step (see materialize_u)
+    eps_v: torch.Tensor             # volumetric strain (n_pdofs,)
+    eps_v0: torch.Tensor            # t = 0 volumetric strain
+    strains: torch.Tensor           # (n_voigt, n_pdofs)
+    # derived caches, not part of the restart vector: u in the row layout
+    # (the mechanics warm start) and the last mechanics RHS (a bitwise
+    # equal new RHS skips the mechanics solve)
+    u_rows: Optional[torch.Tensor] = None
+    mech_b: Optional[torch.Tensor] = None
+
+
+def _as_dtype(x: float, dtype: torch.dtype) -> float:
+    """``x`` rounded to ``dtype``: the reference compares its float32
+    residuals against tolerances cast to float32."""
+    return float(torch.tensor(x, dtype=dtype))
+
+
+class FixedStressSolver:
+    """The fixed-stress time step for one discretization and deck."""
+
+    def __init__(self, disc: GridDiscretization, data: InputData):
+        if data.mixed_precision_refinement == "on":
+            raise NotImplementedError(
+                "mixed-precision refinement is ROADMAP A11 (the H100 runs "
+                "float64 natively)")
+        self.disc, self.data = disc, data
+        ro = disc.row_ops
+        # the Dirichlet lift A g uses the UNconstrained operator (the
+        # reference's d._hcu.constrained(d.elasticity) is the identity
+        # hanging-node wrap on structured grids)
+        self._dirichlet_rows = ro.to_rows(disc.dirichlet_values)
+        self._lift_rows = ro.apply_rows(self._dirichlet_rows)
+        self._f_neumann_rows = ro.to_rows(disc.f_neumann)
+        self._jac_stencils = {}
+        self._p_gmg = {}
+        self._bc_response_rows = None
+
+    def _cast(self, x: float) -> float:
+        return _as_dtype(x, self.disc.dtype)
+
+    # ---------------- pressure system pieces -------------------------------
+
+    def _pressure_residual(self, p, p_old, eps_v, eps_v0, dt):
+        """Negated Biot flow residual on free pressure dofs:
+        -[M ((b/dt)(eps_v - eps_v0) + (p - p_old)/(M_biot dt))
+          + (k/mu) L p + F_well]."""
+        d, data = self.disc, self.data
+        acc = (data.biot_coef / dt) * (eps_v - eps_v0) \
+            + (1.0 / data.m_modulus / dt) * (p - p_old)
+        res = d.mass(acc) + (data.perm / data.visc) * d.laplace(p) \
+            + d.f_well
+        return -res * d.free_mask_p
+
+    def _fused_jacobian_stencil(self, dt):
+        """Pressure Jacobian mass/(M dt) + (k/mu) L as one Q1 stencil."""
+        if dt not in self._jac_stencils:
+            d, data = self.disc, self.data
+            verts = d.pressure_space.mesh.vertices
+            _, sp1, _ = _single_cell_spaces(
+                data, d.info_p.cells_per_axis, d.info_p.degree,
+                d.info_u.degree, span=verts.max(axis=0) - verts.min(axis=0))
+            Me = dense.mass_element_matrices(sp1)[0]
+            Le = dense.laplace_element_matrices(sp1)[0]
+            J = Me / (data.m_modulus * dt) + (data.perm / data.visc) * Le
+            self._jac_stencils[dt] = make_q1_slices_apply(
+                J, d.dim, d.info_p.cells_per_axis, d.dtype, d.device)
+        return self._jac_stencils[dt]
+
+    def _pressure_jacobian_apply(self, x, dt):
+        fp = self.disc.free_mask_p
+        y = self._fused_jacobian_stencil(dt)(x * fp)
+        return y * fp + x * (1.0 - fp)
+
+    def _pressure_jacobian_diag(self, dt):
+        d, data = self.disc, self.data
+        diag = (1.0 / data.m_modulus / dt) * d.diag_mass \
+            + (data.perm / data.visc) * d.diag_laplace
+        return torch.where(d.free_mask_p > 0, diag, torch.ones_like(diag))
+
+    def _pressure_precond(self, dt):
+        """GMG V-cycle for the pressure Jacobian, or None (Jacobi) when the
+        grid is below the multigrid threshold."""
+        d, data = self.disc, self.data
+        n = d.info_p.cells_per_axis[0]
+        # module attribute, looked up per call (tests patch the threshold)
+        n_levels = structured._gmg_levels(n, d.dim, d.n_pdofs, "auto",
+                                          auto_threshold=30_000,
+                                          degree=d.info_p.degree, n_comp=1)
+        if n_levels < 2:
+            return None
+        if dt not in self._p_gmg:
+            verts = d.pressure_space.mesh.vertices
+            self._p_gmg[dt], _ = build_gmg_pressure(
+                data, n_fine=n, n_levels=n_levels, dtype=d.dtype,
+                device=d.device, dt=dt, lower=verts.min(axis=0),
+                upper=verts.max(axis=0))
+        return self._p_gmg[dt]
+
+    # ---------------- mechanics solve ---------------------------------------
+
+    def _mechanics_solve(self, p, u_warm_rows, bc_scale=1.0, b_prev=None):
+        """Elasticity solve in the row layout with the pressure-coupling
+        RHS, traction and Dirichlet values scaled by ``bc_scale``.
+
+        ``b_prev``: the previous RHS.  When the new RHS is bitwise equal,
+        the warm start already solves the system: the tolerance becomes
+        inf, so CG stops after its initial residual.
+
+        Returns ``(u_rows, iters, converged, b_rows)``."""
+        d, data = self.disc, self.data
+        ro = d.row_ops
+        m = ro.free_mask_rows
+        g = bc_scale * self._dirichlet_rows
+        rhs = ro.coupling_rows(p) + self._f_neumann_rows
+        b = m * (rhs - bc_scale * self._lift_rows) + (1.0 - m) * g
+        # b and x0 carry the Dirichlet values, so every CG direction is
+        # zero at constrained rows and the free-subspace apply is exact
+        x0 = m * u_warm_rows + (1.0 - m) * g
+        tol = torch.tensor(data.mech_cg_tol, dtype=d.dtype)
+        if data.mech_cg_relative:
+            tol = tol * torch.linalg.norm(b).cpu()
+        tol = float(tol)
+        if b_prev is not None and torch.equal(b, b_prev):
+            tol = float("inf")
+        res = cg_solve(ro.constrained_apply, b, x0, ro.diag_rows, tol=tol,
+                       max_iter=data.cg_max_iterations,
+                       apply_iter=ro.free_apply, flexible=False)
+        return res.x, res.iterations, res.converged, b
+
+    def _bc_response(self):
+        """du/d(bc_scale) in rows: the constrained solve against the
+        unit-Dirichlet-pattern RHS, computed once.  Constrained rows carry
+        the pattern itself, so ``u + ds * response`` lands on the new
+        boundary values."""
+        if self._bc_response_rows is None:
+            d = self.disc
+            ro = d.row_ops
+            m = ro.free_mask_rows
+            b = m * (-self._lift_rows) + (1.0 - m) * self._dirichlet_rows
+            # seeds a warm start only: a few digits suffice
+            rel = 1e-8 if d.dtype == torch.float64 else 2e-6
+            res = cg_solve(ro.constrained_apply, b, torch.zeros_like(b),
+                           ro.diag_rows, tol=rel * torch.linalg.norm(b),
+                           max_iter=5000)
+            self._bc_response_rows = res.x
+        return self._bc_response_rows
+
+    # ---------------- strain projection -------------------------------------
+
+    def _projection_rhs(self, u_rows):
+        """All-Voigt strain-projection RHS (n_voigt, n_pdofs) from u rows."""
+        return self.disc.row_ops.projection_rows(u_rows)
+
+    def _project(self, entries, warm, rhs_all):
+        """L2-project the Voigt components ``entries`` onto the pressure
+        space: one batched mass-matrix CG.  Returns
+        ``(strains, total iterations, converged)``."""
+        d = self.disc
+        rhs = rhs_all[entries]
+        tol = self.data.projection_cg_tol * torch.linalg.norm(rhs, dim=1)
+        res = cg_solve_batched(d.mass, rhs, warm, d.diag_mass, tol,
+                               self.data.cg_max_iterations)
+        return res.x, int(res.iterations.sum()), bool(res.converged.all())
+
+    # ---------------- initialization ----------------------------------------
+
+    def initial_state(self, bc_scale=1.0) -> State:
+        d, data = self.disc, self.data
+        dim = d.dim
+        fp = d.free_mask_p
+        p0 = torch.full((d.n_pdofs,), data.p_init, dtype=d.dtype,
+                        device=d.device)
+        p = p0 * fp + d.dirichlet_values_p * (1.0 - fp)
+        u0 = torch.zeros(d.n_udofs, dtype=d.dtype, device=d.device)
+        u_rows, _, _, b0 = self._mechanics_solve(
+            p, d.row_ops.to_rows(u0), bc_scale)
+        vol = VOLUMETRIC_ENTRIES[dim]
+        warm = torch.zeros((len(vol), d.n_pdofs), dtype=d.dtype,
+                           device=d.device)
+        vol_strains, _, _ = self._project(vol, warm,
+                                          self._projection_rhs(u_rows))
+        strains = torch.zeros((len(VOIGT_PAIRS[dim]), d.n_pdofs),
+                              dtype=d.dtype, device=d.device)
+        strains[vol] = vol_strains
+        eps_v = vol_strains.sum(0)
+        # mech_b = zeros: the first time step always solves
+        return State(p=p, u=d.row_ops.from_rows(u_rows), eps_v=eps_v,
+                     eps_v0=eps_v, strains=strains, u_rows=u_rows,
+                     mech_b=torch.zeros_like(b0))
+
+    # ---------------- one time step -----------------------------------------
+
+    def time_step(self, state: State, dt: float, bc_scale: float = 1.0,
+                  bc_scale_prev: Optional[float] = None,
+                  want_u: bool = True):
+        """One dt: the FSS loop (pressure inner loop, mechanics solve,
+        normal-strain projection), then the shear strains.
+
+        ``bc_scale`` scales the Dirichlet values; passing the previous
+        step's ``bc_scale_prev`` superposes the linear response to the
+        change onto the mechanics warm start.  ``want_u=False`` leaves
+        ``State.u`` None (u stays in rows; see :meth:`materialize_u`)."""
+        ro = self.disc.row_ops
+        if state.u_rows is None:
+            state = dataclasses.replace(state, u_rows=ro.to_rows(state.u))
+        state = dataclasses.replace(state, u=None)
+        if bc_scale_prev is not None and bc_scale_prev != bc_scale:
+            ds = bc_scale - bc_scale_prev
+            state = dataclasses.replace(
+                state, u_rows=state.u_rows + ds * self._bc_response())
+        return self._time_step_impl(state, dt, bc_scale, want_u)
+
+    def materialize_u(self, state: State) -> State:
+        """Fill ``state.u`` from the row layout after a want_u=False step."""
+        if state.u is not None:
+            return state
+        return dataclasses.replace(
+            state, u=self.disc.row_ops.from_rows(state.u_rows))
+
+    def _time_step_impl(self, state: State, dt, bc_scale, want_u):
+        d, data = self.disc, self.data
+        dim = d.dim
+        vol, shear = VOLUMETRIC_ENTRIES[dim], SHEAR_ENTRIES[dim]
+        p_old = state.p
+        resync = data.resync_volumetric_strain
+        # the reference compares against the t = 0 strain for all time;
+        # resync mode uses the step-start strain
+        eps_v0 = state.eps_v if resync else state.eps_v0
+        pressure_tol = self._cast(data.pressure_tol)
+        fss_tol = self._cast(data.fss_tol)
+        jac_diag = self._pressure_jacobian_diag(dt)
+        p_precond = self._pressure_precond(dt)
+
+        def jac(x):
+            return self._pressure_jacobian_apply(x, dt)
+
+        def pressure_inner(p, eps_v):
+            """Stationary iteration on the fixed-stress-stabilised flow
+            system; the predictor moves eps_v before each residual."""
+            delta_p = torch.zeros_like(p)     # reset per FSS iteration
+            r = self._pressure_residual(p, p_old, eps_v, eps_v0, dt)
+            err = torch.linalg.norm(r).item()
+            k = cg_tot = 0
+            ok = True
+            while k < data.max_pressure_iterations and err > pressure_tol:
+                ptol = data.pressure_cg_tol * torch.linalg.norm(r)
+                res = cg_solve(jac, r, delta_p, jac_diag, tol=ptol,
+                               max_iter=data.cg_max_iterations,
+                               precond=p_precond)
+                delta_p = res.x
+                p = p + delta_p
+                eps_v = eps_v + (data.biot_coef / data.bulk_modulus) \
+                    * delta_p
+                r = self._pressure_residual(p, p_old, eps_v, eps_v0, dt)
+                err = torch.linalg.norm(r).item()
+                k += 1
+                cg_tot += res.iterations
+                ok = ok and res.converged
+            return p, eps_v, k, cg_tot, ok
+
+        n_voigt = len(VOIGT_PAIRS[dim])
+        # err starts at exactly 2 * pressure_tol, so with fss_tol below it
+        # the loop runs at least once and the shear solve reuses its final
+        # projection RHS; otherwise the RHS must exist before the loop
+        if data.fss_tol >= 2.0 * data.pressure_tol:
+            proj_rhs = self._projection_rhs(state.u_rows)
+        else:
+            proj_rhs = torch.zeros((n_voigt, d.n_pdofs), dtype=d.dtype,
+                                   device=d.device)
+        p, eps_v, u_rows = state.p, state.eps_v, state.u_rows
+        vol_strains = state.strains[vol]
+        mech_b = state.mech_b if state.mech_b is not None \
+            else torch.zeros_like(d.row_ops.free_mask_rows)
+        err = self._cast(2.0 * data.pressure_tol)
+        err_hist = np.full((data.max_fss_iterations,), -1.0)
+        it = press_total = cg_p = cg_u = cg_proj = 0
+        cg_ok = True
+        while it < data.max_fss_iterations and err > fss_tol:
+            p, eps_v, n_press, it_p, ok_p = pressure_inner(p, eps_v)
+            u_rows, it_u, ok_u, mech_b = self._mechanics_solve(
+                p, u_rows, bc_scale, b_prev=mech_b)
+            proj_rhs = self._projection_rhs(u_rows)
+            vol_strains, it_pr, ok_pr = self._project(vol, vol_strains,
+                                                      proj_rhs)
+            if resync:
+                eps_v = vol_strains.sum(0)
+            r = self._pressure_residual(p, p_old, eps_v, eps_v0, dt)
+            err = torch.linalg.norm(r).item()
+            err_hist[it] = err
+            it += 1
+            press_total += n_press
+            cg_p, cg_u, cg_proj = cg_p + it_p, cg_u + it_u, cg_proj + it_pr
+            cg_ok = cg_ok and ok_p and ok_u and ok_pr
+
+        strains = state.strains.clone()
+        strains[vol] = vol_strains
+        if shear:
+            # the final FSS iteration's projection RHS: the same u
+            shear_strains, it_sh, ok_sh = self._project(
+                shear, state.strains[shear], proj_rhs)
+            strains[shear] = shear_strains
+            cg_proj += it_sh
+            cg_ok = cg_ok and ok_sh
+        new_state = State(
+            p=p, u=d.row_ops.from_rows(u_rows) if want_u else None,
+            eps_v=eps_v, eps_v0=state.eps_v0, strains=strains,
+            u_rows=u_rows, mech_b=mech_b)
+        stats = StepStats(
+            fss_iterations=it, pressure_error=err,
+            pressure_iterations=press_total, pressure_cg_iterations=cg_p,
+            mech_cg_iterations=cg_u, projection_cg_iterations=cg_proj,
+            fss_error_history=err_hist, cg_converged=cg_ok)
+        return new_state, stats
+
+    # ---------------- nodal effective stresses ------------------------------
+
+    def effective_stresses(self, strains):
+        """sigma = C : eps nodally, isotropic:
+        sigma_ij = lam tr(eps) delta_ij + 2 mu eps_ij."""
+        d = self.disc
+        tr = sum(strains[e] for e in VOLUMETRIC_ENTRIES[d.dim])
+        rows = []
+        for e, (i, j) in enumerate(VOIGT_PAIRS[d.dim]):
+            s = 2.0 * d.mu * strains[e]
+            if i == j:
+                s = s + d.lam * tr
+            rows.append(s)
+        return torch.stack(rows, dim=0)

@@ -1,0 +1,271 @@
+"""Structured-grid discretization of the 3D Q2/Q1 problem (port of
+``poroelasticity_dealii_tpu/solvers/structured.py:123-184, 186-455``).
+
+On a uniform grid every cell has the same element matrices, built once on
+the host in float64.  The pressure operators are Q1 slice stencils
+(:mod:`..ops.stencil`); the mechanics runs in the comp-major row layout
+through :class:`..ops.comp_major.ElasticityRowOps`, whose elasticity,
+coupling and projection operators are the hand-written CUDA kernels on a
+CUDA device.  That rows path is the port's only backend so far: other
+dimensions, degrees and backends raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from poroelasticity_dealii_tpu.config import InputData
+from poroelasticity_dealii_tpu.mesh.core import FESpace
+from poroelasticity_dealii_tpu.mesh.generator import (hyper_rectangle,
+                                                      normalize_cells_per_axis)
+from poroelasticity_dealii_tpu.mesh.qk import build_fe_space
+from poroelasticity_dealii_tpu.mesh.structured import (GridInfo,
+                                                       build_structured_space,
+                                                       structured_mesh)
+from poroelasticity_dealii_tpu.ops.quadrature import gauss_tensor
+from poroelasticity_dealii_tpu.ops.shape import shape_tables
+
+from ..ops import dense
+from ..ops import operators as ops
+from ..ops.comp_major import ElasticityRowOps, make_row_ops
+from ..ops.geometry import geometry_factors
+from ..ops.stencil import make_q1_slices_apply
+from ..ops.structured import uniform_geometry_factors
+from .discretization import (_body_force_vector, _dirichlet_constraints,
+                             _neumann_vector, _pressure_dirichlet,
+                             _well_vector)
+
+
+@dataclasses.dataclass
+class GridDiscretization:
+    """Everything the fixed-stress step reads, as tensors on one device."""
+
+    dim: int
+    dtype: torch.dtype
+    device: torch.device
+    pressure_space: FESpace
+    displacement_space: FESpace
+    info_p: GridInfo
+    info_u: GridInfo
+    free_mask_u: torch.Tensor       # (n_udofs,) 1 free / 0 Dirichlet
+    dirichlet_values: torch.Tensor  # (n_udofs,) 0 on free dofs
+    f_neumann: torch.Tensor         # (n_udofs,) traction + body force
+    f_well: torch.Tensor            # (n_pdofs,)
+    free_mask_p: torch.Tensor       # (n_pdofs,) drainage pinning
+    dirichlet_values_p: torch.Tensor
+    diag_mass: torch.Tensor
+    diag_laplace: torch.Tensor
+    lam: float
+    mu: float
+    mass: Callable                  # Q1 mass apply
+    laplace: Callable               # Q1 Laplace apply
+    row_ops: ElasticityRowOps
+    element_ke: np.ndarray          # (81, 81) elasticity, float64
+    element_ce: np.ndarray          # (81, 8) coupling, Biot folded in
+    element_pe: np.ndarray          # (48, 81) strain projection
+
+    @property
+    def n_pdofs(self) -> int:
+        return self.free_mask_p.shape[0]
+
+    @property
+    def n_udofs(self) -> int:
+        return self.free_mask_u.shape[0]
+
+    @property
+    def n_cells(self) -> int:
+        return self.pressure_space.mesh.n_cells
+
+
+def _single_cell_spaces(data: InputData, cells_per_axis,
+                        pressure_degree: int, displacement_degree: int,
+                        span=None):
+    """1-cell mesh with the uniform grid's cell size, for element matrices;
+    ``span`` is the physical extent per axis (default ``domain_size``)."""
+    dim = data.dim
+    ns = normalize_cells_per_axis(cells_per_axis, dim)
+    if span is None:
+        span = data.domain_size
+    h = [span[d] / ns[d] for d in range(dim)]
+    cell_mesh = hyper_rectangle(h, cells_per_axis=1)
+    return (cell_mesh, build_fe_space(cell_mesh, pressure_degree),
+            build_fe_space(cell_mesh, displacement_degree))
+
+
+def _coupling_element_matrix(cell_mesh, su1, sp1, biot_coef):
+    """C_e[(n,i), m] = b * int psi_m d phi_n / d x_i dx on the one cell."""
+    dim = cell_mesh.dim
+    pts, wts = gauss_tensor(su1.degree + 1, dim)
+    jinv, jxw = geometry_factors(cell_mesh.vertices[cell_mesh.cells],
+                                 pts, wts)
+    jinv, jxw = jinv[0], jxw[0]                            # (Q,m,d), (Q,)
+    _, dref_u = shape_tables(su1.degree, dim, pts)
+    psi_p, _ = shape_tables(sp1.degree, dim, pts)
+    g = np.einsum("qnm,qmd->qnd", dref_u, jinv)            # phys grads
+    ce = biot_coef * np.einsum("q,qm,qnd->ndm", jxw, psi_p, g)
+    return ce.reshape(dref_u.shape[1] * dim, psi_p.shape[1])
+
+
+def _projection_element_matrix(cell_mesh, su1, sp1):
+    """P_e[(i_p * C + c), (m, j)] = int psi_i eps_c(phi_mj) dx."""
+    dim = cell_mesh.dim
+    pts, wts = gauss_tensor(sp1.degree + 1, dim)
+    jinv, jxw = geometry_factors(cell_mesh.vertices[cell_mesh.cells],
+                                 pts, wts)
+    jinv, jxw = jinv[0], jxw[0]
+    _, dref_u = shape_tables(su1.degree, dim, pts)
+    psi_p, _ = shape_tables(sp1.degree, dim, pts)
+    g = np.einsum("qnm,qmd->qnd", dref_u, jinv)
+    pairs = ops.VOIGT_PAIRS[dim]
+    Np, Nu, C = psi_p.shape[1], dref_u.shape[1], len(pairs)
+    P = np.zeros((Np * C, Nu * dim))
+    for c, (a, b) in enumerate(pairs):
+        # eps_c(phi_mj) = 0.5 (delta_ja G[m,b] + delta_jb G[m,a])
+        B = np.zeros((len(wts), Nu, dim))
+        B[:, :, a] += 0.5 * g[:, :, b]
+        B[:, :, b] += 0.5 * g[:, :, a]
+        P[c::C, :] = np.einsum("q,qi,qmj->imj", jxw, psi_p,
+                               B).reshape(Np, Nu * dim)
+    return P
+
+
+def build_grid_discretization(data: InputData,
+                              cells_per_axis: Optional[int] = None,
+                              pressure_degree: int = 1,
+                              displacement_degree: int = 2,
+                              dtype=None, lower=None, upper=None,
+                              multigrid: str = "auto",
+                              elasticity_backend: Optional[str] = None,
+                              device="cpu",
+                              kernels: str = "auto") -> GridDiscretization:
+    """The 3D Q2/Q1 isotropic rows discretization on ``device``.
+
+    ``kernels="auto"`` sends each row-layout operator through its kernel
+    wrapper (CUDA kernel on a CUDA device, plain twin on the CPU);
+    ``kernels="plain"`` forces the plain twins on any device, for
+    comparing a run against the kernels."""
+    dim = data.dim
+    if cells_per_axis is None:
+        cells_per_axis = getattr(data, "cells_per_axis", None) \
+            or 2 ** data.initial_refinement_level
+    cells_per_axis = normalize_cells_per_axis(cells_per_axis, dim)
+    if (dim != 3 or (pressure_degree, displacement_degree) != (1, 2)
+            or len(set(cells_per_axis)) != 1):
+        raise NotImplementedError(
+            "the torch port runs 3D Q2/Q1 grids with equal cells per axis; "
+            f"got dim={dim}, degrees={pressure_degree}/{displacement_degree},"
+            f" cells={cells_per_axis} (2D: ROADMAP A9; anisotropic grids and "
+            "other degrees: ROADMAP A10)")
+    eb = elasticity_backend or data.elasticity_backend
+    if eb not in ("auto", "pallas"):
+        raise NotImplementedError(
+            f"elasticity backend {eb!r}: the torch port has the row-layout "
+            "kernels only (conv stencils: ROADMAP A10; 2D parity: A9)")
+    if multigrid not in ("auto", "off", "false", False, None):
+        raise NotImplementedError("elasticity multigrid is ROADMAP A10")
+    if data.mech_precond != "jacobi":
+        raise NotImplementedError("node-block Jacobi is ROADMAP A10")
+    if kernels not in ("auto", "plain"):
+        raise ValueError(f"kernels must be 'auto' or 'plain', got {kernels!r}")
+    if dtype is None:
+        dtype = torch.float64 if data.dtype == "float64" else torch.float32
+    device = torch.device(device)
+
+    mesh = structured_mesh(data.domain_size[:dim], cells_per_axis,
+                           lower=lower, upper=upper)
+    p_space, info_p = build_structured_space(mesh, cells_per_axis,
+                                             pressure_degree)
+    u_space, info_u = build_structured_space(mesh, cells_per_axis,
+                                             displacement_degree)
+    pq_pts, pq_wts = gauss_tensor(pressure_degree + 1, dim)
+    uq_pts, uq_wts = gauss_tensor(displacement_degree + 1, dim)
+    jinv_p, jxw_p = uniform_geometry_factors(mesh.vertices, cells_per_axis,
+                                             pq_pts, pq_wts)
+    jinv_u, jxw_u = uniform_geometry_factors(mesh.vertices, cells_per_axis,
+                                             uq_pts, uq_wts)
+    psi_p_at_pq, dref_p_at_pq = shape_tables(pressure_degree, dim, pq_pts)
+    psi_u_at_uq, dref_u_at_uq = shape_tables(displacement_degree, dim,
+                                             uq_pts)
+    conn_p = np.ascontiguousarray(p_space.cell_nodes.T)
+    conn_u = np.ascontiguousarray(u_space.vector_cell_dofs(dim).T)
+
+    # physical coordinates of the pressure quadrature points (the well)
+    n1_at_pq, _ = shape_tables(1, dim, pq_pts)
+    x_q = np.einsum("qv,evd->eqd", n1_at_pq, mesh.vertices[mesh.cells])
+    jxw_p_full = np.broadcast_to(jxw_p.T, (mesh.n_cells, jxw_p.shape[0]))
+    jxw_u_full = np.broadcast_to(jxw_u.T, (mesh.n_cells, jxw_u.shape[0]))
+    f_well = _well_vector(p_space, data, jxw_p_full, psi_p_at_pq, x_q)
+    f_neumann = _neumann_vector(mesh, u_space, data) \
+        + _body_force_vector(u_space, data, jxw_u_full, psi_u_at_uq)
+    free_np, dirichlet_np = _dirichlet_constraints(mesh, u_space, data)
+    free_p_np, dirichlet_p_np = _pressure_dirichlet(mesh, p_space, data)
+
+    lam, mu = data.lame_constant, data.shear_modulus
+    n_pdofs, n_udofs = p_space.n_nodes, u_space.n_nodes * dim
+    diag_mass = ops.mass_diagonal(conn_p, psi_p_at_pq, jxw_p, n_pdofs)
+    diag_lap = ops.laplace_diagonal(conn_p, dref_p_at_pq, jinv_p, jxw_p,
+                                    n_pdofs)
+    diag_el = ops.elasticity_diagonal(conn_u, dref_u_at_uq, jinv_u, jxw_u,
+                                      lam, mu, n_udofs)
+    diag_el = np.where(free_np, diag_el, 1.0)
+
+    span = mesh.vertices.max(axis=0) - mesh.vertices.min(axis=0)
+    cell_mesh, sp1, su1 = _single_cell_spaces(
+        data, cells_per_axis, pressure_degree, displacement_degree,
+        span=span)
+    Me = dense.mass_element_matrices(sp1)[0]
+    Le = dense.laplace_element_matrices(sp1)[0]
+    Ke = dense.elasticity_element_matrices(su1, lam, mu)[0]
+    Ce = _coupling_element_matrix(cell_mesh, su1, sp1, data.biot_coef)
+    Pe = _projection_element_matrix(cell_mesh, su1, sp1)
+    n = cells_per_axis[0]
+
+    dev = lambda a: torch.as_tensor(  # noqa: E731
+        np.asarray(a, np.float64), dtype=dtype, device=device)
+    return GridDiscretization(
+        dim=dim, dtype=dtype, device=device,
+        pressure_space=p_space, displacement_space=u_space,
+        info_p=info_p, info_u=info_u,
+        free_mask_u=dev(free_np), dirichlet_values=dev(dirichlet_np),
+        f_neumann=dev(f_neumann), f_well=dev(f_well),
+        free_mask_p=dev(free_p_np), dirichlet_values_p=dev(dirichlet_p_np),
+        diag_mass=dev(diag_mass), diag_laplace=dev(diag_lap),
+        lam=lam, mu=mu,
+        mass=make_q1_slices_apply(Me, dim, cells_per_axis, dtype, device),
+        laplace=make_q1_slices_apply(Le, dim, cells_per_axis, dtype, device),
+        row_ops=make_row_ops(Ke, n, free_np, diag_el, Ce, Pe, dtype, device,
+                             plain=kernels == "plain"),
+        element_ke=Ke, element_ce=Ce, element_pe=Pe)
+
+
+def _gmg_levels(n: int, dim: int, n_dofs: int, multigrid: str,
+                auto_threshold: int = 150_000, degree: int = 2,
+                n_comp: int = None) -> int:
+    """V-cycle depth: the shallowest hierarchy (divisible cell counts,
+    coarse grid >= 4 cells) whose coarsest level is dense-invertible
+    (<= 8000 dofs); 'auto' enables multigrid only from ``auto_threshold``
+    dofs."""
+    if multigrid in ("off", "false", False, None):
+        return 1
+    if multigrid == "auto" and n_dofs < auto_threshold:
+        return 1
+    if n_comp is None:
+        n_comp = dim
+    best = 1
+    L = 1
+    while True:
+        L += 1
+        if n % (2 ** (L - 1)) != 0:
+            break
+        nc = n // (2 ** (L - 1))
+        if nc < 4:
+            break
+        if n_comp * (degree * nc + 1) ** dim <= 8000:
+            best = L
+            break
+    return best

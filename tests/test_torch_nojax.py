@@ -1,0 +1,40 @@
+"""The torch port never imports JAX: a fresh interpreter imports every
+module of the port (and chip_smoke.py), runs one n = 4 step on the CPU and
+the CLI ``check``, and finds no jax module loaded."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+_CODE = """
+import importlib, pkgutil, sys
+import poroelasticity_dealii_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    if not m.name.endswith("__main__"):
+        importlib.import_module(m.name)
+import chip_smoke  # noqa: F401
+from poroelasticity_dealii_torch.cli import main
+from poroelasticity_dealii_torch.solvers.fss import FixedStressSolver
+from poroelasticity_dealii_torch.solvers.structured import \\
+    build_grid_discretization
+data = pkg.read_input_file("configs/consolidation_3d.data")
+s = FixedStressSolver(build_grid_discretization(data, cells_per_axis=4),
+                      data)
+state, stats = s.time_step(s.initial_state(), data.time_step)
+assert stats.cg_converged and stats.fss_iterations >= 1, stats
+assert main(["check", "configs/consolidation_3d.data"]) == 0
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+assert not bad, bad
+print("NO_JAX_OK")
+"""
+
+
+def test_port_imports_and_runs_without_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _CODE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "NO_JAX_OK" in res.stdout
