@@ -2,12 +2,26 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``poroelasticity_dealii_torch/csrc``,
-holds each kernel against its plain PyTorch twin on the card, drives the
-main path (3D Q2/Q1 fixed-stress steps at 40^3, float32, the bench
-configuration) through the port's entry points, cross-checks it against a
-run on the plain twins, runs the CLI on the 3D deck, and prints as its last
-line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.
+Builds the port's CUDA kernels from ``poroelasticity_dealii_torch/csrc``
+(one nvcc per source, in parallel, then one link), holds each kernel
+against its plain PyTorch twin on the card, and drives the port's paths
+through their entry points, each with the kernel launch counts reset just
+before and read just after:
+
+* the main path: 3D Q2/Q1 fixed-stress steps at 40^3, float32, the bench
+  configuration, on the rows backend, cross-checked against a run on the
+  plain twins;
+* the flat-apply path: ``tools/apply_bench`` at 40^3 float32, the flat
+  elasticity kernel through both its entry points (``make_flat_apply``,
+  ``make_grid_elasticity``) held against the conv-backend
+  ``disc.elasticity``;
+* the conv backend: fixed-stress steps at 40^3 float32 on flat vectors,
+  compared with the rows path;
+* the CLI on the 3D deck, on the rows backend and on a copy of the deck
+  with ``Elasticity backend = conv``.
+
+It prints the kernel summary and, as its last line,
+``{"ok": true, "device": {...}}``.  Any failure exits non-zero.
 """
 
 from __future__ import annotations
@@ -27,30 +41,22 @@ import torch
 from poroelasticity_dealii_torch import read_input_file
 from poroelasticity_dealii_torch.ops import _cuda
 from poroelasticity_dealii_torch.ops import comp_major as cm
+from poroelasticity_dealii_torch.ops import elasticity as eg
 from poroelasticity_dealii_torch.solvers.fss import FixedStressSolver
 from poroelasticity_dealii_torch.solvers.structured import \
     build_grid_discretization
+from poroelasticity_dealii_torch.tools import apply_bench
+from poroelasticity_dealii_torch.tools.apply_bench import cuda_time_ms
 
 REPO = Path(__file__).resolve().parent
 
 KERNEL_SHAPES_N = (40, 7)
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}   # relative to max |plain|
-
-
-def cuda_time_ms(fn, reps: int = 20) -> float:
-    """Median device time of ``fn()`` over ``reps`` runs (CUDA events)."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+# published H100 SXM peaks at 700 W (NVIDIA data sheet) and HBM3 bandwidth:
+# float32 outside the tensor cores (TF32 is not float32), float64 on the
+# tensor cores (DMMA, full IEEE float64), the card's highest rate for each
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
+PEAK_BYTES = 3.35e12
 
 
 def _rel_err(got, ref) -> float:
@@ -62,7 +68,8 @@ def kernel_cases(n: int, dtype, dev, ke, ce, pe, free_mask_u, rng):
     """[(name, kernel fn, plain fn)] for every kernel at grid size n."""
     g = 2 * n + 1
     u = rng.standard_normal(g ** 3 * 3)
-    x = cm.to_rows(torch.as_tensor(u, dtype=dtype, device=dev), n)
+    uf = torch.as_tensor(u, dtype=dtype, device=dev)
+    x = cm.to_rows(uf, n)
     m = torch.as_tensor(cm.to_rows_np(free_mask_u, n), dtype=dtype,
                         device=dev)
     xf = x * m                                  # free-subspace input
@@ -87,7 +94,41 @@ def kernel_cases(n: int, dtype, dev, ke, ce, pe, free_mask_u, rng):
         ("projection_rows",
          lambda: cm.projection_rows(x, P, n),
          lambda: cm.projection_rows_plain(x, P, n)),
+        ("elasticity_grid_apply",
+         lambda: eg.elasticity_grid_apply(uf, K, n),
+         lambda: eg.elasticity_grid_apply_plain(uf, K, n)),
     ]
+
+
+def kernel_work(name: str, n: int, dtype) -> tuple:
+    """(bytes, flop) that kernel ``name`` must move and compute at grid
+    size n: each input read once, each output written once, the element
+    products counted as 2 flop per multiply-add plus the masking ops."""
+    rows = (n + 1) * 24 * cm._width(n)        # row-layout array, padded
+    flat = (2 * n + 1) ** 3 * 3               # flat Q2 vector
+    q1 = (n + 1) ** 3                         # flat Q1 vector
+    cells = n ** 3
+    mat = 2 * 81 * 81 * cells
+    elems, flop = {
+        "elasticity_rows_apply[unmasked]": (2 * rows + 81 * 81, mat),
+        "elasticity_rows_apply[free]": (3 * rows + 81 * 81, mat + rows),
+        "elasticity_rows_apply[constrained]": (3 * rows + 81 * 81,
+                                               mat + 5 * rows),
+        "coupling_rows": (q1 + 81 * 8 + rows, 2 * 81 * 8 * cells),
+        "projection_rows": (rows + 48 * 81 + 6 * q1, 2 * 48 * 81 * cells),
+        "elasticity_grid_apply": (2 * flat + 81 * 81, mat),
+    }[name]
+    item = torch.tensor([], dtype=dtype).element_size()
+    return elems * item, flop
+
+
+def bound(name: str, n: int, dtype) -> tuple:
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    flop over the peak rate of ``dtype``."""
+    nbytes, flop = kernel_work(name, n, dtype)
+    t_bytes, t_flop = nbytes / PEAK_BYTES, flop / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_flop) * 1e3,
+            "bytes" if t_bytes >= t_flop else "operations")
 
 
 def kernel_phase(n: int, dtype, dev, ke, ce, pe, free_mask_u, timing: bool):
@@ -109,6 +150,7 @@ def kernel_phase(n: int, dtype, dev, ke, ce, pe, free_mask_u, timing: bool):
         if timing:
             rec["ms"] = cuda_time_ms(kern)
             rec["plain_ms"] = cuda_time_ms(plain)
+            rec["bound_ms"], rec["bound_by"] = bound(name, n, dtype)
         print(json.dumps(rec), flush=True)
         if not (err <= TOL[dtype]):
             raise AssertionError(f"{name} n={n} {dtype}: rel err {err:.3e} "
@@ -133,11 +175,20 @@ KERNEL_INFO = {
         "poroelasticity_dealii_torch/csrc/comp_major.cu",
         "poroelasticity_dealii_tpu/ops/pallas_comp_major.py:1111",
         "projection_rows"),
+    "elasticity_grid_apply": (
+        "poroelasticity_dealii_torch/csrc/elasticity.cu",
+        "poroelasticity_dealii_tpu/ops/pallas_comp_major.py:1363; "
+        "poroelasticity_dealii_tpu/ops/pallas_elasticity.py:108",
+        "elasticity_grid_apply"),
 }
+MAIN_PATH_KERNELS = ("elasticity_rows_apply", "coupling_rows",
+                     "projection_rows")
 BC_RATE = 0.05            # per-step Dirichlet load ramp (bench.py BC_RATE)
 N_EVOLVING, N_STEADY = 5, 3
+N_CONV_EVOLVING, N_CONV_STEADY = 2, 1
 N_MAIN = 40               # 40^3 cells: 81^3*3 + 41^3 = 1,663,244 DOF
 CROSS_TOL = 1e-4          # plain-vs-kernel fields, relative to max |field|
+CLI_PRESSURE_RTOL = 1e-6  # conv vs rows CLI run-log pressure_error
 
 
 def gpu_line() -> str:
@@ -215,22 +266,35 @@ def main_path(dev):
     t0 = time.perf_counter()
     states, stats = run_steps(solver, N_EVOLVING, N_STEADY, log=True)
     torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in cm.KERNEL_WRAPPERS}
+    launches = launch_counts()
+    modes = cm.elasticity_rows_apply.mode_launches
     print(f"main path: initial_state + {N_EVOLVING} evolving + {N_STEADY} "
           f"steady steps in {time.perf_counter() - t0:.2f} s, launches "
-          f"{launches}", flush=True)
+          f"{launches}, elasticity_rows_apply by mode: unmasked "
+          f"{modes[cm.UNMASKED]}, free {modes[cm.FREE]}, constrained "
+          f"{modes[cm.CONSTRAINED]}", flush=True)
+    check_steps(states, stats, disc, N_EVOLVING)
+    for name in MAIN_PATH_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the main "
+                                 "path")
+    return launches, states, stats
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in cm.KERNEL_WRAPPERS}
+
+
+def check_steps(states, stats, disc, n_evolving):
+    """Every field finite with its shape, every solve converged, and
+    mechanics work in every evolving step."""
     for k, (st, s) in enumerate(zip(states, stats), 1):
         check_state(st, disc.n_pdofs, disc.n_udofs)
         if not s.cg_converged:
             raise AssertionError(f"step {k}: a linear solve did not converge")
-    for k, s in enumerate(stats[:N_EVOLVING], 1):
+    for k, s in enumerate(stats[:n_evolving], 1):
         if s.mech_cg_iterations <= 0:
             raise AssertionError(f"evolving step {k}: no mechanics CG work")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"kernel {name} never launched on the main "
-                                 "path")
-    return launches, states, stats
 
 
 def cross_check(dev, states, stats):
@@ -263,31 +327,119 @@ def cross_check(dev, states, stats):
                                      f"rel err {err:.3e} > {CROSS_TOL}")
 
 
+def flat_apply_phase(dev) -> dict:
+    """tools/apply_bench at 40^3 float32: the flat kernel through both its
+    entry points against the conv-backend ``disc.elasticity``, and times."""
+    rec = apply_bench.run(N_MAIN, torch.float32, dev)
+    print(json.dumps({"flat_apply": rec}), flush=True)
+    for entry, count in rec["launches"].items():
+        if count <= 0:
+            raise AssertionError(f"flat kernel never launched through "
+                                 f"{entry}")
+    for entry, err in rec["rel_err_vs_conv"].items():
+        if not err <= TOL[torch.float32]:
+            raise AssertionError(f"flat kernel via {entry} vs conv "
+                                 f"disc.elasticity: rel err {err:.3e}")
+    if not rec["bitwise_repeat"]:
+        raise AssertionError("flat kernel: repeat runs differ")
+    return rec
+
+
+def conv_phase(dev, rows_states):
+    """The conv backend (flat vectors, plain-torch stencils) at 40^3
+    float32: 2 evolving + 1 steady steps; step 1 against the rows path."""
+    data = bench_data()
+    t0 = time.perf_counter()
+    disc = build_grid_discretization(data, cells_per_axis=N_MAIN,
+                                     multigrid="off",
+                                     elasticity_backend="conv", device=dev)
+    solver = FixedStressSolver(disc, data)
+    torch.cuda.synchronize()
+    print(f"conv backend setup: {time.perf_counter() - t0:.2f} s", flush=True)
+    cm.reset_launch_counts()
+    t0 = time.perf_counter()
+    states, stats = run_steps(solver, N_CONV_EVOLVING, N_CONV_STEADY,
+                              log=True)
+    torch.cuda.synchronize()
+    print(f"conv backend: initial_state + {N_CONV_EVOLVING} evolving + "
+          f"{N_CONV_STEADY} steady steps in {time.perf_counter() - t0:.2f} "
+          f"s, launches {launch_counts()}", flush=True)
+    check_steps(states, stats, disc, N_CONV_EVOLVING)
+    for name in ("p", "u"):
+        err = _rel_err(getattr(states[0], name), getattr(rows_states[0],
+                                                         name))
+        print(json.dumps({"conv_vs_rows_step": 1, "field": name,
+                          "max_rel_err": err, "tol": CROSS_TOL}), flush=True)
+        if not err <= CROSS_TOL:
+            raise AssertionError(f"step 1 {name}: conv vs rows rel err "
+                                 f"{err:.3e} > {CROSS_TOL}")
+
+
+def _run_log(path: Path) -> list:
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
 def cli_phase():
-    """The CLI on the 3D deck as written (8^3, float64, 6 steps)."""
+    """The CLI on the 3D deck as written (8^3, float64, 6 steps) and on a
+    copy with ``Elasticity backend = conv``, both at once; their run logs
+    must agree in FSS counts and pressure_error."""
     deck = REPO / "configs" / "consolidation_3d.data"
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(REPO)] + [p for p in [env.get("PYTHONPATH")] if p])
     with tempfile.TemporaryDirectory() as tmp:
+        conv_deck = Path(tmp) / "consolidation_3d_conv.data"
+        conv_deck.write_text(deck.read_text() + "\nsubsection TPU\n"
+                             "  set Elasticity backend = conv\nend\n")
         t0 = time.perf_counter()
-        res = subprocess.run(
-            [sys.executable, "-m", "poroelasticity_dealii_torch", "run",
-             str(deck), "--device", "cuda"], cwd=tmp, env=env,
-            capture_output=True, text=True, timeout=600)
-        sys.stdout.write(res.stderr[-2000:])
-        if res.returncode != 0:
-            raise AssertionError(f"CLI run failed ({res.returncode}):\n"
-                                 f"{res.stdout}\n{res.stderr}")
-        out = Path(tmp) / "solution"
-        vtks = sorted(out.glob("solution-*.vtk"))
-        log = out / "run_log.jsonl"
-        if len(vtks) != 7 or not log.exists():
-            raise AssertionError(f"CLI output incomplete: {len(vtks)} VTK "
-                                 f"files, run log {log.exists()}")
-        n_log = len(log.read_text().splitlines())
-        print(f"cli: {len(vtks)} VTK files, {n_log} run-log records in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        runs = {}
+        for name, path in (("rows", deck), ("conv", conv_deck)):
+            cwd = Path(tmp) / name
+            cwd.mkdir()
+            runs[name] = (cwd, subprocess.Popen(
+                [sys.executable, "-m", "poroelasticity_dealii_torch", "run",
+                 str(path), "--device", "cuda"], cwd=cwd, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        logs = {}
+        try:
+            for name, (cwd, proc) in runs.items():
+                out, err = proc.communicate(timeout=600)
+                sys.stdout.write(f"[cli {name}]\n{err[-2000:]}")
+                if proc.returncode != 0:
+                    raise AssertionError(f"CLI run ({name}) failed "
+                                         f"({proc.returncode}):\n{out}\n"
+                                         f"{err}")
+                sol = cwd / "solution"
+                vtks = sorted(sol.glob("solution-*.vtk"))
+                log = sol / "run_log.jsonl"
+                if len(vtks) != 7 or not log.exists():
+                    raise AssertionError(f"CLI output ({name}) incomplete: "
+                                         f"{len(vtks)} VTK files, run log "
+                                         f"{log.exists()}")
+                logs[name] = _run_log(log)
+                print(f"cli {name}: {len(vtks)} VTK files, "
+                      f"{len(logs[name])} run-log records", flush=True)
+        finally:
+            for _, proc in runs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        print(f"cli: both runs in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    rows, conv = logs["rows"], logs["conv"]
+    if [r["fss_iterations"] for r in rows] != \
+            [r["fss_iterations"] for r in conv]:
+        raise AssertionError("CLI conv vs rows: FSS counts differ")
+    for a, b in zip(rows, conv):
+        pa, pb = a["pressure_error"], b["pressure_error"]
+        print(json.dumps({"cli_step": a["step"], "fss": a["fss_iterations"],
+                          "pressure_error": [pa, pb],
+                          "cg_mechanics": [a["cg_iterations"]["mechanics"],
+                                           b["cg_iterations"]["mechanics"]]}),
+              flush=True)
+        if not abs(pa - pb) <= CLI_PRESSURE_RTOL * abs(pa):
+            raise AssertionError(f"CLI step {a['step']}: pressure_error "
+                                 f"rows {pa} vs conv {pb}")
 
 
 def main() -> int:
@@ -299,8 +451,10 @@ def main() -> int:
           f"cuda {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
     lib = _cuda.library()
-    print(f"kernel build: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {lib.build_seconds:.2f} s) -> {lib.path.name}", flush=True)
+    print(f"kernel build: {time.perf_counter() - t0:.2f} s (nvcc "
+          f"{lib.build_seconds:.2f} s: one process per source, in parallel, "
+          f"{lib.compile_seconds} s each, then one link) -> {lib.path.name}",
+          flush=True)
 
     records = {}
     for n in KERNEL_SHAPES_N:
@@ -315,15 +469,25 @@ def main() -> int:
 
     launches, states, stats = main_path(dev)
     cross_check(dev, states, stats)
+    flat = flat_apply_phase(dev)
+    launches["elasticity_grid_apply"] = sum(flat["launches"].values())
+    conv_phase(dev, states)
+    del states
     cli_phase()
 
     summary = []
     for name, (src, replaces, timed) in KERNEL_INFO.items():
         rec = records[(timed, N_MAIN, "float32")]
-        summary.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-                        "plain_ms": rec["plain_ms"]})
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": replaces, "launches": launches[name],
+                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                 "bound_by": rec["bound_by"],
+                 # no single PyTorch call computes any of these functions
+                 "library_ms": None}
+        if name == "elasticity_grid_apply":
+            entry["conv_ms"] = flat["ms"]["conv disc.elasticity"]
+        summary.append(entry)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,10 @@
 
 A port of ``poroelasticity_dealii_tpu`` (JAX/Pallas) to PyTorch with
 hand-written CUDA kernels for NVIDIA Hopper.  The JAX package stays the
-reference; this package imports ``torch`` and never ``jax``.  It reuses the
-reference's jax-free host modules (deck parser, mesh generators, shape and
-quadrature tables, run logger) and ports everything else.
+reference; this package imports ``torch`` and never ``jax``, and nothing of
+the JAX package: it keeps its own copies of the host modules it needs (deck
+parser ``config``, ``mesh/``, ``ops/shape.py``, ``ops/quadrature.py``,
+``utils/logging_utils.py``) at the same relative paths.
 
 Precision policy: every float32 product runs in full IEEE float32, as the
 reference computes its products at ``Precision.HIGHEST``.  TF32 is switched
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from poroelasticity_dealii_tpu.config import read_input_file  # noqa: F401
+from .config import read_input_file  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -28,7 +28,7 @@ def main(argv=None) -> int:
     sub.add_parser("devices", help="list visible CUDA devices")
     args = parser.parse_args(argv)
 
-    from poroelasticity_dealii_tpu.config import format_deck, read_input_file
+    from .config import format_deck, read_input_file
 
     if args.command == "check":
         data = read_input_file(args.deck)

@@ -13,9 +13,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from poroelasticity_dealii_tpu.config import InputData
-from poroelasticity_dealii_tpu.utils.logging_utils import RunLogger
-
+from ..config import InputData
+from ..utils.logging_utils import RunLogger
 from ..solvers.fss import FixedStressSolver, State
 from ..solvers.structured import build_grid_discretization
 from ..utils.vtk_io import displacement_at_pressure_nodes, write_vtk

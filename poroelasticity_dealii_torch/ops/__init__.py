@@ -1,2 +1,3 @@
-"""Host setup (element matrices, geometry, diagonals) and the operator
-applies: the Q1 slice stencils and the comp-major row-layout kernels."""
+"""Host setup (shape and quadrature tables, geometry, element matrices,
+diagonals) and the operator applies: the stencils, the comp-major
+row-layout kernels and the flat elasticity kernel."""

@@ -1,7 +1,8 @@
 """Build and bind the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources compile with ``nvcc`` for ``sm_90a`` into a shared library with
-a plain C interface, loaded through :mod:`ctypes`.  The build runs at first
+The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
+with a plain C interface, loaded through :mod:`ctypes`: one ``nvcc -c``
+per source, all started together, then one link.  The build runs at first
 use (never at import: the CPU tests import every module) into
 ``build/torch_kernels/`` at the repository root, under a file name keyed on
 a hash of the sources and flags, so a checkout builds everything it needs
@@ -18,23 +19,26 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "comp_major.cu",)
+SOURCES = (_PKG / "csrc" / "comp_major.cu", _PKG / "csrc" / "elasticity.cu")
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # name: argtypes (after the dtype suffix _f32/_f64)
+    # name: argtypes (after the dtype suffix _f32/_f64); the last is the
+    # stream
     "elasticity_rows_apply": (_P, _P, _P, _P, _I, _I, _I, _P),
     "coupling_rows": (_P, _P, _P, _I, _I, _P),
     "projection_rows": (_P, _P, _P, _I, _I, _I, _P),
+    "elasticity_grid_apply": (_P, _P, _I, _P, _P),
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -52,9 +56,13 @@ def _nvcc() -> str:
 class KernelLibrary:
     """The loaded kernel library and the time its build took."""
 
-    def __init__(self, path: Path, build_seconds: float):
+    def __init__(self, path: Path, build_seconds: float,
+                 compile_seconds: dict = None):
         self.path = path
         self.build_seconds = build_seconds   # 0.0 when already built
+        # wall seconds of each source's nvcc (run in parallel): their sum
+        # is what one nvcc over all sources would take, about
+        self.compile_seconds = compile_seconds or {}
         self._lib = ctypes.CDLL(str(path))
         for name, argtypes in _SIGNATURES.items():
             for suffix in _SUFFIX.values():
@@ -71,30 +79,39 @@ class KernelLibrary:
                                f"launch: cudaError {err}")
 
 
+def _nvcc_run(args) -> float:
+    """Run nvcc with ``args``; raise on failure; return its wall seconds."""
+    t0 = time.perf_counter()
+    res = subprocess.run([_nvcc(), *args], capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc {' '.join(args)} failed ({res.returncode})"
+                           f":\n{res.stdout}\n{res.stderr}")
+    return time.perf_counter() - t0
+
+
 def _build() -> KernelLibrary:
     h = hashlib.sha256()
     for src in SOURCES:
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = BUILD_DIR / f"libcomp_major_{h.hexdigest()[:16]}.so"
+    so = BUILD_DIR / f"libtorch_kernels_{h.hexdigest()[:16]}.so"
     if so.exists():
         return KernelLibrary(so, 0.0)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                              *map(str, SOURCES)],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
-        os.replace(tmp, so)     # atomic: concurrent builders never see half
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return KernelLibrary(so, time.perf_counter() - t0)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in SOURCES]
+        # one nvcc per source, all at once (the threads only wait on them);
+        # the pool joins every process before it returns or raises
+        with ThreadPoolExecutor(len(SOURCES)) as pool:
+            seconds = list(pool.map(
+                lambda src, obj: _nvcc_run([*NVCC_FLAGS, "-c", "-o", obj,
+                                            str(src)]), SOURCES, objs))
+        lib = str(Path(tmp) / so.name)
+        _nvcc_run([*NVCC_FLAGS, "-shared", "-o", lib, *objs])
+        os.replace(lib, so)     # atomic: concurrent builders never see half
+    return KernelLibrary(so, time.perf_counter() - t0,
+                         {src.name: s for src, s in zip(SOURCES, seconds)})
 
 
 @functools.cache
@@ -113,3 +130,28 @@ def launch(name: str, tensor: torch.Tensor, *args) -> None:
     with torch.cuda.device(tensor.device):
         stream = torch.cuda.current_stream(tensor.device).cuda_stream
         library().launch(name, tensor.dtype, *conv, stream)
+
+
+def check(name, t, shape, dtype, device):
+    """Raise unless tensor ``t`` has the device, dtype, shape and
+    contiguity a kernel takes."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def require_cuda(x):
+    """Raise unless ``x`` is a float32/float64 CUDA tensor that int32
+    indexing covers."""
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"kernels take float32/float64, got {x.dtype}")
+    if x.numel() >= 2 ** 31:
+        raise ValueError("tensor too large for the kernels' int32 indexing")

@@ -21,6 +21,11 @@ launches its kernel for CUDA tensors, counting launches in its
 ``launches`` attribute.  The plain twins are vectorised over all cells: one
 advanced-index gather of the cells' local values, one matmul with the
 element matrix, one ``index_add_`` over a precomputed flat index.
+
+:func:`make_flat_apply`, the counterpart of ``make_pallas_apply`` (flat u
+in, flat y out), needs no row layout: it reaches the flat kernel of
+:mod:`.elasticity` (``csrc/elasticity.cu``).  :data:`KERNEL_WRAPPERS`
+lists every kernel wrapper of the port.
 """
 
 from __future__ import annotations
@@ -32,9 +37,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from poroelasticity_dealii_tpu.ops.shape import node_lattice
-
 from . import _cuda
+from .elasticity import elasticity_grid_apply, make_grid_elasticity
+from .shape import node_lattice
 
 UNMASKED, FREE, CONSTRAINED = 0, 1, 2
 
@@ -169,27 +174,6 @@ def projection_rows_plain(x, pe, n: int):
 # kernel wrappers: plain twin on CPU tensors, CUDA kernel on CUDA tensors
 # ---------------------------------------------------------------------------
 
-def _check(name, t, shape, dtype, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _require_cuda(x):
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"kernels take float32/float64, got {x.dtype}")
-    if x.numel() >= 2 ** 31:
-        raise ValueError("tensor too large for the kernels' int32 indexing")
-
-
 def elasticity_rows_apply(x, mask, ke, n: int, mode: int):
     """Q2 elasticity apply in the row layout: UNMASKED ``A x``, FREE
     ``m * A x`` (x zero at constrained rows and padding) or CONSTRAINED
@@ -197,18 +181,19 @@ def elasticity_rows_apply(x, mask, ke, n: int, mode: int):
     columns (local node * 3 + comp), x-fastest local nodes."""
     if x.device.type == "cpu":
         return elasticity_rows_apply_plain(x, mask, ke, n, mode)
-    _require_cuda(x)
+    _cuda.require_cuda(x)
     rows = _rows_shape(n)
-    _check("x", x, rows, x.dtype, x.device)
-    _check("ke", ke, (81, 81), x.dtype, x.device)
+    _cuda.check("x", x, rows, x.dtype, x.device)
+    _cuda.check("ke", ke, (81, 81), x.dtype, x.device)
     if mode != UNMASKED:
-        _check("mask", mask, rows, x.dtype, x.device)
+        _cuda.check("mask", mask, rows, x.dtype, x.device)
     elif mask is not None:
         raise ValueError("UNMASKED mode takes no mask")
     y = torch.empty_like(x)
     _cuda.launch("elasticity_rows_apply", x, x, mask, ke, y, n, rows[1],
                  mode)
     elasticity_rows_apply.launches += 1
+    elasticity_rows_apply.mode_launches[mode] += 1
     return y
 
 
@@ -217,9 +202,9 @@ def coupling_rows(p, ce, n: int):
     ((n+1)^3,).  ``ce``: (81, 8), Biot coefficient folded in."""
     if p.device.type == "cpu":
         return coupling_rows_plain(p, ce, n)
-    _require_cuda(p)
-    _check("p", p, ((n + 1) ** 3,), p.dtype, p.device)
-    _check("ce", ce, (81, 8), p.dtype, p.device)
+    _cuda.require_cuda(p)
+    _cuda.check("p", p, ((n + 1) ** 3,), p.dtype, p.device)
+    _cuda.check("ce", ce, (81, 8), p.dtype, p.device)
     y = torch.empty(_rows_shape(n), dtype=p.dtype, device=p.device)
     _cuda.launch("coupling_rows", p, p, ce, y, n, _width(n))
     coupling_rows.launches += 1
@@ -231,11 +216,11 @@ def projection_rows(x, pe, n: int):
     layout.  ``pe``: (8*C, 81), rows (Q1 local node * C + Voigt c)."""
     if x.device.type == "cpu":
         return projection_rows_plain(x, pe, n)
-    _require_cuda(x)
-    _check("x", x, _rows_shape(n), x.dtype, x.device)
+    _cuda.require_cuda(x)
+    _cuda.check("x", x, _rows_shape(n), x.dtype, x.device)
     if pe.shape[0] % 8 or pe.shape[1] != 81:
         raise ValueError(f"pe has shape {tuple(pe.shape)}, expected (8*C, 81)")
-    _check("pe", pe, pe.shape, x.dtype, x.device)
+    _cuda.check("pe", pe, pe.shape, x.dtype, x.device)
     C = pe.shape[0] // 8
     out = torch.empty((C, (n + 1) ** 3), dtype=x.dtype, device=x.device)
     _cuda.launch("projection_rows", x, x, pe, out, n, _width(n), C)
@@ -244,14 +229,33 @@ def projection_rows(x, pe, n: int):
 
 
 elasticity_rows_apply.launches = 0
+# launches by mode (UNMASKED = K5, FREE = K1, CONSTRAINED = K2)
+elasticity_rows_apply.mode_launches = {UNMASKED: 0, FREE: 0, CONSTRAINED: 0}
 coupling_rows.launches = 0
 projection_rows.launches = 0
-KERNEL_WRAPPERS = (elasticity_rows_apply, coupling_rows, projection_rows)
+# every kernel wrapper of the port, with its ``launches`` count
+KERNEL_WRAPPERS = (elasticity_rows_apply, coupling_rows, projection_rows,
+                   elasticity_grid_apply)
 
 
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+    elasticity_rows_apply.mode_launches = dict.fromkeys(
+        elasticity_rows_apply.mode_launches, 0)
+
+
+def make_flat_apply(element_matrix: np.ndarray, n: int, dtype: torch.dtype,
+                    device) -> callable:
+    """``apply(u_flat) -> y_flat``: the Q2 elasticity apply on flat
+    ``((2n+1)^3 * 3,)`` vectors (counterpart of ``make_pallas_apply``,
+    ``pallas_comp_major.py:1413``, whose ``_kernel`` v1 takes the flat
+    vector through ``to_rows``, z-slab blocks and a host stitch of the slab
+    overlaps).  Those are TPU layout steps: here the flat vector goes
+    straight into the hand-written flat kernel
+    (:func:`.elasticity.elasticity_grid_apply`, ``csrc/elasticity.cu``),
+    the same kernel that stands for ``make_pallas_elasticity``."""
+    return make_grid_elasticity(element_matrix, n, dtype, device)
 
 
 # ---------------------------------------------------------------------------

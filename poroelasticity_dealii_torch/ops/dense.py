@@ -8,10 +8,9 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
-from poroelasticity_dealii_tpu.mesh.core import FESpace
-from poroelasticity_dealii_tpu.ops.quadrature import gauss_tensor
-from poroelasticity_dealii_tpu.ops.shape import shape_tables
-
+from ..mesh.core import FESpace
+from .quadrature import gauss_tensor
+from .shape import shape_tables
 from .geometry import geometry_factors
 
 

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from poroelasticity_dealii_tpu.ops.shape import shape_tables
+from .shape import shape_tables
 
 
 def geometry_factors(corner_xyz: np.ndarray, quad_points, quad_weights):

@@ -1,13 +1,106 @@
-"""Scalar Q1 operators on uniform grids as shifted-slice products (port of
-``poroelasticity_dealii_tpu/ops/stencil.py:151-189``, ``_make_q1_slices_apply``).
+"""Operator applies on uniform structured grids (port of
+``poroelasticity_dealii_tpu/ops/stencil.py``).
 
-Carries the pressure mass, Laplace and fused-Jacobian applies and the
-pressure multigrid level operators."""
+On a uniform grid every cell has the same element matrix, so an operator
+apply is a gather of every cell's local values, one product with the
+element matrix over all cells, and a scatter back onto the node grid.
+The JAX package writes the general case as two XLA convolutions
+(``conv_cellwise``, a strided gather conv, and ``conv_scatter``, a one-hot
+transposed conv).  Here the same two steps are strided slices: the gather
+stacks one strided slice of the node grid per local node, and the scatter
+adds each local node's outputs back at its strided slice.  Each slice-add
+touches every grid position at most once, so the result has no atomics and
+no cuDNN algorithm choice in it: it is bitwise repeatable, which the
+mechanics skip-if-unchanged rule needs (it compares right-hand sides
+bitwise).  The product runs in full IEEE float32 (TF32 is off, see the
+package ``__init__``), as the reference's ``Precision.HIGHEST``.
+
+The scalar Q1 case keeps its own shifted-slice form
+(:func:`make_q1_slices_apply`, ``_make_q1_slices_apply`` in the reference),
+which carries the pressure mass, Laplace and fused-Jacobian applies and
+the pressure multigrid level operators.
+"""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .shape import node_lattice
+
+
+def _node_slices(k: int, ns):
+    """Per local node of a degree-``k`` cell (x-fastest lattice): the
+    (z, y, x) strided slices of the node grid that hold that node of every
+    cell.  ``ns``: cells per axis in (x, y, z) order."""
+    dim = len(ns)
+    lat = node_lattice(k, dim)                        # (n_nodes, dim) x-first
+    out = []
+    for off in lat:
+        out.append(tuple(slice(int(off[a]), int(off[a]) + k * (ns[a] - 1) + 1,
+                               k)
+                         for a in reversed(range(dim))))
+    return out
+
+
+def cell_gather(x: torch.Tensor, k: int, ns, n_comp: int) -> torch.Tensor:
+    """Flat dof vector ``[z][y][x][comp]`` on the degree-``k`` node grid ->
+    per-cell local values ``(cells, n_local * n_comp)``, cells z-major,
+    columns ``node * n_comp + comp`` (the element-matrix order)."""
+    grid = tuple(k * n + 1 for n in reversed(ns))
+    X = x.reshape(grid + (n_comp,))
+    U = torch.stack([X[s] for s in _node_slices(k, ns)], dim=-2)
+    return U.reshape(-1, U.shape[-2] * n_comp)
+
+
+def cell_scatter(ye: torch.Tensor, k: int, ns, n_comp: int) -> torch.Tensor:
+    """Inverse placement of :func:`cell_gather`: per-cell local values
+    ``(cells, n_local * n_comp)`` summed onto the degree-``k`` node grid,
+    returned as a flat ``[z][y][x][comp]`` vector.  One strided slice-add
+    per local node, in local-node order."""
+    rev = tuple(reversed(ns))
+    grid = tuple(k * n + 1 for n in rev)
+    slices = _node_slices(k, ns)
+    Ye = ye.reshape(rev + (len(slices), n_comp))
+    Y = torch.zeros(grid + (n_comp,), dtype=ye.dtype, device=ye.device)
+    for a, s in enumerate(slices):
+        Y[s] += Ye[..., a, :]
+    return Y.reshape(-1)
+
+
+def make_stencil_apply(element_matrix: np.ndarray, k_in: int, k_out: int,
+                       n_comp_in: int, n_comp_out: int, dim: int, n_cells,
+                       dtype, device) -> callable:
+    """``apply(x) -> y`` for one operator on a uniform grid.
+
+    ``element_matrix``: (N_out_nodes * n_comp_out, N_in_nodes * n_comp_in),
+    rows and columns ``(node * n_comp + comp)`` with x-fastest local nodes;
+    ``k_in``/``k_out``: the input/output polynomial degrees; ``n_cells``:
+    int or per-axis counts in (x, y, z) order.  Flat vectors are
+    ``[z][y][x][comp]``."""
+    ns = (n_cells,) * dim if np.ndim(n_cells) == 0 else tuple(n_cells)
+    if k_in == k_out == 1 and n_comp_in == n_comp_out == 1:
+        return make_q1_slices_apply(element_matrix, dim, ns, dtype, device)
+    if dim != 3:
+        raise NotImplementedError(
+            "the 2D parity-matmul stencils (_make_parity_matmul_apply) are "
+            "ROADMAP item 5")
+    KT = torch.as_tensor(np.asarray(element_matrix, np.float64).T,
+                         dtype=dtype, device=device)
+
+    def apply(x):
+        return stencil_apply(x, KT, k_in, k_out, ns, n_comp_in, n_comp_out)
+
+    return apply
+
+
+def stencil_apply(x: torch.Tensor, KT: torch.Tensor, k_in: int, k_out: int,
+                  ns, n_comp_in: int, n_comp_out: int) -> torch.Tensor:
+    """One apply of :func:`make_stencil_apply`: gather the cells' local
+    values, one product with ``KT`` (the transposed element matrix) and
+    the slice-add scatter; ``ns``: cells per axis in (x, y, z) order."""
+    return cell_scatter(cell_gather(x, k_in, ns, n_comp_in) @ KT, k_out, ns,
+                        n_comp_out)
 
 
 def make_q1_slices_apply(element_matrix: np.ndarray, dim: int, ns, dtype,

@@ -8,11 +8,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from poroelasticity_dealii_tpu.config import InputData
-from poroelasticity_dealii_tpu.mesh.core import FESpace, Mesh
-from poroelasticity_dealii_tpu.ops.quadrature import gauss_tensor
-from poroelasticity_dealii_tpu.ops.shape import (face_lattice_indices,
-                                                 shape_tables)
+from ..config import InputData
+from ..mesh.core import FESpace, Mesh
+from ..ops.quadrature import gauss_tensor
+from ..ops.shape import face_lattice_indices, shape_tables
 
 
 def _embedded_face_points(local_face: int, pts_f: np.ndarray, dim: int):

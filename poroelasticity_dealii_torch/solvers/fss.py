@@ -2,10 +2,16 @@
 ``poroelasticity_dealii_tpu/solvers/fss.py``).
 
 One time step alternates a pressure inner loop (GMG- or Jacobi-CG on the
-fixed-stress-stabilised flow system) with a mechanics CG in the comp-major
-row layout and a batched strain-projection CG, until the flow residual
-falls below the FSS tolerance; the shear strains are projected once after
-the loop.  The loops run on the host and read one scalar per iteration.
+fixed-stress-stabilised flow system) with a mechanics CG and a batched
+strain-projection CG, until the flow residual falls below the FSS
+tolerance; the shear strains are projected once after the loop.  The loops
+run on the host and read one scalar per iteration.
+
+The mechanics vector is in the comp-major row layout when the
+discretization has a rows kit (``disc.row_ops``) and flat otherwise (the
+conv backend): ``State.u_rows`` is then None and ``State.mech_b`` flat.
+The reference's hanging-node maps (``d._hcu``) are the identity on
+structured grids, so the flat branches leave them out.
 
 Semantics kept from the reference (deliberate quirks):
 
@@ -26,8 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from poroelasticity_dealii_tpu.config import InputData
-
+from ..config import InputData
 from ..ops import dense
 from ..ops.operators import SHEAR_ENTRIES, VOIGT_PAIRS, VOLUMETRIC_ENTRIES
 from ..ops.stencil import make_q1_slices_apply
@@ -83,15 +88,24 @@ class FixedStressSolver:
                 "float64 natively)")
         self.disc, self.data = disc, data
         ro = disc.row_ops
+        self._rows = ro is not None
         # the Dirichlet lift A g uses the UNconstrained operator (the
         # reference's d._hcu.constrained(d.elasticity) is the identity
-        # hanging-node wrap on structured grids)
-        self._dirichlet_rows = ro.to_rows(disc.dirichlet_values)
-        self._lift_rows = ro.apply_rows(self._dirichlet_rows)
-        self._f_neumann_rows = ro.to_rows(disc.f_neumann)
+        # hanging-node wrap on structured grids); by linearity the
+        # bc_scale-dependent lift is bc_scale * lift
+        if self._rows:
+            self._dirichlet = ro.to_rows(disc.dirichlet_values)
+            self._lift = ro.apply_rows(self._dirichlet)
+            self._f_neumann = ro.to_rows(disc.f_neumann)
+            self._free_mask = ro.free_mask_rows
+        else:
+            self._dirichlet = disc.dirichlet_values
+            self._lift = disc.elasticity(disc.dirichlet_values)
+            self._f_neumann = disc.f_neumann
+            self._free_mask = disc.free_mask_u
         self._jac_stencils = {}
         self._p_gmg = {}
-        self._bc_response_rows = None
+        self._bc_response_cache = None
 
     def _cast(self, x: float) -> float:
         return _as_dtype(x, self.disc.dtype)
@@ -156,58 +170,74 @@ class FixedStressSolver:
 
     # ---------------- mechanics solve ---------------------------------------
 
-    def _mechanics_solve(self, p, u_warm_rows, bc_scale=1.0, b_prev=None):
-        """Elasticity solve in the row layout with the pressure-coupling
-        RHS, traction and Dirichlet values scaled by ``bc_scale``.
+    def _mechanics_solve(self, p, u_warm, bc_scale=1.0, b_prev=None):
+        """Elasticity solve with the pressure-coupling RHS, traction and
+        Dirichlet values scaled by ``bc_scale``, on the mechanics vector
+        (rows or flat, see the module docstring).
 
         ``b_prev``: the previous RHS.  When the new RHS is bitwise equal,
         the warm start already solves the system: the tolerance becomes
         inf, so CG stops after its initial residual.
 
-        Returns ``(u_rows, iters, converged, b_rows)``."""
+        Returns ``(u, iters, converged, b)``."""
         d, data = self.disc, self.data
         ro = d.row_ops
-        m = ro.free_mask_rows
-        g = bc_scale * self._dirichlet_rows
-        rhs = ro.coupling_rows(p) + self._f_neumann_rows
-        b = m * (rhs - bc_scale * self._lift_rows) + (1.0 - m) * g
+        m = self._free_mask
+        g = bc_scale * self._dirichlet
+        if self._rows:
+            rhs = ro.coupling_rows(p) + self._f_neumann
+        else:
+            rhs = d.coupling_rhs(p, data.biot_coef) + self._f_neumann
+        b = m * (rhs - bc_scale * self._lift) + (1.0 - m) * g
         # b and x0 carry the Dirichlet values, so every CG direction is
         # zero at constrained rows and the free-subspace apply is exact
-        x0 = m * u_warm_rows + (1.0 - m) * g
+        x0 = m * u_warm + (1.0 - m) * g
         tol = torch.tensor(data.mech_cg_tol, dtype=d.dtype)
         if data.mech_cg_relative:
             tol = tol * torch.linalg.norm(b).cpu()
         tol = float(tol)
         if b_prev is not None and torch.equal(b, b_prev):
             tol = float("inf")
-        res = cg_solve(ro.constrained_apply, b, x0, ro.diag_rows, tol=tol,
-                       max_iter=data.cg_max_iterations,
-                       apply_iter=ro.free_apply, flexible=False)
+        if self._rows:
+            res = cg_solve(ro.constrained_apply, b, x0, ro.diag_rows,
+                           tol=tol, max_iter=data.cg_max_iterations,
+                           apply_iter=ro.free_apply, flexible=False)
+        else:
+            # Jacobi CG only: elasticity GMG and mixed-precision
+            # refinement are not ported (ROADMAP items 6, 7)
+            res = cg_solve(d.elasticity_constrained, b, x0,
+                           d.diag_elasticity, tol=tol,
+                           max_iter=data.cg_max_iterations)
         return res.x, res.iterations, res.converged, b
 
     def _bc_response(self):
-        """du/d(bc_scale) in rows: the constrained solve against the
-        unit-Dirichlet-pattern RHS, computed once.  Constrained rows carry
-        the pattern itself, so ``u + ds * response`` lands on the new
-        boundary values."""
-        if self._bc_response_rows is None:
+        """du/d(bc_scale) on the mechanics vector: the constrained solve
+        against the unit-Dirichlet-pattern RHS, computed once.  Constrained
+        rows carry the pattern itself, so ``u + ds * response`` lands on
+        the new boundary values."""
+        if self._bc_response_cache is None:
             d = self.disc
-            ro = d.row_ops
-            m = ro.free_mask_rows
-            b = m * (-self._lift_rows) + (1.0 - m) * self._dirichlet_rows
+            m = self._free_mask
+            b = m * (-self._lift) + (1.0 - m) * self._dirichlet
             # seeds a warm start only: a few digits suffice
             rel = 1e-8 if d.dtype == torch.float64 else 2e-6
-            res = cg_solve(ro.constrained_apply, b, torch.zeros_like(b),
-                           ro.diag_rows, tol=rel * torch.linalg.norm(b),
-                           max_iter=5000)
-            self._bc_response_rows = res.x
-        return self._bc_response_rows
+            if self._rows:
+                apply, diag = d.row_ops.constrained_apply, d.row_ops.diag_rows
+            else:
+                apply, diag = d.elasticity_constrained, d.diag_elasticity
+            res = cg_solve(apply, b, torch.zeros_like(b), diag,
+                           tol=rel * torch.linalg.norm(b), max_iter=5000)
+            self._bc_response_cache = res.x
+        return self._bc_response_cache
 
     # ---------------- strain projection -------------------------------------
 
-    def _projection_rhs(self, u_rows):
-        """All-Voigt strain-projection RHS (n_voigt, n_pdofs) from u rows."""
-        return self.disc.row_ops.projection_rows(u_rows)
+    def _projection_rhs(self, u):
+        """All-Voigt strain-projection RHS (n_voigt, n_pdofs) from the
+        mechanics vector."""
+        if self._rows:
+            return self.disc.row_ops.projection_rows(u)
+        return self.disc.strain_projection_rhs(u)
 
     def _project(self, entries, warm, rhs_all):
         """L2-project the Voigt components ``entries`` onto the pressure
@@ -230,20 +260,21 @@ class FixedStressSolver:
                         device=d.device)
         p = p0 * fp + d.dirichlet_values_p * (1.0 - fp)
         u0 = torch.zeros(d.n_udofs, dtype=d.dtype, device=d.device)
-        u_rows, _, _, b0 = self._mechanics_solve(
-            p, d.row_ops.to_rows(u0), bc_scale)
+        if self._rows:
+            u0 = d.row_ops.to_rows(u0)
+        u, _, _, b0 = self._mechanics_solve(p, u0, bc_scale)
         vol = VOLUMETRIC_ENTRIES[dim]
         warm = torch.zeros((len(vol), d.n_pdofs), dtype=d.dtype,
                            device=d.device)
-        vol_strains, _, _ = self._project(vol, warm,
-                                          self._projection_rhs(u_rows))
+        vol_strains, _, _ = self._project(vol, warm, self._projection_rhs(u))
         strains = torch.zeros((len(VOIGT_PAIRS[dim]), d.n_pdofs),
                               dtype=d.dtype, device=d.device)
         strains[vol] = vol_strains
         eps_v = vol_strains.sum(0)
         # mech_b = zeros: the first time step always solves
-        return State(p=p, u=d.row_ops.from_rows(u_rows), eps_v=eps_v,
-                     eps_v0=eps_v, strains=strains, u_rows=u_rows,
+        return State(p=p, u=d.row_ops.from_rows(u) if self._rows else u,
+                     eps_v=eps_v, eps_v0=eps_v, strains=strains,
+                     u_rows=u if self._rows else None,
                      mech_b=torch.zeros_like(b0))
 
     # ---------------- one time step -----------------------------------------
@@ -257,16 +288,24 @@ class FixedStressSolver:
         ``bc_scale`` scales the Dirichlet values; passing the previous
         step's ``bc_scale_prev`` superposes the linear response to the
         change onto the mechanics warm start.  ``want_u=False`` leaves
-        ``State.u`` None (u stays in rows; see :meth:`materialize_u`)."""
-        ro = self.disc.row_ops
-        if state.u_rows is None:
-            state = dataclasses.replace(state, u_rows=ro.to_rows(state.u))
-        state = dataclasses.replace(state, u=None)
-        if bc_scale_prev is not None and bc_scale_prev != bc_scale:
-            ds = bc_scale - bc_scale_prev
-            state = dataclasses.replace(
-                state, u_rows=state.u_rows + ds * self._bc_response())
-        return self._time_step_impl(state, dt, bc_scale, want_u)
+        ``State.u`` None on the rows backend (u stays in rows; see
+        :meth:`materialize_u`); on the flat backend it is a no-op."""
+        ds = 0.0 if bc_scale_prev is None else bc_scale - bc_scale_prev
+        if self._rows:
+            if state.u_rows is None:
+                state = dataclasses.replace(
+                    state, u_rows=self.disc.row_ops.to_rows(state.u))
+            state = dataclasses.replace(state, u=None)
+            if ds != 0.0:
+                state = dataclasses.replace(
+                    state, u_rows=state.u_rows + ds * self._bc_response())
+        else:
+            state = dataclasses.replace(state, u_rows=None)
+            if ds != 0.0:
+                state = dataclasses.replace(
+                    state, u=state.u + ds * self._bc_response())
+        return self._time_step_impl(state, dt, bc_scale,
+                                    want_u or not self._rows)
 
     def materialize_u(self, state: State) -> State:
         """Fill ``state.u`` from the row layout after a want_u=False step."""
@@ -320,24 +359,25 @@ class FixedStressSolver:
         # err starts at exactly 2 * pressure_tol, so with fss_tol below it
         # the loop runs at least once and the shear solve reuses its final
         # projection RHS; otherwise the RHS must exist before the loop
+        u = state.u_rows if self._rows else state.u
         if data.fss_tol >= 2.0 * data.pressure_tol:
-            proj_rhs = self._projection_rhs(state.u_rows)
+            proj_rhs = self._projection_rhs(u)
         else:
             proj_rhs = torch.zeros((n_voigt, d.n_pdofs), dtype=d.dtype,
                                    device=d.device)
-        p, eps_v, u_rows = state.p, state.eps_v, state.u_rows
+        p, eps_v = state.p, state.eps_v
         vol_strains = state.strains[vol]
         mech_b = state.mech_b if state.mech_b is not None \
-            else torch.zeros_like(d.row_ops.free_mask_rows)
+            else torch.zeros_like(self._free_mask)
         err = self._cast(2.0 * data.pressure_tol)
         err_hist = np.full((data.max_fss_iterations,), -1.0)
         it = press_total = cg_p = cg_u = cg_proj = 0
         cg_ok = True
         while it < data.max_fss_iterations and err > fss_tol:
             p, eps_v, n_press, it_p, ok_p = pressure_inner(p, eps_v)
-            u_rows, it_u, ok_u, mech_b = self._mechanics_solve(
-                p, u_rows, bc_scale, b_prev=mech_b)
-            proj_rhs = self._projection_rhs(u_rows)
+            u, it_u, ok_u, mech_b = self._mechanics_solve(
+                p, u, bc_scale, b_prev=mech_b)
+            proj_rhs = self._projection_rhs(u)
             vol_strains, it_pr, ok_pr = self._project(vol, vol_strains,
                                                       proj_rhs)
             if resync:
@@ -359,10 +399,13 @@ class FixedStressSolver:
             strains[shear] = shear_strains
             cg_proj += it_sh
             cg_ok = cg_ok and ok_sh
+        if self._rows:
+            u_flat, u_rows = (d.row_ops.from_rows(u) if want_u else None), u
+        else:
+            u_flat, u_rows = u, None
         new_state = State(
-            p=p, u=d.row_ops.from_rows(u_rows) if want_u else None,
-            eps_v=eps_v, eps_v0=state.eps_v0, strains=strains,
-            u_rows=u_rows, mech_b=mech_b)
+            p=p, u=u_flat, eps_v=eps_v, eps_v0=state.eps_v0,
+            strains=strains, u_rows=u_rows, mech_b=mech_b)
         stats = StepStats(
             fss_iterations=it, pressure_error=err,
             pressure_iterations=press_total, pressure_cg_iterations=cg_p,

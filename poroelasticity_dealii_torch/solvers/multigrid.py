@@ -21,12 +21,10 @@ from typing import Callable, List
 import numpy as np
 import torch
 
-from poroelasticity_dealii_tpu.config import InputData
-from poroelasticity_dealii_tpu.mesh.generator import hyper_rectangle
-from poroelasticity_dealii_tpu.mesh.qk import build_fe_space
-from poroelasticity_dealii_tpu.mesh.structured import (build_structured_space,
-                                                       structured_mesh)
-
+from ..config import InputData
+from ..mesh.generator import hyper_rectangle
+from ..mesh.qk import build_fe_space
+from ..mesh.structured import build_structured_space, structured_mesh
 from ..ops import dense
 from ..ops.operators import constrained_apply
 from ..ops.stencil import make_q1_slices_apply

@@ -1,14 +1,27 @@
 """Structured-grid discretization of the 3D Q2/Q1 problem (port of
-``poroelasticity_dealii_tpu/solvers/structured.py:123-184, 186-455``).
+``poroelasticity_dealii_tpu/solvers/structured.py:77-120, 123-184,
+186-455``).
 
 On a uniform grid every cell has the same element matrices, built once on
 the host in float64.  The pressure operators are Q1 slice stencils
-(:mod:`..ops.stencil`); the mechanics runs in the comp-major row layout
-through :class:`..ops.comp_major.ElasticityRowOps`, whose elasticity,
-coupling and projection operators are the hand-written CUDA kernels on a
-CUDA device.  That rows path is the port's only backend so far: other
-dimensions, degrees and backends raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+(:mod:`..ops.stencil`).  Two mechanics backends, chosen by
+``elasticity_backend`` (or the deck's ``TPU / Elasticity backend``):
+
+* ``auto``/``pallas`` (rows): the mechanics runs in the comp-major row
+  layout through :class:`..ops.comp_major.ElasticityRowOps`, whose
+  elasticity, coupling and projection operators are the hand-written CUDA
+  kernels on a CUDA device;
+* ``conv`` (flat): the mechanics runs on flat dof vectors through the
+  plain-torch stencils (gather, one matmul, strided slice-add scatter;
+  ``make_stencil_apply``), JAX's ``ConvGridDiscretization``.  ``auto``
+  resolves to it in the JAX package on every device but a TPU; in the port
+  it must be asked for.
+
+Both backends keep the stencils (``elasticity``, ``coupling_rhs``,
+``strain_projection_rhs``), as JAX's conv discretization does under its
+rows kit.  Other dimensions, degrees, anisotropic grids, elasticity
+multigrid and the 2D parity backend raise ``NotImplementedError`` naming
+the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -19,22 +32,19 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from poroelasticity_dealii_tpu.config import InputData
-from poroelasticity_dealii_tpu.mesh.core import FESpace
-from poroelasticity_dealii_tpu.mesh.generator import (hyper_rectangle,
-                                                      normalize_cells_per_axis)
-from poroelasticity_dealii_tpu.mesh.qk import build_fe_space
-from poroelasticity_dealii_tpu.mesh.structured import (GridInfo,
-                                                       build_structured_space,
-                                                       structured_mesh)
-from poroelasticity_dealii_tpu.ops.quadrature import gauss_tensor
-from poroelasticity_dealii_tpu.ops.shape import shape_tables
-
+from ..config import InputData
+from ..mesh.core import FESpace
+from ..mesh.generator import hyper_rectangle, normalize_cells_per_axis
+from ..mesh.qk import build_fe_space
+from ..mesh.structured import (GridInfo, build_structured_space,
+                               structured_mesh)
+from ..ops.quadrature import gauss_tensor
+from ..ops.shape import shape_tables
 from ..ops import dense
 from ..ops import operators as ops
 from ..ops.comp_major import ElasticityRowOps, make_row_ops
 from ..ops.geometry import geometry_factors
-from ..ops.stencil import make_q1_slices_apply
+from ..ops.stencil import make_q1_slices_apply, make_stencil_apply
 from ..ops.structured import uniform_geometry_factors
 from .discretization import (_body_force_vector, _dirichlet_constraints,
                              _neumann_vector, _pressure_dirichlet,
@@ -62,9 +72,13 @@ class GridDiscretization:
     diag_laplace: torch.Tensor
     lam: float
     mu: float
+    diag_elasticity: torch.Tensor   # (n_udofs,) Jacobi, 1 on Dirichlet
     mass: Callable                  # Q1 mass apply
     laplace: Callable               # Q1 Laplace apply
-    row_ops: ElasticityRowOps
+    stencil_elasticity: Callable    # flat Q2 elasticity apply
+    stencil_coupling: Callable      # flat Q1 p -> Q2 RHS, Biot folded in
+    stencil_projection: Callable    # flat u -> (C, n_pdofs) strain RHS
+    row_ops: Optional[ElasticityRowOps]   # None on the conv backend
     element_ke: np.ndarray          # (81, 81) elasticity, float64
     element_ce: np.ndarray          # (81, 8) coupling, Biot folded in
     element_pe: np.ndarray          # (48, 81) strain projection
@@ -80,6 +94,23 @@ class GridDiscretization:
     @property
     def n_cells(self) -> int:
         return self.pressure_space.mesh.n_cells
+
+    def elasticity(self, u):
+        return self.stencil_elasticity(u)
+
+    def elasticity_constrained(self, u):
+        """Dirichlet-constrained elasticity ``m A(m u) + (1 - m) u`` (the
+        reference's hanging-node wrap is the identity on structured
+        grids)."""
+        return ops.constrained_apply(self.stencil_elasticity,
+                                     self.free_mask_u)(u)
+
+    def coupling_rhs(self, p, biot_coef=None):
+        # biot_coef is folded into the stencil at build time
+        return self.stencil_coupling(p)
+
+    def strain_projection_rhs(self, u):
+        return self.stencil_projection(u)
 
 
 def _single_cell_spaces(data: InputData, cells_per_axis,
@@ -143,12 +174,17 @@ def build_grid_discretization(data: InputData,
                               elasticity_backend: Optional[str] = None,
                               device="cpu",
                               kernels: str = "auto") -> GridDiscretization:
-    """The 3D Q2/Q1 isotropic rows discretization on ``device``.
+    """The 3D Q2/Q1 isotropic discretization on ``device``.
 
+    ``elasticity_backend`` (default: the deck's): ``auto``/``pallas`` for
+    the rows kit, ``conv`` for flat vectors and no ``row_ops``.
     ``kernels="auto"`` sends each row-layout operator through its kernel
     wrapper (CUDA kernel on a CUDA device, plain twin on the CPU);
     ``kernels="plain"`` forces the plain twins on any device, for
-    comparing a run against the kernels."""
+    comparing a run against the kernels.  ``multigrid``: elasticity GMG,
+    which the port does not have; ``auto`` builds none on the rows backend
+    (as the JAX package) and raises on the conv backend where JAX would
+    build it (from 150,000 displacement dofs)."""
     dim = data.dim
     if cells_per_axis is None:
         cells_per_axis = getattr(data, "cells_per_axis", None) \
@@ -162,12 +198,13 @@ def build_grid_discretization(data: InputData,
             f" cells={cells_per_axis} (2D: ROADMAP A9; anisotropic grids and "
             "other degrees: ROADMAP A10)")
     eb = elasticity_backend or data.elasticity_backend
-    if eb not in ("auto", "pallas"):
-        raise NotImplementedError(
-            f"elasticity backend {eb!r}: the torch port has the row-layout "
-            "kernels only (conv stencils: ROADMAP A10; 2D parity: A9)")
+    if eb == "parity":
+        raise NotImplementedError("the 2D parity elasticity backend is "
+                                  "ROADMAP item 5")
+    if eb not in ("auto", "pallas", "conv"):
+        raise ValueError(f"unknown elasticity backend {eb!r}")
     if multigrid not in ("auto", "off", "false", False, None):
-        raise NotImplementedError("elasticity multigrid is ROADMAP A10")
+        raise NotImplementedError("elasticity multigrid is ROADMAP item 6")
     if data.mech_precond != "jacobi":
         raise NotImplementedError("node-block Jacobi is ROADMAP A10")
     if kernels not in ("auto", "plain"):
@@ -224,6 +261,18 @@ def build_grid_discretization(data: InputData,
     Ce = _coupling_element_matrix(cell_mesh, su1, sp1, data.biot_coef)
     Pe = _projection_element_matrix(cell_mesh, su1, sp1)
     n = cells_per_axis[0]
+    if eb == "conv" and _gmg_levels(n, dim, n_udofs, multigrid) >= 2:
+        raise NotImplementedError(
+            f"multigrid={multigrid!r} on the conv backend at {n_udofs} "
+            "displacement dofs builds elasticity GMG in the JAX package; "
+            "the port has none yet (ROADMAP item 6): pass multigrid='off'")
+    C = len(ops.VOIGT_PAIRS[dim])
+    mk = lambda M, kin, kout, ci, co: make_stencil_apply(  # noqa: E731
+        M, kin, kout, ci, co, dim, cells_per_axis, dtype, device)
+    proj_raw = mk(Pe, displacement_degree, pressure_degree, dim, C)
+
+    def st_proj(u):
+        return proj_raw(u).reshape(-1, C).T         # (C, n_pdofs)
 
     dev = lambda a: torch.as_tensor(  # noqa: E731
         np.asarray(a, np.float64), dtype=dtype, device=device)
@@ -235,11 +284,16 @@ def build_grid_discretization(data: InputData,
         f_neumann=dev(f_neumann), f_well=dev(f_well),
         free_mask_p=dev(free_p_np), dirichlet_values_p=dev(dirichlet_p_np),
         diag_mass=dev(diag_mass), diag_laplace=dev(diag_lap),
-        lam=lam, mu=mu,
+        diag_elasticity=dev(diag_el), lam=lam, mu=mu,
         mass=make_q1_slices_apply(Me, dim, cells_per_axis, dtype, device),
         laplace=make_q1_slices_apply(Le, dim, cells_per_axis, dtype, device),
-        row_ops=make_row_ops(Ke, n, free_np, diag_el, Ce, Pe, dtype, device,
-                             plain=kernels == "plain"),
+        stencil_elasticity=mk(Ke, displacement_degree, displacement_degree,
+                              dim, dim),
+        stencil_coupling=mk(Ce, pressure_degree, displacement_degree, 1, dim),
+        stencil_projection=st_proj,
+        row_ops=None if eb == "conv" else make_row_ops(
+            Ke, n, free_np, diag_el, Ce, Pe, dtype, device,
+            plain=kernels == "plain"),
         element_ke=Ke, element_ce=Ce, element_pe=Pe)
 
 

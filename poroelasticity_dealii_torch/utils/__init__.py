@@ -1,1 +1,1 @@
-"""Host-side utilities: VTK output."""
+"""Host-side utilities: the JSONL run log and VTK output."""

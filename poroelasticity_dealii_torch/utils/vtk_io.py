@@ -22,9 +22,8 @@ import os
 
 import numpy as np
 
-from poroelasticity_dealii_tpu.mesh.core import FESpace
-from poroelasticity_dealii_tpu.ops.shape import node_lattice
-
+from ..mesh.core import FESpace
+from ..ops.shape import node_lattice
 from ..ops.operators import VOIGT_PAIRS
 
 _VTK_CELL_TYPE = {1: 3, 2: 9, 3: 12}  # VTK_LINE, VTK_QUAD, VTK_HEXAHEDRON

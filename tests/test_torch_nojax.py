@@ -1,6 +1,10 @@
-"""The torch port never imports JAX: a fresh interpreter imports every
-module of the port (and chip_smoke.py), runs one n = 4 step on the CPU and
-the CLI ``check``, and finds no jax module loaded."""
+"""The torch port loads nothing of JAX and nothing of the JAX package: a
+fresh interpreter imports every module of the port (and chip_smoke.py),
+runs one n = 4 step on the CPU on each mechanics backend (rows and conv)
+and the CLI ``check``, and finds no module of ``jax``, ``jaxlib`` or
+``poroelasticity_dealii_tpu`` loaded (the port keeps its own copies of the
+host modules it needs; ``tests/test_torch_vendored.py`` holds them equal to
+the originals)."""
 
 import os
 import subprocess
@@ -21,12 +25,17 @@ from poroelasticity_dealii_torch.solvers.fss import FixedStressSolver
 from poroelasticity_dealii_torch.solvers.structured import \\
     build_grid_discretization
 data = pkg.read_input_file("configs/consolidation_3d.data")
-s = FixedStressSolver(build_grid_discretization(data, cells_per_axis=4),
-                      data)
-state, stats = s.time_step(s.initial_state(), data.time_step)
-assert stats.cg_converged and stats.fss_iterations >= 1, stats
+for backend in ("auto", "conv"):
+    d = build_grid_discretization(data, cells_per_axis=4,
+                                  elasticity_backend=backend)
+    assert (d.row_ops is None) == (backend == "conv")
+    s = FixedStressSolver(d, data)
+    state, stats = s.time_step(s.initial_state(), data.time_step)
+    assert stats.cg_converged and stats.fss_iterations >= 1, stats
 assert main(["check", "configs/consolidation_3d.data"]) == 0
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib",
+                                    "poroelasticity_dealii_tpu"))
 assert not bad, bad
 print("NO_JAX_OK")
 """

@@ -1,0 +1,122 @@
+"""The port keeps its own copies of the JAX package's host modules
+(``config``, ``mesh/``, ``ops/shape.py``, ``ops/quadrature.py``,
+``utils/logging_utils.py``) and imports nothing of the JAX package.
+
+* No import line of the port or ``chip_smoke.py`` names the JAX package
+  (``tests/test_torch_nojax.py`` checks in a fresh interpreter that none
+  of it is loaded).
+* The copies agree with the originals exactly: every deck in ``configs/``
+  parses to equal fields, and the shape, quadrature, lattice, mesh and
+  structured-space arrays are bitwise equal, for dims 2 and 3 and degrees
+  1 and 2.
+"""
+
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from poroelasticity_dealii_torch import config as tconfig
+from poroelasticity_dealii_torch.mesh import generator as tgen
+from poroelasticity_dealii_torch.mesh import qk as tqk
+from poroelasticity_dealii_torch.mesh import structured as tstr
+from poroelasticity_dealii_torch.ops import quadrature as tquad
+from poroelasticity_dealii_torch.ops import shape as tshape
+
+REPO = Path(__file__).resolve().parent.parent
+DECKS = sorted(p.name for p in (REPO / "configs").glob("*.data"))
+
+
+def test_no_import_line_names_the_jax_package():
+    files = list((REPO / "poroelasticity_dealii_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    for f in files:
+        for line in f.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]):
+                assert "poroelasticity_dealii_tpu" not in line, (f, line)
+
+
+def test_mesh_package_has_no_gmsh_reader():
+    import poroelasticity_dealii_torch.mesh as tmesh
+    assert not hasattr(tmesh, "read_msh")
+    assert not (REPO / "poroelasticity_dealii_torch" / "mesh"
+                / "gmsh_io.py").exists()
+
+
+@pytest.mark.parametrize("deck", DECKS)
+def test_deck_parse_equals_jax(deck):
+    from poroelasticity_dealii_tpu import config as jconfig
+    path = str(REPO / "configs" / deck)
+    got, want = tconfig.read_input_file(path), jconfig.read_input_file(path)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert tconfig.format_deck(got) == jconfig.format_deck(want)
+    # derived moduli come from the same formulas
+    for name in ("lame_constant", "shear_modulus", "bulk_modulus",
+                 "m_modulus"):
+        assert getattr(got, name) == getattr(want, name)
+
+
+def test_tpu_subsection_parses_like_jax():
+    from poroelasticity_dealii_tpu import config as jconfig
+    text = ((REPO / "configs" / "consolidation_3d.data").read_text()
+            + "\nsubsection TPU\n  set Elasticity backend = conv\n"
+              "  set Dtype = float32\nend\n")
+    assert tconfig.parse_deck(text) == jconfig.parse_deck(text)
+    got = tconfig.from_entries(tconfig.parse_deck(text))
+    want = jconfig.from_entries(jconfig.parse_deck(text))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert (got.elasticity_backend, got.dtype) == ("conv", "float32")
+    bad = text.replace("Dtype", "No such key")
+    for mod in (tconfig, jconfig):
+        with pytest.raises(KeyError, match="No such key"):
+            mod.from_entries(mod.parse_deck(bad))
+
+
+def _eq(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.dtype == b.dtype and a.shape == b.shape
+    np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("dim,degree", [(2, 1), (2, 2), (3, 1), (3, 2)])
+def test_host_arrays_bitwise_equal_jax(dim, degree):
+    from poroelasticity_dealii_tpu.mesh import generator as jgen
+    from poroelasticity_dealii_tpu.mesh import qk as jqk
+    from poroelasticity_dealii_tpu.mesh import structured as jstr
+    from poroelasticity_dealii_tpu.ops import quadrature as jquad
+    from poroelasticity_dealii_tpu.ops import shape as jshape
+
+    for nq in (degree + 1, degree + 2):
+        for a, b in zip(tquad.gauss_tensor(nq, dim),
+                        jquad.gauss_tensor(nq, dim)):
+            _eq(a, b)
+    pts, _ = jquad.gauss_tensor(degree + 1, dim)
+    for a, b in zip(tshape.shape_tables(degree, dim, pts),
+                    jshape.shape_tables(degree, dim, pts)):
+        _eq(a, b)
+    _eq(tshape.node_lattice(degree, dim), jshape.node_lattice(degree, dim))
+    for a, b in zip(tshape.face_lattice_indices(degree, dim),
+                    jshape.face_lattice_indices(degree, dim)):
+        _eq(a, b)
+
+    size = (10.0, 7.0, 5.0)[:dim]
+    cells = (3, 2, 4)[:dim]
+    for got, want in ((tgen.hyper_rectangle(size, cells_per_axis=cells),
+                       jgen.hyper_rectangle(size, cells_per_axis=cells)),
+                      (tgen.hyper_rectangle(size, refinement_level=2),
+                       jgen.hyper_rectangle(size, refinement_level=2))):
+        for f in dataclasses.fields(want):
+            _eq(getattr(got, f.name), getattr(want, f.name))
+    mesh_t = tstr.structured_mesh(size, cells)
+    mesh_j = jstr.structured_mesh(size, cells)
+    (sp_t, info_t) = tstr.build_structured_space(mesh_t, cells, degree)
+    (sp_j, info_j) = jstr.build_structured_space(mesh_j, cells, degree)
+    assert dataclasses.asdict(info_t) == dataclasses.asdict(info_j)
+    for name in ("node_coords", "cell_nodes"):
+        _eq(getattr(sp_t, name), getattr(sp_j, name))
+    fe_t, fe_j = tqk.build_fe_space(mesh_t, degree), \
+        jqk.build_fe_space(mesh_j, degree)
+    for name in ("node_coords", "cell_nodes"):
+        _eq(getattr(fe_t, name), getattr(fe_j, name))
