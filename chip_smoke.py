@@ -3,10 +3,14 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``poroelasticity_dealii_torch/csrc``
-(one nvcc per source, in parallel, then one link), holds each kernel
-against its plain PyTorch twin on the card, and drives the port's paths
-through their entry points, each with the kernel launch counts reset just
-before and read just after:
+(one nvcc per source, in parallel, then one link), checks with
+``cuobjdump -sass`` that the float64 elasticity products run on the tensor
+cores (DMMA) and no float32 kernel does, holds each kernel against its
+plain PyTorch twin on the card (n = 40, timed; n = 21 and 7), times the
+row-layout apply's library yardstick (a cuSPARSE CSR SpMV over the
+assembled operator), and drives the port's paths through their entry
+points, each with the kernel launch counts reset just before and read just
+after:
 
 * the main path: 3D Q2/Q1 fixed-stress steps at 40^3, float32, the bench
   configuration, on the rows backend, cross-checked against a run on the
@@ -26,9 +30,10 @@ It prints the kernel summary and, as its last line,
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -38,7 +43,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from poroelasticity_dealii_torch import read_input_file
 from poroelasticity_dealii_torch.ops import _cuda
 from poroelasticity_dealii_torch.ops import comp_major as cm
 from poroelasticity_dealii_torch.ops import elasticity as eg
@@ -46,11 +50,14 @@ from poroelasticity_dealii_torch.solvers.fss import FixedStressSolver
 from poroelasticity_dealii_torch.solvers.structured import \
     build_grid_discretization
 from poroelasticity_dealii_torch.tools import apply_bench
-from poroelasticity_dealii_torch.tools.apply_bench import cuda_time_ms
+from poroelasticity_dealii_torch.tools.apply_bench import cuda_time_ms, \
+    device_and_host_ms
+from poroelasticity_dealii_torch.tools.profile_step import BC_RATE, \
+    bench_data
 
 REPO = Path(__file__).resolve().parent
 
-KERNEL_SHAPES_N = (40, 7)
+KERNEL_SHAPES_N = (40, 21, 7)    # 40 timed; 21 gives ragged product tiles
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}   # relative to max |plain|
 # published H100 SXM peaks at 700 W (NVIDIA data sheet) and HBM3 bandwidth:
 # float32 outside the tensor cores (TF32 is not float32), float64 on the
@@ -148,7 +155,7 @@ def kernel_phase(n: int, dtype, dev, ke, ce, pe, free_mask_u, timing: bool):
                "max_abs_err": (y1 - ref).abs().max().item(),
                "max_rel_err": err, "bitwise_repeat": bitwise}
         if timing:
-            rec["ms"] = cuda_time_ms(kern)
+            rec["ms"], rec["host_ms"] = device_and_host_ms(kern)
             rec["plain_ms"] = cuda_time_ms(plain)
             rec["bound_ms"], rec["bound_by"] = bound(name, n, dtype)
         print(json.dumps(rec), flush=True)
@@ -183,7 +190,6 @@ KERNEL_INFO = {
 }
 MAIN_PATH_KERNELS = ("elasticity_rows_apply", "coupling_rows",
                      "projection_rows")
-BC_RATE = 0.05            # per-step Dirichlet load ramp (bench.py BC_RATE)
 N_EVOLVING, N_STEADY = 5, 3
 N_CONV_EVOLVING, N_CONV_STEADY = 2, 1
 N_MAIN = 40               # 40^3 cells: 81^3*3 + 41^3 = 1,663,244 DOF
@@ -196,16 +202,6 @@ def gpu_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-
-
-def bench_data():
-    """The bench configuration (bench.py::build): the 3D consolidation deck
-    in float32 with tolerances that keep every solver working each step."""
-    data = read_input_file(str(REPO / "configs" / "consolidation_3d.data"))
-    return dataclasses.replace(
-        data, dtype="float32", flow_rate=1e-2, fss_tol=2e-5,
-        pressure_tol=2e-5, mech_cg_tol=1e-5, mech_cg_relative=True,
-        pressure_cg_tol=1e-5, projection_cg_tol=1e-5)
 
 
 def run_steps(solver, n_evolving, n_steady, log):
@@ -442,6 +438,80 @@ def cli_phase():
                                  f"rows {pa} vs conv {pb}")
 
 
+TENSOR_CORE_OP = re.compile(r"\b([DHIBQ]G?MMA)\b")
+
+
+def sass_check(lib_path: Path) -> dict:
+    """Tensor-core instructions per elasticity kernel in the built library
+    (``cuobjdump -sass``): the float64 product pass must hold DMMA and no
+    float32 kernel any tensor-core instruction (no TF32)."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    ops, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            ops[name] = {}
+        elif name is not None:
+            for op in TENSOR_CORE_OP.findall(line):
+                ops[name][op] = ops[name].get(op, 0) + 1
+    # mangled (kernelId / kernelIf) or demangled (kernel<double / <float)
+    products64 = [k for k in ops if re.search(
+        r"elasticity_rows_products_kernel(Id|<double)", k)]
+    float32 = [k for k in ops if re.search(r"kernel(If|<float)", k)]
+    rec = {"sass": {k: v for k, v in ops.items() if "elasticity" in k}}
+    print(json.dumps(rec), flush=True)
+    if not products64 or not all(ops[k].get("DMMA", 0) > 0 and
+                                 set(ops[k]) == {"DMMA"}
+                                 for k in products64):
+        raise AssertionError(f"float64 products without DMMA: {products64}")
+    if not float32 or any(ops[k] for k in float32):
+        raise AssertionError("a float32 kernel holds tensor-core "
+                             f"instructions: {[ops[k] for k in float32]}")
+    return rec
+
+
+def library_phase(dev, d, records):
+    """The row-layout FREE apply's library yardstick at 40^3: one cuSPARSE
+    CSR SpMV (``torch.mv``) over the operator assembled on the card with the
+    FREE mask folded into its rows, in float64 and float32, held against
+    the kernel; the matrix is freed right after."""
+    n = N_MAIN
+    rng = np.random.default_rng(n)
+    t0 = time.perf_counter()
+    ke = torch.as_tensor(d.element_ke, dtype=torch.float64, device=dev)
+    m = torch.as_tensor(cm.to_rows_np(d.free_mask_u.numpy(), n),
+                        dtype=torch.float64, device=dev)
+    M64 = apply_bench.rows_free_csr(ke, m, n)
+    torch.cuda.synchronize()
+    assembly_s = time.perf_counter() - t0
+    x = cm.to_rows(torch.as_tensor(rng.standard_normal(d.n_udofs),
+                                   device=dev), n) * m
+    out = {"assembly_s": assembly_s, "nnz": M64._nnz()}
+    for dtype in (torch.float64, torch.float32):
+        M = M64 if dtype == torch.float64 else torch.sparse_csr_tensor(
+            M64.crow_indices(), M64.col_indices(), M64.values().float(),
+            M64.shape)
+        xd, md, kd = x.to(dtype), m.to(dtype), ke.to(dtype)
+        ms, y = apply_bench.rows_spmv_ms(M, xd)
+        ref = cm.elasticity_rows_apply(xd, md, kd, n, cm.FREE)
+        err = _rel_err(y, ref)
+        name = str(dtype).split(".")[-1]
+        out[name] = {"library_ms": ms, "rel_err_vs_kernel": err}
+        records[("elasticity_rows_apply[free]", n, name)]["library_ms"] = ms
+        del M
+        if not err <= TOL[torch.float32]:
+            raise AssertionError(f"CSR SpMV vs kernel ({name}): rel err "
+                                 f"{err:.3e}")
+    del M64
+    torch.cuda.empty_cache()
+    print(json.dumps({"library_csr_spmv": out}), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -456,6 +526,7 @@ def main() -> int:
           f"{lib.compile_seconds} s each, then one link) -> {lib.path.name}",
           flush=True)
 
+    sass_check(lib.path)
     records = {}
     for n in KERNEL_SHAPES_N:
         d = build_grid_discretization(bench_data(), cells_per_axis=n,
@@ -466,6 +537,8 @@ def main() -> int:
                                     d.element_ce, d.element_pe, mask,
                                     timing=(n == N_MAIN)):
                 records[(rec["name"], n, rec["dtype"])] = rec
+        if n == N_MAIN:
+            library_phase(dev, d, records)
 
     launches, states, stats = main_path(dev)
     cross_check(dev, states, stats)
@@ -483,8 +556,9 @@ def main() -> int:
                  "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                  "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                  "bound_by": rec["bound_by"],
-                 # no single PyTorch call computes any of these functions
-                 "library_ms": None}
+                 # the CSR SpMV for the FREE apply; no single PyTorch call
+                 # computes the other functions
+                 "library_ms": rec.get("library_ms")}
         if name == "elasticity_grid_apply":
             entry["conv_ms"] = flat["ms"]["conv disc.elasticity"]
         summary.append(entry)

@@ -24,8 +24,10 @@ torch.backends.cudnn.allow_tf32 = False
 __version__ = "0.1.0"
 
 
-def resolve_device(name: str = "cuda") -> torch.device:
-    """``"cuda"``/``"cuda:N"``/``"cpu"`` -> :class:`torch.device`.
+def resolve_device(name="cuda") -> torch.device:
+    """``"cuda"``/``"cuda:N"``/``"cpu"`` (or a :class:`torch.device`) ->
+    :class:`torch.device`.  Every entry point of the port defaults to
+    ``"cuda"`` and resolves its device here.
 
     Raises when a CUDA device is asked for and none is visible; never
     falls back to the CPU."""

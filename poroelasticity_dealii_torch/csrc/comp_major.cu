@@ -1,29 +1,22 @@
 // Hand-written Hopper kernels for the 3D Q2/Q1 structured-grid operators in
 // the comp-major row layout (see poroelasticity_dealii_torch/ops/comp_major.py
-// for the layout and the plain PyTorch twin of every kernel here).
+// for the layout, the launch plan and the plain PyTorch twin of every kernel
+// here).
 //
 // Row layout of a Q2 displacement vector on an n^3 grid: rows
 // zh*24 + ((pz*2 + py)*2 + px)*3 + c, lanes yh*(n+1) + xh, W lanes per row,
 // for the node (x, y, z) = (2xh+px, 2yh+py, 2zh+pz) and component c.
 // Padding lanes and rows (nodes past 2n on any axis) are zero.
 //
-// Every kernel is OUTPUT-centric: one thread owns the outputs of one node
-// (its three components for the elasticity apply, one value for the
-// right-hand sides) and sums the contributions of the <= 8 cells that touch
-// the node, so there are no float atomics and the result is bitwise
-// repeatable (the solver's skip-if-unchanged rule compares mechanics
-// right-hand sides bitwise).
+// No kernel here uses float atomics: every output value is summed by one
+// thread in a fixed order, so the results repeat bitwise (the solver's
+// skip-if-unchanged rule compares mechanics right-hand sides bitwise).
 //
-// Shared bound and design (H100): the element products are small dense
-// matvecs (81x81, 81x8, 48x81 per cell) that each node recomputes for its
-// own rows only, so a thread reads <= 8*81 operand values and does up to
-// 3*8*81 FMAs.  The operand reads of neighbouring threads (neighbouring
-// lanes of one row: the same parity) hit neighbouring addresses and the
-// same element-matrix rows, so they coalesce and the matrix reads are
-// warp-uniform L1 broadcasts.  The kernels are bound by L1/L2 load
-// throughput of these repeated operand reads, not by DRAM (the 7 MB f32
-// vector stays in the 50 MB L2) nor by FLOPs.  Shared-memory tiling of a
-// z-slab and tensor-core products are later work.
+// The elasticity apply (K1/K2/K5 below) is two launches: a cell-centric
+// product pass on tiles of cells and an output-centric node-sum pass.  The
+// coupling and projection right-hand sides are one output-centric launch
+// each: one thread owns one output value and re-gathers the <= 8 cells
+// that touch it, reading the element matrix as warp-uniform L1 broadcasts.
 
 #include <cuda_runtime.h>
 
@@ -33,7 +26,8 @@ constexpr int kUnmasked = 0;     // y = A x
 constexpr int kFree = 1;         // y = m * A x        (x in the free subspace)
 constexpr int kConstrained = 2;  // y = m * A(m x) + (1 - m) x
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;    // the output-centric kernels
+constexpr int kLocal = 81;       // 27 local Q2 nodes x 3 components
 
 // Cells touching node index 2h+p along one axis, as (cell index, local
 // Q2 offset 0..2); returns how many (1 or 2).
@@ -79,34 +73,6 @@ __device__ __forceinline__ T cell_dot81(const T* __restrict__ krow,
   return s;
 }
 
-// The three rows (a*3 + 0..2) of the element matrix dotted with one
-// cell's 81 values (optionally masked): each operand is loaded once for
-// all three output components of a node.
-template <typename T, bool MASKED>
-__device__ __forceinline__ void cell_dot81x3(const T* __restrict__ k0,
-                                             const T* __restrict__ x,
-                                             const T* __restrict__ m,
-                                             int cell, int n1, int W,
-                                             T* s) {
-  T s0 = T(0), s1 = T(0), s2 = T(0);
-#pragma unroll
-  for (int q = 0; q < 27; ++q) {
-    const int j0 = cell + q2_node_offset(q, n1, W);
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const int j = j0 + c * W;
-      T v = __ldg(x + j);
-      if (MASKED) v *= __ldg(m + j);
-      s0 += __ldg(k0 + q * 3 + c) * v;
-      s1 += __ldg(k0 + 81 + q * 3 + c) * v;
-      s2 += __ldg(k0 + 162 + q * 3 + c) * v;
-    }
-  }
-  s[0] += s0;
-  s[1] += s1;
-  s[2] += s2;
-}
-
 // Decoded output position of a row-layout thread.
 struct RowPos {
   int zh, yh, xh, pz, py, px, c;
@@ -131,23 +97,298 @@ __device__ __forceinline__ RowPos decode_row(int idx, int n, int W) {
   return r;
 }
 
-// Replaces poroelasticity_dealii_tpu/ops/pallas_comp_major.py _kernel_v2
-// (make_pallas_apply_rows), _kernel_v3 (make_pallas_constrained_apply) and
-// _kernel_v4 (make_pallas_free_apply): the Q2 elasticity apply, row layout
-// in and out, in the three masking modes.  One thread owns one node's three
-// components (rows zh*24 + par*3 + c, c = 0..2, of one lane), so each
-// gathered operand feeds three element-matrix rows.
+// ---------------------------------------------------------------------------
+// The Q2 elasticity apply (K1, K2, K5)
+//
+// Replaces poroelasticity_dealii_tpu/ops/pallas_comp_major.py _kernel_v4
+// (make_pallas_free_apply, K1), _kernel_v3 (make_pallas_constrained_apply,
+// K2) and _kernel_v2 (make_pallas_apply_rows, K5): the Q2 elasticity apply,
+// row layout in and out, in the three masking modes.  The TPU kernels
+// gather one cell layer, multiply it by K (81 x 81) in one matrix product
+// and scatter it with a z-carry through a sequential grid.
+//
+// Bound (H100, 700 W): one apply at n = 40 is 2*81*81*n^3 = 0.84 GFLOP
+// against ~14-21 MB of compulsory f32 traffic (x, mask, y), so it is bound
+// by operations: 12.5 us at the 67 TFLOP/s of float32 outside the tensor
+// cores (TF32 is not float32, and the reference multiplies at
+// Precision.HIGHEST) and of float64 on the tensor cores (DMMA).  The
+// first design, a thread per node re-gathering its <= 8 cells, issued one
+// load per three FMAs and was bound by the load pipe (11x the bound in
+// f32, 22x in f64).
+//
+// Design: two launches, no atomics.
+//  1. Products, cell-centric (elasticity_rows_products_kernel): a
+//     persistent grid of at most one resident wave; each block loads K once
+//     into shared memory, zero-padded to the product's tile shape, then
+//     walks tiles of kCells consecutive cells (z, y, x order).  It gathers
+//     the tile's 81 x kCells operand matrix X_E from the row layout into
+//     shared memory with cp.async (CONSTRAINED: batched loads times the
+//     mask),
+//     computes Y_E = K X_E and writes it to the scratch ye (81, stride),
+//     cell fastest.  float32: each thread owns a 12 x 8 register tile of
+//     Y_E and reads K and X_E as float4 (K warp-uniform: broadcasts), so 5
+//     loads feed 96 FMAs.  float64: mma.sync m16n8k8 (sm_90) on the tensor
+//     cores (DMMA) with the cells as the M side, each warp a 16-cell x 88
+//     tile of Y_E^T.  A variant without the gather took ~80% of the
+//     product pass's time at n = 40 (PERF.md): the products bound it.
+//  2. Node sums, output-centric (elasticity_rows_sum_kernel): one thread
+//     per node adds its <= 8 cells' entries of ye in a fixed cell order,
+//     applies the mode and writes the row layout.
+// ---------------------------------------------------------------------------
+
+// Pass-1 tile shapes; ops/comp_major.py::rows_apply_plan mirrors them and
+// passes the dynamic shared-memory bytes, which the launcher checks.
+template <typename T>
+struct ProductTile;
+
+template <>
+struct ProductTile<float> {
+  static constexpr int kCells = 256;    // cells per tile
+  static constexpr int kThreads = 224;  // warp w: rows 12w..12w+11 of Y_E
+  static constexpr int kMinBlocks = 2;  // resident blocks per SM
+  static constexpr int kKRows = 81;     // K^T[b][a], a padded to 84
+  static constexpr int kKCols = 84;
+  static constexpr int kXRows = 81;     // X_E[b][cell]
+  static constexpr int kXStride = 256;
+};
+
+template <>
+struct ProductTile<double> {
+  static constexpr int kCells = 64;
+  static constexpr int kThreads = 128;  // warp w: cells 16w..16w+15
+  static constexpr int kMinBlocks = 2;
+  static constexpr int kKRows = 88;     // K[a][b], 88 x 88 zero-padded; row
+  static constexpr int kKCols = 92;     // stride 92 and X_E's 68 keep each
+  static constexpr int kXRows = 88;     // fragment load at two wavefronts
+  static constexpr int kXStride = 68;   // (no bank conflict); X_E[b][cell]
+};
+
+template <typename T>
+constexpr int product_smem_bytes() {
+  using P = ProductTile<T>;
+  return (P::kKRows * P::kKCols + P::kXRows * P::kXStride) *
+             static_cast<int>(sizeof(T)) +
+         (P::kCells + kLocal) * static_cast<int>(sizeof(int));
+}
+
+// Element matrix into shared memory in the layout its product reads.
+__device__ __forceinline__ void load_k(float* ks, const float* ke) {
+  using P = ProductTile<float>;
+  for (int i = threadIdx.x; i < P::kKRows * P::kKCols; i += P::kThreads) {
+    const int b = i / P::kKCols, a = i - b * P::kKCols;
+    ks[i] = a < kLocal ? ke[a * kLocal + b] : 0.f;
+  }
+}
+
+__device__ __forceinline__ void load_k(double* ks, const double* ke) {
+  using P = ProductTile<double>;
+  for (int i = threadIdx.x; i < P::kKRows * P::kKCols; i += P::kThreads) {
+    const int a = i / P::kKCols, b = i - a * P::kKCols;
+    ks[i] = (a < kLocal && b < kLocal) ? ke[a * kLocal + b] : 0.0;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void cp_async(T* smem_dst, const T* gmem_src) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
+               "l"(gmem_src), "n"(sizeof(T)));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Y_E (81 x 256) = K X_E on the CUDA cores; ye points at the tile's first
+// cell in the scratch.  Thread (w, lane): rows 12w..12w+11, cells
+// 4 lane..4 lane+3 and 128+4 lane..128+4 lane+3 (each float4 load of X_E
+// a warp makes is 512 contiguous bytes).
+__device__ __forceinline__ void tile_products(const float* ks,
+                                              const float* xs,
+                                              float* __restrict__ ye,
+                                              int stride) {
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float4* k4 = reinterpret_cast<const float4*>(ks) + 3 * w;
+  const float4* x4 = reinterpret_cast<const float4*>(xs) + lane;
+  float acc[12][8];
+#pragma unroll
+  for (int r = 0; r < 12; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+#pragma unroll 3
+  for (int b = 0; b < kLocal; ++b) {
+    const float4 k0 = k4[b * 21], k1 = k4[b * 21 + 1], k2 = k4[b * 21 + 2];
+    const float4 xv = x4[b * 64], xw = x4[b * 64 + 32];
+    const float kr[12] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y,
+                          k1.z, k1.w, k2.x, k2.y, k2.z, k2.w};
+    const float xr[8] = {xv.x, xv.y, xv.z, xv.w, xw.x, xw.y, xw.z, xw.w};
+#pragma unroll
+    for (int r = 0; r < 12; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(kr[r], xr[c], acc[r][c]);
+  }
+#pragma unroll
+  for (int r = 0; r < 12; ++r) {
+    const int a = 12 * w + r;
+    if (a < kLocal) {
+      float4* row =
+          reinterpret_cast<float4*>(ye + static_cast<long long>(a) * stride);
+      row[lane] = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+      row[lane + 32] = make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
+    }
+  }
+}
+
+// D (16x8) += A (16x8, row) B (8x8, col) in float64 on the tensor cores
+// (sm_90).  With g = lane/4, t = lane%4: a = A[g][t], A[g+8][t], A[g][t+4],
+// A[g+8][t+4]; b = B[t][g], B[t+4][g]; d = D[g][2t], D[g][2t+1],
+// D[g+8][2t], D[g+8][2t+1].
+__device__ __forceinline__ void dmma_16x8x8(double (&d)[4],
+                                            const double (&a)[4], double b0,
+                                            double b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b0), "d"(b1));
+}
+
+// Y_E^T (64 cells x 88, columns >= 81 dropped) = X_E^T K^T with DMMA:
+// A = X_E^T (cells x b), B = K^T (b x a, read from K[a][b]), b padded to 88.
+__device__ __forceinline__ void tile_products(const double* ks,
+                                              const double* xs,
+                                              double* __restrict__ ye,
+                                              int stride) {
+  using P = ProductTile<double>;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const double* xa = xs + t * P::kXStride + 16 * w + g;  // A[cell][b]
+  const double* kb = ks + g * P::kKCols + t;             // B[b][a] = K[a][b]
+  double acc[11][4];
+#pragma unroll
+  for (int nb = 0; nb < 11; ++nb)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nb][i] = 0.0;
+#pragma unroll 1
+  for (int k0 = 0; k0 < P::kXRows; k0 += 8) {   // b, padded to 88
+    const double a[4] = {xa[k0 * P::kXStride], xa[k0 * P::kXStride + 8],
+                         xa[(k0 + 4) * P::kXStride],
+                         xa[(k0 + 4) * P::kXStride + 8]};
+#pragma unroll
+    for (int nb = 0; nb < 11; ++nb)
+      dmma_16x8x8(acc[nb], a, kb[nb * 8 * P::kKCols + k0],
+                  kb[nb * 8 * P::kKCols + k0 + 4]);
+  }
+#pragma unroll
+  for (int nb = 0; nb < 11; ++nb)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int a = nb * 8 + 2 * t + i;
+      if (a < kLocal) {
+        double* row = ye + static_cast<long long>(a) * stride + 16 * w + g;
+        row[0] = acc[nb][i];
+        row[8] = acc[nb][2 + i];
+      }
+    }
+}
+
+// Pass 1: ye[a][cell] = sum_b K[a][b] X_E[b][cell] for every cell, X_E
+// gathered from x (times the mask when MASK_INPUT).  stride: the scratch
+// row length, a multiple of kCells >= n^3; cells past n^3 get zero.
+template <typename T, bool MASK_INPUT>
+__global__ void __launch_bounds__(ProductTile<T>::kThreads,
+                                  ProductTile<T>::kMinBlocks)
+elasticity_rows_products_kernel(const T* __restrict__ x,
+                                const T* __restrict__ m,
+                                const T* __restrict__ ke,
+                                T* __restrict__ ye, int n, int W,
+                                int stride) {
+  using P = ProductTile<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw);
+  T* xs = ks + P::kKRows * P::kKCols;
+  int* cell_base = reinterpret_cast<int*>(xs + P::kXRows * P::kXStride);
+  int* node_off = cell_base + P::kCells;
+  const int tid = threadIdx.x;
+  const int n1 = n + 1, nn = n * n, cells = nn * n;
+
+  load_k(ks, ke);
+  for (int b = tid; b < kLocal; b += P::kThreads)
+    node_off[b] = q2_node_offset(b / 3, n1, W) + (b % 3) * W;
+  for (int i = kLocal * P::kXStride + tid; i < P::kXRows * P::kXStride;
+       i += P::kThreads)
+    xs[i] = T(0);   // padding rows of X_E (float64), never gathered
+
+  for (int tile = blockIdx.x; tile * P::kCells < stride;
+       tile += gridDim.x) {
+    const int c0 = tile * P::kCells;
+    __syncthreads();   // K in place; the last tile's products are done
+    for (int j = tid; j < P::kCells; j += P::kThreads) {
+      const int cell = c0 + j;
+      int base = -1;
+      if (cell < cells) {
+        const int iz = cell / nn, rem = cell - iz * nn;
+        const int iy = rem / n, ix = rem - iy * n;
+        base = iz * 24 * W + iy * n1 + ix;
+      }
+      cell_base[j] = base;
+    }
+    __syncthreads();
+    if (MASK_INPUT) {
+      // kBatch elements' loads in flight before their stores
+      constexpr int kBatch = 8;
+      for (int e0 = tid; e0 < kLocal * P::kCells;
+           e0 += kBatch * P::kThreads) {
+        T v[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int e = e0 + u * P::kThreads;
+          const int b = e / P::kCells, j = e - b * P::kCells;
+          const int base = e < kLocal * P::kCells ? cell_base[j] : -1;
+          v[u] = T(0);
+          if (base >= 0) {
+            const int i = base + node_off[b];
+            v[u] = __ldg(x + i) * __ldg(m + i);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int e = e0 + u * P::kThreads;
+          const int b = e / P::kCells, j = e - b * P::kCells;
+          if (e < kLocal * P::kCells) xs[b * P::kXStride + j] = v[u];
+        }
+      }
+    } else {
+      for (int e = tid; e < kLocal * P::kCells; e += P::kThreads) {
+        const int b = e / P::kCells, j = e - b * P::kCells;
+        T* dst = xs + b * P::kXStride + j;
+        const int base = cell_base[j];
+        if (base < 0)
+          *dst = T(0);
+        else
+          cp_async(dst, x + base + node_off[b]);
+      }
+      cp_async_wait_all();
+    }
+    __syncthreads();
+    tile_products(ks, xs, ye + c0, stride);
+  }
+}
+
+// Pass 2: one thread per node sums its <= 8 cells' entries of ye (cells in
+// z, y, x order, offset 0 before offset 2 on each axis) for its three
+// components, applies the mode and writes the row layout.
 template <typename T, int MODE>
 __global__ void __launch_bounds__(kThreads)
-elasticity_rows_apply_kernel(const T* __restrict__ x, const T* __restrict__ m,
-                             const T* __restrict__ ke, T* __restrict__ y,
-                             int n, int W) {
+elasticity_rows_sum_kernel(const T* __restrict__ ye, const T* __restrict__ x,
+                           const T* __restrict__ m, T* __restrict__ y, int n,
+                           int W, int stride) {
   const int total = (n + 1) * 8 * W;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
   const int node_row = idx / W, lane = idx - node_row * W;   // zh*8 + par
   const RowPos r = decode_row((node_row * 3) * W + lane, n, W);
-  const int n1 = n + 1;
   T acc[3] = {T(0), T(0), T(0)};
   if (r.real) {
     int cx[2], ox[2], cy[2], oy[2], cz[2], oz[2];
@@ -158,9 +399,11 @@ elasticity_rows_apply_kernel(const T* __restrict__ x, const T* __restrict__ m,
       for (int b = 0; b < ky; ++b)
         for (int d = 0; d < kx; ++d) {
           const int loc = ox[d] + 3 * oy[b] + 9 * oz[a];
-          const int cell = cz[a] * 24 * W + cy[b] * n1 + cx[d];
-          cell_dot81x3<T, MODE == kConstrained>(ke + loc * 3 * 81, x, m,
-                                                cell, n1, W, acc);
+          const T* yc = ye + static_cast<long long>(loc * 3) * stride +
+                        (cz[a] * n + cy[b]) * n + cx[d];
+          acc[0] += yc[0];
+          acc[1] += yc[stride];
+          acc[2] += yc[2 * stride];
         }
   }
 #pragma unroll
@@ -246,34 +489,59 @@ projection_rows_kernel(const T* __restrict__ x, const T* __restrict__ pe,
   out[idx] = acc;
 }
 
+constexpr int kMaxDevices = 64;
+
 inline unsigned blocks_for(long long total) {
   return static_cast<unsigned>((total + kThreads - 1) / kThreads);
 }
 
 template <typename T>
 int launch_elasticity(const void* x, const void* m, const void* ke, void* y,
-                      int n, int W, int mode, void* stream) {
+                      void* ye, int n, int W, int stride, int grid, int smem,
+                      int mode, void* stream) {
+  using P = ProductTile<T>;
+  if (smem != product_smem_bytes<T>() || grid < 1 || stride % P::kCells ||
+      static_cast<long long>(stride) < static_cast<long long>(n) * n * n ||
+      (mode != kUnmasked && mode != kFree && mode != kConstrained))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = blocks_for(static_cast<long long>(n + 1) * 8 * W);
   const T* xp = static_cast<const T*>(x);
   const T* mp = static_cast<const T*>(m);
-  const T* kp = static_cast<const T*>(ke);
   T* yp = static_cast<T*>(y);
+  T* ep = static_cast<T*>(ye);
+  const bool masked = mode == kConstrained;
+  void (*products)(const T*, const T*, const T*, T*, int, int, int) =
+      masked ? elasticity_rows_products_kernel<T, true>
+             : elasticity_rows_products_kernel<T, false>;
+  // K and the tile exceed the 48 KB a block gets without opting in; the
+  // attribute is per device, set at a device's first launch
+  static bool opted_in[2][kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!opted_in[masked][device]) {
+    err = cudaFuncSetAttribute(
+        products, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in[masked][device] = true;
+  }
+  products<<<grid, P::kThreads, smem, s>>>(xp, mp, static_cast<const T*>(ke),
+                                           ep, n, W, stride);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const unsigned sum_grid = blocks_for(static_cast<long long>(n + 1) * 8 * W);
   switch (mode) {
     case kUnmasked:
-      elasticity_rows_apply_kernel<T, kUnmasked>
-          <<<grid, kThreads, 0, s>>>(xp, mp, kp, yp, n, W);
+      elasticity_rows_sum_kernel<T, kUnmasked>
+          <<<sum_grid, kThreads, 0, s>>>(ep, xp, mp, yp, n, W, stride);
       break;
     case kFree:
-      elasticity_rows_apply_kernel<T, kFree>
-          <<<grid, kThreads, 0, s>>>(xp, mp, kp, yp, n, W);
-      break;
-    case kConstrained:
-      elasticity_rows_apply_kernel<T, kConstrained>
-          <<<grid, kThreads, 0, s>>>(xp, mp, kp, yp, n, W);
+      elasticity_rows_sum_kernel<T, kFree>
+          <<<sum_grid, kThreads, 0, s>>>(ep, xp, mp, yp, n, W, stride);
       break;
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      elasticity_rows_sum_kernel<T, kConstrained>
+          <<<sum_grid, kThreads, 0, s>>>(ep, xp, mp, yp, n, W, stride);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -307,14 +575,19 @@ int launch_projection(const void* x, const void* pe, void* out, int n, int W,
 // every entry point returns cudaGetLastError() after its launch.
 extern "C" {
 
+// ye: the (81, stride) product scratch; grid, smem: pass 1's launch plan.
 int elasticity_rows_apply_f32(const void* x, const void* m, const void* ke,
-                              void* y, int n, int W, int mode, void* stream) {
-  return launch_elasticity<float>(x, m, ke, y, n, W, mode, stream);
+                              void* y, void* ye, int n, int W, int stride,
+                              int grid, int smem, int mode, void* stream) {
+  return launch_elasticity<float>(x, m, ke, y, ye, n, W, stride, grid, smem,
+                                  mode, stream);
 }
 
 int elasticity_rows_apply_f64(const void* x, const void* m, const void* ke,
-                              void* y, int n, int W, int mode, void* stream) {
-  return launch_elasticity<double>(x, m, ke, y, n, W, mode, stream);
+                              void* y, void* ye, int n, int W, int stride,
+                              int grid, int smem, int mode, void* stream) {
+  return launch_elasticity<double>(x, m, ke, y, ye, n, W, stride, grid, smem,
+                                   mode, stream);
 }
 
 int coupling_rows_f32(const void* p, const void* ce, void* y, int n, int W,

@@ -14,16 +14,19 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from . import resolve_device
 from .solvers.fss import State
 
 FIELDS = ("p", "u", "eps_v", "eps_v0", "strains")
 CACHES = ("u_rows", "mech_b")
 
 
-def state_from_numpy(fields: Mapping[str, np.ndarray], device="cpu",
+def state_from_numpy(fields: Mapping[str, np.ndarray], device="cuda",
                      dtype: torch.dtype = None) -> State:
-    """Port ``State`` on ``device`` from numpy arrays keyed by field name
-    (a missing or None cache is left None)."""
+    """Port ``State`` on ``device`` (default the card; raises without one)
+    from numpy arrays keyed by field name (a missing or None cache is left
+    None)."""
+    device = resolve_device(device)
     def conv(a):
         if a is None:
             return None

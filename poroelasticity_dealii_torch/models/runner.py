@@ -39,7 +39,7 @@ def _check_supported(data: InputData) -> None:
 
 
 class SimulationRunner:
-    def __init__(self, data: InputData, device="cpu",
+    def __init__(self, data: InputData, device="cuda",
                  logger: Optional[RunLogger] = None):
         _check_supported(data)
         self.data = data
@@ -86,6 +86,7 @@ class SimulationRunner:
         return self.solver.materialize_u(state)
 
 
-def run_from_data(data: InputData, device="cpu") -> State:
-    """Full simulation from a parsed deck."""
+def run_from_data(data: InputData, device="cuda") -> State:
+    """Full simulation from a parsed deck, on the card unless ``device``
+    says ``"cpu"``."""
     return SimulationRunner(data, device=device).run()

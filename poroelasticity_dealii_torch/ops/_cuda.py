@@ -35,7 +35,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # name: argtypes (after the dtype suffix _f32/_f64); the last is the
     # stream
-    "elasticity_rows_apply": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # x, m, ke, y, product scratch, n, W, scratch stride, grid, shared
+    # bytes, mode
+    "elasticity_rows_apply": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _P),
     "coupling_rows": (_P, _P, _P, _I, _I, _P),
     "projection_rows": (_P, _P, _P, _I, _I, _I, _P),
     "elasticity_grid_apply": (_P, _P, _I, _P, _P),

@@ -18,7 +18,9 @@ Three operators reach a hand-written CUDA kernel (``csrc/comp_major.cu``):
 
 Each wrapper takes its plain PyTorch twin (``*_plain``) for CPU tensors and
 launches its kernel for CUDA tensors, counting launches in its
-``launches`` attribute.  The plain twins are vectorised over all cells: one
+``launches`` attribute (one per call; the elasticity apply is two CUDA
+launches, a product pass on tiles of cells and a node-sum pass, planned by
+:func:`rows_apply_plan`).  The plain twins are vectorised over all cells: one
 advanced-index gather of the cells' local values, one matmul with the
 element matrix, one ``index_add_`` over a precomputed flat index.
 
@@ -129,6 +131,55 @@ def _rows_shape(n: int):
     return ((n + 1) * 24, _width(n))
 
 
+# The product pass of csrc/comp_major.cu (ProductTile<T>): cells per tile,
+# resident blocks per SM (its __launch_bounds__), and the shared-memory
+# shapes of K and of the tile's operand matrix X_E.
+PRODUCT_TILE = {
+    torch.float32: {"cells": 256, "blocks_per_sm": 2, "k": (81, 84),
+                    "x": (81, 256)},
+    torch.float64: {"cells": 64, "blocks_per_sm": 2, "k": (88, 92),
+                    "x": (88, 68)},
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class RowsApplyPlan:
+    """Launch plan of the elasticity apply's product pass: ``tiles`` tiles
+    of ``cells_per_tile`` cells over a persistent grid of ``grid`` blocks
+    with ``smem_bytes`` of dynamic shared memory, writing the (81,
+    ``stride``) product scratch (cell fastest)."""
+    cells_per_tile: int
+    tiles: int
+    stride: int
+    grid: int
+    smem_bytes: int
+
+    @property
+    def scratch_numel(self) -> int:
+        return 81 * self.stride
+
+
+@functools.lru_cache(maxsize=64)
+def rows_apply_plan(n: int, dtype: torch.dtype, sms: int) -> RowsApplyPlan:
+    """The product pass's plan at grid size ``n`` on a card with ``sms``
+    multiprocessors: at most one resident wave of blocks, each loading K
+    once and walking tiles."""
+    t = PRODUCT_TILE[dtype]
+    item = torch.tensor([], dtype=dtype).element_size()
+    smem = ((t["k"][0] * t["k"][1] + t["x"][0] * t["x"][1]) * item
+            + (t["cells"] + 81) * 4)        # + cell bases, node offsets
+    tiles = -(-n ** 3 // t["cells"])
+    return RowsApplyPlan(
+        cells_per_tile=t["cells"], tiles=tiles,
+        stride=tiles * t["cells"], grid=min(tiles, sms * t["blocks_per_sm"]),
+        smem_bytes=smem)
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 # ---------------------------------------------------------------------------
 # plain twins
 # ---------------------------------------------------------------------------
@@ -189,9 +240,11 @@ def elasticity_rows_apply(x, mask, ke, n: int, mode: int):
         _cuda.check("mask", mask, rows, x.dtype, x.device)
     elif mask is not None:
         raise ValueError("UNMASKED mode takes no mask")
+    plan = rows_apply_plan(n, x.dtype, _sm_count(x.device))
     y = torch.empty_like(x)
-    _cuda.launch("elasticity_rows_apply", x, x, mask, ke, y, n, rows[1],
-                 mode)
+    ye = torch.empty(plan.scratch_numel, dtype=x.dtype, device=x.device)
+    _cuda.launch("elasticity_rows_apply", x, x, mask, ke, y, ye, n, rows[1],
+                 plan.stride, plan.grid, plan.smem_bytes, mode)
     elasticity_rows_apply.launches += 1
     elasticity_rows_apply.mode_launches[mode] += 1
     return y

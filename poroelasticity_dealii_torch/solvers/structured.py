@@ -32,6 +32,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..config import InputData
 from ..mesh.core import FESpace
 from ..mesh.generator import hyper_rectangle, normalize_cells_per_axis
@@ -172,9 +173,10 @@ def build_grid_discretization(data: InputData,
                               dtype=None, lower=None, upper=None,
                               multigrid: str = "auto",
                               elasticity_backend: Optional[str] = None,
-                              device="cpu",
+                              device="cuda",
                               kernels: str = "auto") -> GridDiscretization:
-    """The 3D Q2/Q1 isotropic discretization on ``device``.
+    """The 3D Q2/Q1 isotropic discretization on ``device`` (default the
+    card; raises without one, pass ``device="cpu"`` for the CPU).
 
     ``elasticity_backend`` (default: the deck's): ``auto``/``pallas`` for
     the rows kit, ``conv`` for flat vectors and no ``row_ops``.
@@ -211,7 +213,7 @@ def build_grid_discretization(data: InputData,
         raise ValueError(f"kernels must be 'auto' or 'plain', got {kernels!r}")
     if dtype is None:
         dtype = torch.float64 if data.dtype == "float64" else torch.float32
-    device = torch.device(device)
+    device = resolve_device(device)
 
     mesh = structured_mesh(data.domain_size[:dim], cells_per_axis,
                            lower=lower, upper=upper)

@@ -10,12 +10,19 @@ two entry points (``make_flat_apply``, the K6 counterpart, and
 ``make_grid_elasticity``, the K7 counterpart), its plain twin, and the
 FLOP count.  It needs a CUDA device; :func:`run` also takes the CPU for
 tests, with no times.
+
+:func:`rows_free_csr` and :func:`rows_spmv_ms` give the row-layout
+kernel's library yardstick (``library_ms`` in ``chip_smoke.py``): one
+cuSPARSE CSR matrix-vector product over the assembled operator, as the
+reference deal.II program applies its assembled matrices.  The port never
+calls them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -25,20 +32,69 @@ DECK = (Path(__file__).resolve().parents[2] / "configs"
         / "consolidation_3d.data")
 
 
-def cuda_time_ms(fn, reps: int = 20) -> float:
-    """Median device time of ``fn()`` over ``reps`` runs (CUDA events)."""
+def device_and_host_ms(fn, reps: int = 20, calls: int = 10) -> tuple:
+    """(median device ms, median host ms) of one ``fn()``.
+
+    Each of ``reps`` windows enqueues ``calls`` back-to-back calls between
+    two CUDA events behind a sleep kernel that holds the stream until the
+    host has enqueued the whole window, so the device time excludes host
+    launch overhead (one call's events would measure the slower of the
+    two); the host time is the enqueue time per call."""
     fn()
     torch.cuda.synchronize()
-    times = []
+    t0 = time.perf_counter()
+    fn()
+    host0 = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(min(4e9 * calls * host0 + 2e6, 4e9))   # ~2x at ~2 GHz
+    dev, host = [], []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
         a.record()
-        fn()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host.append((time.perf_counter() - t0) * 1e3 / calls)
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+        dev.append(a.elapsed_time(b) / calls)
+    return float(np.median(dev)), float(np.median(host))
+
+
+def cuda_time_ms(fn, reps: int = 20) -> float:
+    """Median device time of one ``fn()`` (:func:`device_and_host_ms`)."""
+    return device_and_host_ms(fn, reps)[0]
+
+
+def rows_free_csr(ke: torch.Tensor, mask_rows: torch.Tensor,
+                  n: int) -> torch.Tensor:
+    """The Q2 elasticity operator on the row layout as one sparse CSR
+    matrix with the FREE mask folded into its rows: ``M @ x.view(-1)``
+    equals ``m * A x``.  Assembled on ``ke``'s device: every cell's 81 x 81
+    entries at their flat row-layout indices, zero entries (the rows the
+    mask zeroes among them) left out, duplicates summed (COO coalesce)."""
+    from ..ops import comp_major as cm
+    G = cm._u_index(n, ke.device)                      # (81, n^3)
+    m = mask_rows.reshape(-1)
+    rows = G[:, None, :].expand(81, 81, -1).reshape(-1)
+    cols = G[None, :, :].expand(81, 81, -1).reshape(-1)
+    vals = (ke[:, :, None] * m[G][:, None, :]).reshape(-1)
+    keep = vals != 0
+    N = m.numel()
+    A = torch.sparse_coo_tensor(torch.stack([rows[keep], cols[keep]]),
+                                vals[keep], (N, N),
+                                check_invariants=False).coalesce()
+    return A.to_sparse_csr()
+
+
+def rows_spmv_ms(M: torch.Tensor, x: torch.Tensor, reps: int = 20):
+    """(median ms, result) of the CSR product ``M @ x`` on the row layout
+    (``torch.mv``: cuSPARSE SpMV)."""
+    xf = x.reshape(-1)
+    return cuda_time_ms(lambda: torch.mv(M, xf), reps), \
+        torch.mv(M, xf).view_as(x)
 
 
 def _rel_err(got, ref) -> float:

@@ -1,0 +1,152 @@
+"""Device time of fixed-stress steps by kernel, from ``torch.profiler``:
+
+    python -m poroelasticity_dealii_torch.tools.profile_step [n]
+
+runs the bench configuration (:func:`bench_data`) at ``n`` cells per axis
+(default 40) on the rows backend on the card: ``initial_state``, evolving
+steps with the Dirichlet load ramp, then steady steps at the last load.
+It profiles the last evolving and the last steady step and prints one JSON
+line for each: the step's counts, its wall time unprofiled (the step
+before, of the same kind) and profiled, the device busy time (union of the
+device activity intervals) over the profiled wall span, and device time and
+launches per kernel name, with the row-layout elasticity apply's kernels
+summed under ``elasticity_rows_apply``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import torch
+
+DECK = (Path(__file__).resolve().parents[2] / "configs"
+        / "consolidation_3d.data")
+BC_RATE = 0.05            # per-step Dirichlet load ramp (bench.py BC_RATE)
+
+
+def bench_data(deck=DECK):
+    """The bench configuration (``bench.py::build``): the 3D consolidation
+    deck in float32 with tolerances that keep every solver working each
+    step."""
+    from ..config import read_input_file
+    return dataclasses.replace(
+        read_input_file(str(deck)), dtype="float32", flow_rate=1e-2,
+        fss_tol=2e-5, pressure_tol=2e-5, mech_cg_tol=1e-5,
+        mech_cg_relative=True, pressure_cg_tol=1e-5, projection_cg_tol=1e-5)
+
+
+def _busy_ms(intervals) -> float:
+    """Length of the union of (start, end) intervals, us -> ms."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+def _short(name: str) -> str:
+    """A kernel's demangled name without its namespace and arguments."""
+    name = name.replace("(anonymous namespace)::", "").replace("void ", "")
+    return name.split("(")[0]
+
+
+def device_summary(prof) -> dict:
+    """Busy ms and per-kernel (ms, launches) of the device events."""
+    per = defaultdict(lambda: [0.0, 0])
+    intervals = []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        intervals.append((a, b))
+        per[e.name][0] += (b - a) / 1e3
+        per[e.name][1] += 1
+    rows = {_short(k): {"ms": v[0], "launches": v[1]}
+            for k, v in per.items() if "elasticity_rows" in k}
+    return {"busy_ms": _busy_ms(intervals),
+            "elasticity_rows_apply": {
+                "ms": sum(v["ms"] for v in rows.values()),
+                "kernel_launches": sum(v["launches"] for v in rows.values()),
+                "by_kernel": rows},
+            "kernels": {k: {"ms": v[0], "launches": v[1]}
+                        for k, v in sorted(per.items(),
+                                           key=lambda kv: -kv[1][0])}}
+
+
+def _step(solver, state, bc, bc_prev):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, stats = solver.time_step(state, solver.data.time_step, bc,
+                                    bc_scale_prev=bc_prev, want_u=True)
+    torch.cuda.synchronize()
+    return state, stats, (time.perf_counter() - t0) * 1e3
+
+
+def run(n: int = 40, n_evolving: int = 5, n_steady: int = 3,
+        device="cuda") -> list:
+    """Profile the last evolving and the last steady step; returns their
+    records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..ops import comp_major as cm
+    from ..solvers.fss import FixedStressSolver
+    from ..solvers.structured import build_grid_discretization
+
+    data = bench_data()
+    disc = build_grid_discretization(data, cells_per_axis=n,
+                                     multigrid="off", device=device)
+    solver = FixedStressSolver(disc, data)
+    state = solver.initial_state()
+    records, bc_prev, last_ms = [], 1.0, None
+    steps = n_evolving + n_steady
+    for k in range(1, steps + 1):
+        bc = 1.0 + BC_RATE * min(k, n_evolving)
+        kind = "evolving" if k <= n_evolving else "steady"
+        if k not in (n_evolving, steps):
+            state, _, last_ms = _step(solver, state, bc, bc_prev)
+            bc_prev = bc
+            continue
+        cm.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, stats, ms = _step(solver, state, bc, bc_prev)
+        bc_prev = bc
+        dev = device_summary(prof)
+        dev["elasticity_rows_apply"]["applies"] = \
+            cm.elasticity_rows_apply.launches
+        records.append({
+            "step": k, "kind": kind, "n": n,
+            "gpu": torch.cuda.get_device_name(),
+            "wall_ms_unprofiled_previous_step": last_ms,
+            "wall_ms_profiled": ms,
+            "idle_share": 1.0 - dev["busy_ms"] / ms,
+            "counts": {"fss": stats.fss_iterations,
+                       "pressure": stats.pressure_iterations,
+                       "cg_pressure": stats.pressure_cg_iterations,
+                       "cg_mechanics": stats.mech_cg_iterations,
+                       "cg_projection": stats.projection_cg_iterations},
+            **dev})
+        last_ms = ms
+    return records
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    n = int(argv[0]) if argv else 40
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step: needs a CUDA device "
+                         "(torch.cuda.is_available() is False)")
+    for rec in run(n):
+        top = dict(list(rec.pop("kernels").items())[:12])
+        print(json.dumps({**rec, "top_kernels": top}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

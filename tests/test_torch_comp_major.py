@@ -112,8 +112,9 @@ def test_row_ops_route_and_counters_on_cpu():
     from poroelasticity_dealii_torch.solvers.structured import \
         build_grid_discretization
     data = read_input_file(DECK)
-    ro = build_grid_discretization(data, cells_per_axis=3).row_ops
-    rop = build_grid_discretization(data, cells_per_axis=3,
+    ro = build_grid_discretization(data, cells_per_axis=3,
+                                   device="cpu").row_ops
+    rop = build_grid_discretization(data, cells_per_axis=3, device="cpu",
                                     kernels="plain").row_ops
     assert rop.plain and not ro.plain
     cm.reset_launch_counts()

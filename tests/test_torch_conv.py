@@ -55,7 +55,8 @@ def _jax_disc(data, n):
 def _port_disc(data, n):
     return tst.build_grid_discretization(data, cells_per_axis=n,
                                          multigrid="off",
-                                         elasticity_backend="conv")
+                                         elasticity_backend="conv",
+                                         device="cpu")
 
 
 def _np_state(st):
@@ -147,7 +148,7 @@ def test_jax_flat_state_carries_over(jax_n4):
     ref_states, ref_stats = jax_n4
     assert ref_states[1]["u_rows"] is None
     data = _rel_mech(read_input_file(DECK))
-    st = state_from_numpy(ref_states[1])
+    st = state_from_numpy(ref_states[1], device="cpu")
     assert st.u_rows is None and st.mech_b is not None
     bc, prev = BC[1]
     st2, stats = FixedStressSolver(_port_disc(data, 4), data).time_step(
@@ -166,7 +167,7 @@ def test_deck_as_written_matches_jax():
     js = JF(jd, jdata)
     data = read_input_file(DECK)
     ts = FixedStressSolver(tst.build_grid_discretization(
-        data, elasticity_backend="conv"), data)
+        data, elasticity_backend="conv", device="cpu"), data)
     sj, st = js.initial_state(), ts.initial_state()
     _assert_fields(st, _np_state(sj))
     for _ in range(2):
@@ -194,13 +195,14 @@ def test_conv_multigrid_auto_refused_where_jax_builds_gmg(monkeypatch):
     monkeypatch.setattr(tst, "_gmg_levels", lambda *a, **k: 2)
     with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
         tst.build_grid_discretization(data, cells_per_axis=4,
-                                      elasticity_backend="conv")
+                                      elasticity_backend="conv", device="cpu")
     # the rows backend builds no elasticity GMG on 'auto' (as JAX)
-    assert tst.build_grid_discretization(data, cells_per_axis=4).row_ops \
-        is not None
+    assert tst.build_grid_discretization(data, cells_per_axis=4,
+                                         device="cpu").row_ops is not None
     with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
         tst.build_grid_discretization(data, cells_per_axis=4,
-                                      elasticity_backend="parity")
+                                      elasticity_backend="parity",
+                                      device="cpu")
 
 
 def test_cli_runs_a_conv_deck_on_cpu(tmp_path, monkeypatch):

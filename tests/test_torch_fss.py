@@ -72,7 +72,7 @@ def jax_run(gmg_on, data):
 
 def _port(data):
     return FixedStressSolver(tst.build_grid_discretization(
-        data, cells_per_axis=N), data)
+        data, cells_per_axis=N, device="cpu"), data)
 
 
 def _assert_fields(state, ref, rtol):

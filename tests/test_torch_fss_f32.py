@@ -35,7 +35,7 @@ def _pair(data, n):
                                          multigrid="off",
                                          elasticity_backend="pallas"), data)
     t = FixedStressSolver(tst.build_grid_discretization(
-        data, cells_per_axis=n), data)
+        data, cells_per_axis=n, device="cpu"), data)
     return j, t
 
 
@@ -106,12 +106,14 @@ def test_runner_rejects_unported_features(field, value):
 def test_unported_discretizations_raise():
     data = read_input_file("configs/golden_2d.data")
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tst.build_grid_discretization(data)
+        tst.build_grid_discretization(data, device="cpu")
     data3 = read_input_file(DECK)
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        tst.build_grid_discretization(data3, cells_per_axis=(2, 2, 3))
+        tst.build_grid_discretization(data3, cells_per_axis=(2, 2, 3),
+                                      device="cpu")
     # the conv backend is ported; the 2D parity backend is not
     assert tst.build_grid_discretization(
-        data3, elasticity_backend="conv").row_ops is None
+        data3, elasticity_backend="conv", device="cpu").row_ops is None
     with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
-        tst.build_grid_discretization(data3, elasticity_backend="parity")
+        tst.build_grid_discretization(data3, elasticity_backend="parity",
+                                      device="cpu")

@@ -27,7 +27,7 @@ from poroelasticity_dealii_torch.solvers.structured import \\
 data = pkg.read_input_file("configs/consolidation_3d.data")
 for backend in ("auto", "conv"):
     d = build_grid_discretization(data, cells_per_axis=4,
-                                  elasticity_backend=backend)
+                                  elasticity_backend=backend, device="cpu")
     assert (d.row_ops is None) == (backend == "conv")
     s = FixedStressSolver(d, data)
     state, stats = s.time_step(s.initial_state(), data.time_step)

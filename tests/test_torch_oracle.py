@@ -23,7 +23,8 @@ def test_counts_match_scipy_oracle_3d():
     data = read_input_file(DECK)
     assert data.initial_refinement_level == 3
     oracle = run_reference_algorithm(data, n_steps=3)
-    solver = FixedStressSolver(build_grid_discretization(data), data)
+    solver = FixedStressSolver(build_grid_discretization(data, device="cpu"),
+                               data)
     state = solver.initial_state()
     for o in oracle:
         state, s = solver.time_step(state, data.time_step)

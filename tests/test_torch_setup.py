@@ -49,7 +49,7 @@ def test_setup_arrays_match_jax(variant, n):
     j = jst.build_grid_discretization(data, cells_per_axis=n,
                                       multigrid="off",
                                       elasticity_backend="pallas")
-    t = tst.build_grid_discretization(data, cells_per_axis=n)
+    t = tst.build_grid_discretization(data, cells_per_axis=n, device="cpu")
     for name in ("element_ke", "element_ce", "element_pe"):
         _close(getattr(t, name), getattr(j, name))
     for name in ("free_mask_u", "dirichlet_values", "f_neumann", "f_well",
@@ -72,7 +72,7 @@ def test_pressure_operators_match_jax(n):
     j = jst.build_grid_discretization(data, cells_per_axis=n,
                                       multigrid="off",
                                       elasticity_backend="pallas")
-    t = tst.build_grid_discretization(data, cells_per_axis=n)
+    t = tst.build_grid_discretization(data, cells_per_axis=n, device="cpu")
     rng = np.random.default_rng(n)
     x = rng.standard_normal(t.n_pdofs)
     xt = torch.as_tensor(x)

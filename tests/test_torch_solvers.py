@@ -145,7 +145,7 @@ def test_pressure_gmg_cuts_cg_iterations():
         build_grid_discretization
     data = read_input_file(DECK)
     n, dt = 16, data.time_step
-    d = build_grid_discretization(data, cells_per_axis=n)
+    d = build_grid_discretization(data, cells_per_axis=n, device="cpu")
     s = FixedStressSolver(d, data)
     pre, _ = tmg.build_gmg_pressure(data, n_fine=n, n_levels=3,
                                     dtype=torch.float64, device="cpu", dt=dt)
