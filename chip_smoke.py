@@ -4,13 +4,13 @@
 
 Builds the port's CUDA kernels from ``poroelasticity_dealii_torch/csrc``
 (one nvcc per source, in parallel, then one link), checks with
-``cuobjdump -sass`` that the float64 elasticity products run on the tensor
-cores (DMMA) and no float32 kernel does, holds each kernel against its
-plain PyTorch twin on the card (n = 40, timed; n = 21 and 7), times the
-row-layout apply's library yardstick (a cuSPARSE CSR SpMV over the
-assembled operator), and drives the port's paths through their entry
-points, each with the kernel launch counts reset just before and read just
-after:
+``cuobjdump -sass`` that the float64 cell products (elasticity apply and
+projection) run on the tensor cores (DMMA) and no float32 kernel does,
+holds each kernel against its plain PyTorch twin on the card (n = 40,
+timed; n = 21 and 7: ragged tiles), times each kernel's library yardstick
+(a cuSPARSE CSR SpMV over the assembled operator), and drives the port's
+paths through their entry points, each with the kernel launch counts reset
+just before and read just after:
 
 * the main path: 3D Q2/Q1 fixed-stress steps at 40^3, float32, the bench
   configuration, on the rows backend, cross-checked against a run on the
@@ -72,7 +72,9 @@ def _rel_err(got, ref) -> float:
 
 
 def kernel_cases(n: int, dtype, dev, ke, ce, pe, free_mask_u, rng):
-    """[(name, kernel fn, plain fn)] for every kernel at grid size n."""
+    """[(name, input, kernel fn, plain fn)] for every kernel at grid size
+    n; ``input`` is the vector that the case's library operator
+    (``apply_bench.library_csr``) multiplies."""
     g = 2 * n + 1
     u = rng.standard_normal(g ** 3 * 3)
     uf = torch.as_tensor(u, dtype=dtype, device=dev)
@@ -85,23 +87,23 @@ def kernel_cases(n: int, dtype, dev, ke, ce, pe, free_mask_u, rng):
     K, Cm, P = (torch.as_tensor(a, dtype=dtype, device=dev)
                 for a in (ke, ce, pe))
     return [
-        ("elasticity_rows_apply[unmasked]",
+        ("elasticity_rows_apply[unmasked]", x,
          lambda: cm.elasticity_rows_apply(x, None, K, n, cm.UNMASKED),
          lambda: cm.elasticity_rows_apply_plain(x, None, K, n, cm.UNMASKED)),
-        ("elasticity_rows_apply[free]",
+        ("elasticity_rows_apply[free]", xf,
          lambda: cm.elasticity_rows_apply(xf, m, K, n, cm.FREE),
          lambda: cm.elasticity_rows_apply_plain(xf, m, K, n, cm.FREE)),
-        ("elasticity_rows_apply[constrained]",
+        ("elasticity_rows_apply[constrained]", x,
          lambda: cm.elasticity_rows_apply(x, m, K, n, cm.CONSTRAINED),
          lambda: cm.elasticity_rows_apply_plain(x, m, K, n,
                                                 cm.CONSTRAINED)),
-        ("coupling_rows",
+        ("coupling_rows", p,
          lambda: cm.coupling_rows(p, Cm, n),
          lambda: cm.coupling_rows_plain(p, Cm, n)),
-        ("projection_rows",
+        ("projection_rows", x,
          lambda: cm.projection_rows(x, P, n),
          lambda: cm.projection_rows_plain(x, P, n)),
-        ("elasticity_grid_apply",
+        ("elasticity_grid_apply", uf,
          lambda: eg.elasticity_grid_apply(uf, K, n),
          lambda: eg.elasticity_grid_apply_plain(uf, K, n)),
     ]
@@ -143,8 +145,8 @@ def kernel_phase(n: int, dtype, dev, ke, ce, pe, free_mask_u, timing: bool):
     tolerance and bitwise repeatability; return one record per kernel."""
     rng = np.random.default_rng(n)
     out = []
-    for name, kern, plain in kernel_cases(n, dtype, dev, ke, ce, pe,
-                                          free_mask_u, rng):
+    for name, _, kern, plain in kernel_cases(n, dtype, dev, ke, ce, pe,
+                                             free_mask_u, rng):
         y1 = kern()
         y2 = kern()
         ref = plain()
@@ -442,9 +444,11 @@ TENSOR_CORE_OP = re.compile(r"\b([DHIBQ]G?MMA)\b")
 
 
 def sass_check(lib_path: Path) -> dict:
-    """Tensor-core instructions per elasticity kernel in the built library
-    (``cuobjdump -sass``): the float64 product pass must hold DMMA and no
-    float32 kernel any tensor-core instruction (no TF32)."""
+    """Tensor-core instructions per kernel in the built library
+    (``cuobjdump -sass``): the float64 cell product pass must hold DMMA in
+    each of its instances (the elasticity apply's, 81 rows, and the
+    projection's, 48 rows), and no float32 kernel any tensor-core
+    instruction (no TF32)."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
@@ -458,16 +462,19 @@ def sass_check(lib_path: Path) -> dict:
         elif name is not None:
             for op in TENSOR_CORE_OP.findall(line):
                 ops[name][op] = ops[name].get(op, 0) + 1
-    # mangled (kernelId / kernelIf) or demangled (kernel<double / <float)
+    # mangled (kernelId / kernelIf, row count Li81E / Li48E) or demangled
+    # (kernel<double, 81 / kernel<float)
     products64 = [k for k in ops if re.search(
-        r"elasticity_rows_products_kernel(Id|<double)", k)]
+        r"rows_products_kernel(Id|<double)", k)]
+    rows64 = {r: [k for k in products64 if re.search(rf"Li{r}E|, {r}\b", k)]
+              for r in (cm.ELASTICITY_ROWS, cm.PROJECTION_ROWS)}
     float32 = [k for k in ops if re.search(r"kernel(If|<float)", k)]
-    rec = {"sass": {k: v for k, v in ops.items() if "elasticity" in k}}
+    rec = {"sass": ops}
     print(json.dumps(rec), flush=True)
-    if not products64 or not all(ops[k].get("DMMA", 0) > 0 and
-                                 set(ops[k]) == {"DMMA"}
-                                 for k in products64):
-        raise AssertionError(f"float64 products without DMMA: {products64}")
+    if not all(rows64.values()) or not all(
+            ops[k].get("DMMA", 0) > 0 and set(ops[k]) == {"DMMA"}
+            for k in products64):
+        raise AssertionError(f"float64 products without DMMA: {rows64}")
     if not float32 or any(ops[k] for k in float32):
         raise AssertionError("a float32 kernel holds tensor-core "
                              f"instructions: {[ops[k] for k in float32]}")
@@ -475,40 +482,45 @@ def sass_check(lib_path: Path) -> dict:
 
 
 def library_phase(dev, d, records):
-    """The row-layout FREE apply's library yardstick at 40^3: one cuSPARSE
-    CSR SpMV (``torch.mv``) over the operator assembled on the card with the
-    FREE mask folded into its rows, in float64 and float32, held against
-    the kernel; the matrix is freed right after."""
+    """Every kernel's library yardstick at 40^3: one cuSPARSE CSR SpMV
+    (``torch.mv``) over the case's operator assembled on the card
+    (``apply_bench.library_csr``, masks folded in), in float64 and float32,
+    on the kernel phase's inputs and held against the kernel.  One operator
+    at a time, each freed before the next (the largest has 276M
+    nonzeros)."""
     n = N_MAIN
-    rng = np.random.default_rng(n)
-    t0 = time.perf_counter()
-    ke = torch.as_tensor(d.element_ke, dtype=torch.float64, device=dev)
-    m = torch.as_tensor(cm.to_rows_np(d.free_mask_u.numpy(), n),
-                        dtype=torch.float64, device=dev)
-    M64 = apply_bench.rows_free_csr(ke, m, n)
-    torch.cuda.synchronize()
-    assembly_s = time.perf_counter() - t0
-    x = cm.to_rows(torch.as_tensor(rng.standard_normal(d.n_udofs),
-                                   device=dev), n) * m
-    out = {"assembly_s": assembly_s, "nnz": M64._nnz()}
-    for dtype in (torch.float64, torch.float32):
-        M = M64 if dtype == torch.float64 else torch.sparse_csr_tensor(
-            M64.crow_indices(), M64.col_indices(), M64.values().float(),
-            M64.shape)
-        xd, md, kd = x.to(dtype), m.to(dtype), ke.to(dtype)
-        ms, y = apply_bench.rows_spmv_ms(M, xd)
-        ref = cm.elasticity_rows_apply(xd, md, kd, n, cm.FREE)
-        err = _rel_err(y, ref)
-        name = str(dtype).split(".")[-1]
-        out[name] = {"library_ms": ms, "rel_err_vs_kernel": err}
-        records[("elasticity_rows_apply[free]", n, name)]["library_ms"] = ms
-        del M
-        if not err <= TOL[torch.float32]:
-            raise AssertionError(f"CSR SpMV vs kernel ({name}): rel err "
-                                 f"{err:.3e}")
-    del M64
-    torch.cuda.empty_cache()
-    print(json.dumps({"library_csr_spmv": out}), flush=True)
+    mask = d.free_mask_u.numpy()
+    cases = {dtype: {name: (inp, kern) for name, inp, kern, _ in kernel_cases(
+        n, dtype, dev, d.element_ke, d.element_ce, d.element_pe, mask,
+        np.random.default_rng(n))} for dtype in (torch.float64, torch.float32)}
+    ke, ce, pe, m = (torch.as_tensor(a, dtype=torch.float64, device=dev)
+                     for a in (d.element_ke, d.element_ce, d.element_pe,
+                               cm.to_rows_np(mask, n)))
+    out = {}
+    for case in apply_bench.LIBRARY_CASES:
+        t0 = time.perf_counter()
+        M64 = apply_bench.library_csr(case, n, ke, ce, pe, m)
+        torch.cuda.synchronize()
+        rec = {"assembly_s": time.perf_counter() - t0, "nnz": M64._nnz()}
+        for dtype in (torch.float64, torch.float32):
+            M = M64 if dtype == torch.float64 else torch.sparse_csr_tensor(
+                M64.crow_indices(), M64.col_indices(), M64.values().float(),
+                M64.shape)
+            inp, kern = cases[dtype][case]
+            ms, y = apply_bench.spmv_ms(M, inp)
+            ref = kern()
+            err = _rel_err(y.view_as(ref), ref)
+            name = str(dtype).split(".")[-1]
+            rec[name] = {"library_ms": ms, "rel_err_vs_kernel": err}
+            records[(case, n, name)]["library_ms"] = ms
+            del M, y
+            if not err <= TOL[torch.float32]:
+                raise AssertionError(f"CSR SpMV vs kernel ({case}, {name}): "
+                                     f"rel err {err:.3e}")
+        del M64
+        torch.cuda.empty_cache()
+        out[case] = rec
+        print(json.dumps({"library_csr_spmv": {case: rec}}), flush=True)
     return out
 
 
@@ -556,9 +568,15 @@ def main() -> int:
                  "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                  "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                  "bound_by": rec["bound_by"],
-                 # the CSR SpMV for the FREE apply; no single PyTorch call
-                 # computes the other functions
-                 "library_ms": rec.get("library_ms")}
+                 # one CSR SpMV over the assembled operator
+                 "library_ms": rec["library_ms"]}
+        if name == "elasticity_rows_apply":
+            entry["modes"] = {
+                case: {k: records[(case, N_MAIN, "float32")][k]
+                       for k in ("ms", "plain_ms", "bound_ms",
+                                 "library_ms")}
+                for case in apply_bench.LIBRARY_CASES
+                if case.startswith(name)}
         if name == "elasticity_grid_apply":
             entry["conv_ms"] = flat["ms"]["conv disc.elasticity"]
         summary.append(entry)

@@ -1,6 +1,6 @@
 // Hand-written Hopper kernels for the 3D Q2/Q1 structured-grid operators in
 // the comp-major row layout (see poroelasticity_dealii_torch/ops/comp_major.py
-// for the layout, the launch plan and the plain PyTorch twin of every kernel
+// for the layout, the launch plans and the plain PyTorch twin of every kernel
 // here).
 //
 // Row layout of a Q2 displacement vector on an n^3 grid: rows
@@ -12,11 +12,16 @@
 // thread in a fixed order, so the results repeat bitwise (the solver's
 // skip-if-unchanged rule compares mechanics right-hand sides bitwise).
 //
-// The elasticity apply (K1/K2/K5 below) is two launches: a cell-centric
-// product pass on tiles of cells and an output-centric node-sum pass.  The
-// coupling and projection right-hand sides are one output-centric launch
-// each: one thread owns one output value and re-gathers the <= 8 cells
-// that touch it, reading the element matrix as warp-uniform L1 broadcasts.
+// The elasticity apply (K1/K2/K5) and the projection right-hand side (K4)
+// share one cell-centric product pass on tiles of cells (rows_products_kernel,
+// 81 output rows per cell for the apply, 48 for the projection), followed by
+// an output-centric sum pass each (Q2 node sums for the apply, Q1 node sums
+// for the projection; the projection's product pass multiplies by pe,
+// 48 x 81, as four warps of 12 rows in float32 and six DMMA n-tiles in
+// float64).  The coupling right-hand side (K3) is one launch: a thread per
+// row-layout column loads its 3x3x3 Q1 neighbourhood of p once and writes
+// the column's 24 rows parity by parity, with the element matrix in shared
+// memory.
 
 #include <cuda_runtime.h>
 
@@ -26,8 +31,11 @@ constexpr int kUnmasked = 0;     // y = A x
 constexpr int kFree = 1;         // y = m * A x        (x in the free subspace)
 constexpr int kConstrained = 2;  // y = m * A(m x) + (1 - m) x
 
-constexpr int kThreads = 256;    // the output-centric kernels
+constexpr int kThreads = 256;    // the output-centric sum kernels
 constexpr int kLocal = 81;       // 27 local Q2 nodes x 3 components
+constexpr int kVoigt = 6;        // Voigt components of the 3D projection
+constexpr int kProjRows = 8 * kVoigt;   // rows of pe: Q1 local node x Voigt
+constexpr int kCouplingThreads = 128;   // the coupling kernel's blocks
 
 // Cells touching node index 2h+p along one axis, as (cell index, local
 // Q2 offset 0..2); returns how many (1 or 2).
@@ -56,23 +64,6 @@ __device__ __forceinline__ int q2_node_offset(int q, int n1, int W) {
   return ((oz >> 1) * 24 + base) * W + (oy >> 1) * n1 + (ox >> 1);
 }
 
-// Dot of one 81-long element-matrix row with a cell's 81 (node, comp)
-// values read from the row layout.
-template <typename T>
-__device__ __forceinline__ T cell_dot81(const T* __restrict__ krow,
-                                        const T* __restrict__ x, int cell,
-                                        int n1, int W) {
-  T s = T(0);
-#pragma unroll
-  for (int q = 0; q < 27; ++q) {
-    const int j0 = cell + q2_node_offset(q, n1, W);
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-      s += __ldg(krow + q * 3 + c) * __ldg(x + j0 + c * W);
-  }
-  return s;
-}
-
 // Decoded output position of a row-layout thread.
 struct RowPos {
   int zh, yh, xh, pz, py, px, c;
@@ -98,51 +89,59 @@ __device__ __forceinline__ RowPos decode_row(int idx, int n, int W) {
 }
 
 // ---------------------------------------------------------------------------
-// The Q2 elasticity apply (K1, K2, K5)
+// The cell product pass (K1, K2, K5 and K4)
 //
 // Replaces poroelasticity_dealii_tpu/ops/pallas_comp_major.py _kernel_v4
 // (make_pallas_free_apply, K1), _kernel_v3 (make_pallas_constrained_apply,
 // K2) and _kernel_v2 (make_pallas_apply_rows, K5): the Q2 elasticity apply,
-// row layout in and out, in the three masking modes.  The TPU kernels
-// gather one cell layer, multiply it by K (81 x 81) in one matrix product
-// and scatter it with a z-carry through a sequential grid.
+// row layout in and out, in the three masking modes; and _kernel_projection
+// (make_projection_rows_pallas, K4): the all-Voigt strain-projection
+// right-hand side, row layout in, (6, (n+1)^3) out.  The TPU kernels gather
+// one cell layer, multiply it by the element matrix (81 x 81, or 48 x 81) in
+// one matrix product and scatter it with a z-carry through a sequential
+// grid.
 //
 // Bound (H100, 700 W): one apply at n = 40 is 2*81*81*n^3 = 0.84 GFLOP
 // against ~14-21 MB of compulsory f32 traffic (x, mask, y), so it is bound
 // by operations: 12.5 us at the 67 TFLOP/s of float32 outside the tensor
 // cores (TF32 is not float32, and the reference multiplies at
 // Precision.HIGHEST) and of float64 on the tensor cores (DMMA).  The
-// first design, a thread per node re-gathering its <= 8 cells, issued one
-// load per three FMAs and was bound by the load pipe (11x the bound in
-// f32, 22x in f64).
+// projection is 48/81 of that work, 7.4 us.  The first design, a thread per
+// output value re-gathering its <= 8 cells, issued one or two loads per FMA
+// and was bound by the load pipe (11-25x the bound).
 //
 // Design: two launches, no atomics.
-//  1. Products, cell-centric (elasticity_rows_products_kernel): a
-//     persistent grid of at most one resident wave; each block loads K once
-//     into shared memory, zero-padded to the product's tile shape, then
-//     walks tiles of kCells consecutive cells (z, y, x order).  It gathers
-//     the tile's 81 x kCells operand matrix X_E from the row layout into
-//     shared memory with cp.async (CONSTRAINED: batched loads times the
-//     mask),
-//     computes Y_E = K X_E and writes it to the scratch ye (81, stride),
-//     cell fastest.  float32: each thread owns a 12 x 8 register tile of
-//     Y_E and reads K and X_E as float4 (K warp-uniform: broadcasts), so 5
-//     loads feed 96 FMAs.  float64: mma.sync m16n8k8 (sm_90) on the tensor
-//     cores (DMMA) with the cells as the M side, each warp a 16-cell x 88
-//     tile of Y_E^T.  A variant without the gather took ~80% of the
-//     product pass's time at n = 40 (PERF.md): the products bound it.
-//  2. Node sums, output-centric (elasticity_rows_sum_kernel): one thread
-//     per node adds its <= 8 cells' entries of ye in a fixed cell order,
-//     applies the mode and writes the row layout.
+//  1. Products, cell-centric (rows_products_kernel<T, ROWS>): a persistent
+//     grid of at most one resident wave; each block loads the element matrix
+//     once into shared memory with cp.async, zero-padded to the product's
+//     tile shape, so the load overlaps the first tile's gather (at n = 40 a
+//     float32 block walks about one tile), then walks tiles of kCells
+//     consecutive cells (z, y, x order).  It gathers the tile's 81 x kCells
+//     operand matrix X_E from the row layout into shared memory with
+//     cp.async (CONSTRAINED: batched loads times the mask), computes
+//     Y_E = K X_E (ROWS x kCells) and writes it to the
+//     scratch ye (ROWS, stride), cell fastest.  float32: each thread owns a
+//     12 x 8 register tile of Y_E and reads K and X_E as float4 (K
+//     warp-uniform: broadcasts), so 5 loads feed 96 FMAs; ROWS / 12 warps
+//     (7 for the apply, 4 for the projection).  float64: mma.sync m16n8k8
+//     (sm_90) on the tensor cores (DMMA) with the cells as the M side, each
+//     warp a 16-cell x ROWS tile of Y_E^T (11 n-tiles for the apply, 6 for
+//     the projection).  A variant of the apply without the gather took ~80%
+//     of the product pass's time at n = 40 (PERF.md): the products bound it.
+//  2. Sums, output-centric: elasticity_rows_sum_kernel, one thread per Q2
+//     node adds its <= 8 cells' entries of ye in a fixed cell order, applies
+//     the mode and writes the row layout; projection_sum_kernel, one thread
+//     per Q1 node adds its <= 8 cells' entries for each Voigt component.
 // ---------------------------------------------------------------------------
 
-// Pass-1 tile shapes; ops/comp_major.py::rows_apply_plan mirrors them and
-// passes the dynamic shared-memory bytes, which the launcher checks.
-template <typename T>
+// Pass-1 tile shapes by value type and output rows;
+// ops/comp_major.py::rows_apply_plan mirrors them and passes the dynamic
+// shared-memory bytes, which the launchers check.
+template <typename T, int ROWS>
 struct ProductTile;
 
 template <>
-struct ProductTile<float> {
+struct ProductTile<float, kLocal> {
   static constexpr int kCells = 256;    // cells per tile
   static constexpr int kThreads = 224;  // warp w: rows 12w..12w+11 of Y_E
   static constexpr int kMinBlocks = 2;  // resident blocks per SM
@@ -153,7 +152,18 @@ struct ProductTile<float> {
 };
 
 template <>
-struct ProductTile<double> {
+struct ProductTile<float, kProjRows> {
+  static constexpr int kCells = 256;
+  static constexpr int kThreads = 128;  // 4 warps x 12 rows = 48
+  static constexpr int kMinBlocks = 2;
+  static constexpr int kKRows = 81;     // pe^T[b][a]
+  static constexpr int kKCols = 48;
+  static constexpr int kXRows = 81;
+  static constexpr int kXStride = 256;
+};
+
+template <>
+struct ProductTile<double, kLocal> {
   static constexpr int kCells = 64;
   static constexpr int kThreads = 128;  // warp w: cells 16w..16w+15
   static constexpr int kMinBlocks = 2;
@@ -163,29 +173,23 @@ struct ProductTile<double> {
   static constexpr int kXStride = 68;   // (no bank conflict); X_E[b][cell]
 };
 
-template <typename T>
+template <>
+struct ProductTile<double, kProjRows> {
+  static constexpr int kCells = 64;
+  static constexpr int kThreads = 128;
+  static constexpr int kMinBlocks = 2;
+  static constexpr int kKRows = 48;     // pe[a][b], b zero-padded to 88,
+  static constexpr int kKCols = 92;     // with the apply's strides
+  static constexpr int kXRows = 88;
+  static constexpr int kXStride = 68;
+};
+
+template <typename T, int ROWS>
 constexpr int product_smem_bytes() {
-  using P = ProductTile<T>;
+  using P = ProductTile<T, ROWS>;
   return (P::kKRows * P::kKCols + P::kXRows * P::kXStride) *
              static_cast<int>(sizeof(T)) +
          (P::kCells + kLocal) * static_cast<int>(sizeof(int));
-}
-
-// Element matrix into shared memory in the layout its product reads.
-__device__ __forceinline__ void load_k(float* ks, const float* ke) {
-  using P = ProductTile<float>;
-  for (int i = threadIdx.x; i < P::kKRows * P::kKCols; i += P::kThreads) {
-    const int b = i / P::kKCols, a = i - b * P::kKCols;
-    ks[i] = a < kLocal ? ke[a * kLocal + b] : 0.f;
-  }
-}
-
-__device__ __forceinline__ void load_k(double* ks, const double* ke) {
-  using P = ProductTile<double>;
-  for (int i = threadIdx.x; i < P::kKRows * P::kKCols; i += P::kThreads) {
-    const int a = i / P::kKCols, b = i - a * P::kKCols;
-    ks[i] = (a < kLocal && b < kLocal) ? ke[a * kLocal + b] : 0.0;
-  }
 }
 
 template <typename T>
@@ -196,18 +200,49 @@ __device__ __forceinline__ void cp_async(T* smem_dst, const T* gmem_src) {
                "l"(gmem_src), "n"(sizeof(T)));
 }
 
+// Element matrix (ROWS x 81, row-major) into shared memory in the layout
+// its product reads, with cp.async (in flight until the caller's wait) and
+// zeros in the padding.
+template <int ROWS>
+__device__ __forceinline__ void load_k(float* ks, const float* ke) {
+  using P = ProductTile<float, ROWS>;
+  for (int i = threadIdx.x; i < P::kKRows * P::kKCols; i += P::kThreads) {
+    const int b = i / P::kKCols, a = i - b * P::kKCols;
+    if (a < ROWS)
+      cp_async(ks + i, ke + a * kLocal + b);
+    else
+      ks[i] = 0.f;
+  }
+}
+
+template <int ROWS>
+__device__ __forceinline__ void load_k(double* ks, const double* ke) {
+  using P = ProductTile<double, ROWS>;
+  for (int i = threadIdx.x; i < P::kKRows * P::kKCols; i += P::kThreads) {
+    const int a = i / P::kKCols, b = i - a * P::kKCols;
+    if (a < ROWS && b < kLocal)
+      cp_async(ks + i, ke + a * kLocal + b);
+    else
+      ks[i] = 0.0;
+  }
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Y_E (81 x 256) = K X_E on the CUDA cores; ye points at the tile's first
+// Y_E (ROWS x 256) = K X_E on the CUDA cores; ye points at the tile's first
 // cell in the scratch.  Thread (w, lane): rows 12w..12w+11, cells
 // 4 lane..4 lane+3 and 128+4 lane..128+4 lane+3 (each float4 load of X_E
 // a warp makes is 512 contiguous bytes).
+template <int ROWS>
 __device__ __forceinline__ void tile_products(const float* ks,
                                               const float* xs,
                                               float* __restrict__ ye,
                                               int stride) {
+  using P = ProductTile<float, ROWS>;
+  constexpr int kK4 = P::kKCols / 4;    // float4s per row of K^T
+  static_assert(P::kThreads == 32 * (P::kKCols / 12), "12 rows per warp");
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const float4* k4 = reinterpret_cast<const float4*>(ks) + 3 * w;
   const float4* x4 = reinterpret_cast<const float4*>(xs) + lane;
@@ -218,7 +253,7 @@ __device__ __forceinline__ void tile_products(const float* ks,
     for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
 #pragma unroll 3
   for (int b = 0; b < kLocal; ++b) {
-    const float4 k0 = k4[b * 21], k1 = k4[b * 21 + 1], k2 = k4[b * 21 + 2];
+    const float4 k0 = k4[b * kK4], k1 = k4[b * kK4 + 1], k2 = k4[b * kK4 + 2];
     const float4 xv = x4[b * 64], xw = x4[b * 64 + 32];
     const float kr[12] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y,
                           k1.z, k1.w, k2.x, k2.y, k2.z, k2.w};
@@ -231,7 +266,7 @@ __device__ __forceinline__ void tile_products(const float* ks,
 #pragma unroll
   for (int r = 0; r < 12; ++r) {
     const int a = 12 * w + r;
-    if (a < kLocal) {
+    if (a < ROWS) {
       float4* row =
           reinterpret_cast<float4*>(ye + static_cast<long long>(a) * stride);
       row[lane] = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
@@ -254,20 +289,22 @@ __device__ __forceinline__ void dmma_16x8x8(double (&d)[4],
       : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b0), "d"(b1));
 }
 
-// Y_E^T (64 cells x 88, columns >= 81 dropped) = X_E^T K^T with DMMA:
+// Y_E^T (64 cells x kKRows, columns >= ROWS dropped) = X_E^T K^T with DMMA:
 // A = X_E^T (cells x b), B = K^T (b x a, read from K[a][b]), b padded to 88.
+template <int ROWS>
 __device__ __forceinline__ void tile_products(const double* ks,
                                               const double* xs,
                                               double* __restrict__ ye,
                                               int stride) {
-  using P = ProductTile<double>;
+  using P = ProductTile<double, ROWS>;
+  constexpr int kNT = P::kKRows / 8;    // n-tiles of 8 output rows
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const double* xa = xs + t * P::kXStride + 16 * w + g;  // A[cell][b]
   const double* kb = ks + g * P::kKCols + t;             // B[b][a] = K[a][b]
-  double acc[11][4];
+  double acc[kNT][4];
 #pragma unroll
-  for (int nb = 0; nb < 11; ++nb)
+  for (int nb = 0; nb < kNT; ++nb)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[nb][i] = 0.0;
 #pragma unroll 1
@@ -276,16 +313,16 @@ __device__ __forceinline__ void tile_products(const double* ks,
                          xa[(k0 + 4) * P::kXStride],
                          xa[(k0 + 4) * P::kXStride + 8]};
 #pragma unroll
-    for (int nb = 0; nb < 11; ++nb)
+    for (int nb = 0; nb < kNT; ++nb)
       dmma_16x8x8(acc[nb], a, kb[nb * 8 * P::kKCols + k0],
                   kb[nb * 8 * P::kKCols + k0 + 4]);
   }
 #pragma unroll
-  for (int nb = 0; nb < 11; ++nb)
+  for (int nb = 0; nb < kNT; ++nb)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int a = nb * 8 + 2 * t + i;
-      if (a < kLocal) {
+      if (a < ROWS) {
         double* row = ye + static_cast<long long>(a) * stride + 16 * w + g;
         row[0] = acc[nb][i];
         row[8] = acc[nb][2 + i];
@@ -293,18 +330,17 @@ __device__ __forceinline__ void tile_products(const double* ks,
     }
 }
 
-// Pass 1: ye[a][cell] = sum_b K[a][b] X_E[b][cell] for every cell, X_E
-// gathered from x (times the mask when MASK_INPUT).  stride: the scratch
-// row length, a multiple of kCells >= n^3; cells past n^3 get zero.
-template <typename T, bool MASK_INPUT>
-__global__ void __launch_bounds__(ProductTile<T>::kThreads,
-                                  ProductTile<T>::kMinBlocks)
-elasticity_rows_products_kernel(const T* __restrict__ x,
-                                const T* __restrict__ m,
-                                const T* __restrict__ ke,
-                                T* __restrict__ ye, int n, int W,
-                                int stride) {
-  using P = ProductTile<T>;
+// Pass 1: ye[a][cell] = sum_b K[a][b] X_E[b][cell] for every cell and each
+// of the ROWS rows of K (ROWS x 81), X_E gathered from x (times the mask
+// when MASK_INPUT).  stride: the scratch row length, a multiple of kCells
+// >= n^3; cells past n^3 get zero.
+template <typename T, int ROWS, bool MASK_INPUT>
+__global__ void __launch_bounds__(ProductTile<T, ROWS>::kThreads,
+                                  ProductTile<T, ROWS>::kMinBlocks)
+rows_products_kernel(const T* __restrict__ x, const T* __restrict__ m,
+                     const T* __restrict__ ke, T* __restrict__ ye, int n,
+                     int W, int stride) {
+  using P = ProductTile<T, ROWS>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ks = reinterpret_cast<T*>(smem_raw);
   T* xs = ks + P::kKRows * P::kKCols;
@@ -313,7 +349,7 @@ elasticity_rows_products_kernel(const T* __restrict__ x,
   const int tid = threadIdx.x;
   const int n1 = n + 1, nn = n * n, cells = nn * n;
 
-  load_k(ks, ke);
+  load_k<ROWS>(ks, ke);
   for (int b = tid; b < kLocal; b += P::kThreads)
     node_off[b] = q2_node_offset(b / 3, n1, W) + (b % 3) * W;
   for (int i = kLocal * P::kXStride + tid; i < P::kXRows * P::kXStride;
@@ -323,7 +359,7 @@ elasticity_rows_products_kernel(const T* __restrict__ x,
   for (int tile = blockIdx.x; tile * P::kCells < stride;
        tile += gridDim.x) {
     const int c0 = tile * P::kCells;
-    __syncthreads();   // K in place; the last tile's products are done
+    __syncthreads();   // the last tile's products are done
     for (int j = tid; j < P::kCells; j += P::kThreads) {
       const int cell = c0 + j;
       int base = -1;
@@ -360,6 +396,7 @@ elasticity_rows_products_kernel(const T* __restrict__ x,
         }
       }
     } else {
+#pragma unroll 4
       for (int e = tid; e < kLocal * P::kCells; e += P::kThreads) {
         const int b = e / P::kCells, j = e - b * P::kCells;
         T* dst = xs + b * P::kXStride + j;
@@ -369,16 +406,16 @@ elasticity_rows_products_kernel(const T* __restrict__ x,
         else
           cp_async(dst, x + base + node_off[b]);
       }
-      cp_async_wait_all();
     }
+    cp_async_wait_all();   // the tile (and, at the first tile, K) landed
     __syncthreads();
-    tile_products(ks, xs, ye + c0, stride);
+    tile_products<ROWS>(ks, xs, ye + c0, stride);
   }
 }
 
-// Pass 2: one thread per node sums its <= 8 cells' entries of ye (cells in
-// z, y, x order, offset 0 before offset 2 on each axis) for its three
-// components, applies the mode and writes the row layout.
+// Pass 2 of the apply: one thread per node sums its <= 8 cells' entries of
+// ye (cells in z, y, x order, offset 0 before offset 2 on each axis) for its
+// three components, applies the mode and writes the row layout.
 template <typename T, int MODE>
 __global__ void __launch_bounds__(kThreads)
 elasticity_rows_sum_kernel(const T* __restrict__ ye, const T* __restrict__ x,
@@ -420,115 +457,209 @@ elasticity_rows_sum_kernel(const T* __restrict__ ye, const T* __restrict__ x,
   }
 }
 
-// Replaces poroelasticity_dealii_tpu/ops/pallas_comp_major.py
-// _kernel_coupling (make_coupling_rows_pallas): the mechanics right-hand
-// side b = C p from the Q1 pressure (flat (n+1)^3, x fastest) straight into
-// the row layout.  ce: (81, 8) element matrix, Biot coefficient folded in.
+// Pass 2 of the projection: one thread per Q1 node adds, for each Voigt
+// component c, its <= 8 cells' entries ye[ip*6 + c][cell] (cells in z, y, x
+// order, offset 0 before offset 1 on each axis; ip the node's local Q1 index
+// in the cell) and writes out[c][node].  Neighbouring threads read
+// neighbouring cells.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-coupling_rows_kernel(const T* __restrict__ p, const T* __restrict__ ce,
-                     T* __restrict__ y, int n, int W) {
-  const int total = (n + 1) * 24 * W;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const RowPos r = decode_row(idx, n, W);
-  const int g1 = n + 1;
-  T acc = T(0);
-  if (r.real) {
-    int cx[2], ox[2], cy[2], oy[2], cz[2], oz[2];
-    const int kx = q2_axis_cells(r.xh, r.px, n, cx, ox);
-    const int ky = q2_axis_cells(r.yh, r.py, n, cy, oy);
-    const int kz = q2_axis_cells(r.zh, r.pz, n, cz, oz);
-    for (int a = 0; a < kz; ++a)
-      for (int b = 0; b < ky; ++b)
-        for (int d = 0; d < kx; ++d) {
-          const int loc = ox[d] + 3 * oy[b] + 9 * oz[a];
-          const T* crow = ce + (loc * 3 + r.c) * 8;
-          const int base = (cz[a] * g1 + cy[b]) * g1 + cx[d];
-          T s = T(0);
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-            s += __ldg(crow + i) *
-                 __ldg(p + base + ((i >> 2) * g1 + ((i >> 1) & 1)) * g1 +
-                       (i & 1));
-          acc += s;
-        }
-  }
-  y[idx] = acc;
-}
-
-// Replaces poroelasticity_dealii_tpu/ops/pallas_comp_major.py
-// _kernel_projection (make_projection_rows_pallas): the all-Voigt strain
-// projection right-hand side from u in the row layout, out as (C, (n+1)^3).
-// pe: (8*C, 81) element matrix, rows (Q1 local node * C + Voigt c).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-projection_rows_kernel(const T* __restrict__ x, const T* __restrict__ pe,
-                       T* __restrict__ out, int n, int W, int C) {
+projection_sum_kernel(const T* __restrict__ ye, T* __restrict__ out, int n,
+                      int stride) {
   const int g1 = n + 1;
   const int nodes = g1 * g1 * g1;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= C * nodes) return;
-  const int c = idx / nodes;
-  const int node = idx - c * nodes;
+  const int node = blockIdx.x * blockDim.x + threadIdx.x;
+  if (node >= nodes) return;
   const int Z = node / (g1 * g1);
-  const int Y = (node / g1) % g1;
-  const int X = node % g1;
+  const int rem = node - Z * g1 * g1;
+  const int Y = rem / g1, X = rem - Y * g1;
   int cx[2], ox[2], cy[2], oy[2], cz[2], oz[2];
   const int kx = q1_axis_cells(X, n, cx, ox);
   const int ky = q1_axis_cells(Y, n, cy, oy);
   const int kz = q1_axis_cells(Z, n, cz, oz);
-  T acc = T(0);
+  T acc[kVoigt];
+#pragma unroll
+  for (int c = 0; c < kVoigt; ++c) acc[c] = T(0);
   for (int a = 0; a < kz; ++a)
     for (int b = 0; b < ky; ++b)
       for (int d = 0; d < kx; ++d) {
         const int ip = ox[d] + 2 * oy[b] + 4 * oz[a];
-        const int cell = cz[a] * 24 * W + cy[b] * g1 + cx[d];
-        acc += cell_dot81<T>(pe + (ip * C + c) * 81, x, cell, g1, W);
+        const T* yc = ye + static_cast<long long>(ip * kVoigt) * stride +
+                      (cz[a] * n + cy[b]) * n + cx[d];
+#pragma unroll
+        for (int c = 0; c < kVoigt; ++c) acc[c] += yc[c * stride];
       }
-  out[idx] = acc;
+#pragma unroll
+  for (int c = 0; c < kVoigt; ++c) out[c * nodes + node] = acc[c];
+}
+
+// ---------------------------------------------------------------------------
+// The coupling right-hand side (K3)
+//
+// Replaces poroelasticity_dealii_tpu/ops/pallas_comp_major.py
+// _kernel_coupling (make_coupling_rows_pallas): the mechanics right-hand
+// side b = C p from the Q1 pressure (flat (n+1)^3, x fastest) straight into
+// the row layout.  ce: (81, 8) element matrix, Biot coefficient folded in.
+//
+// Bound (H100, 700 W): 2*81*8*n^3 = 83 MFLOP against the 7.3 MB row layout
+// written (f32, n = 40): bound by bytes, 2.2 us (4.4 us in f64).  The first
+// design, a thread per row-layout value, decoded its position (five integer
+// divisions) and issued up to 128 loads for 64 FMAs.
+//
+// Design: one thread per row-layout column (zh, lane = yh*(n+1) + xh) writes
+// all 24 rows of it (8 parities x 3 components).  A column's Q2 nodes lie in
+// the cells h-1 and h on each axis, whose Q1 nodes are h-1..h+1: the thread
+// loads that 3x3x3 neighbourhood of p once (27 loads, neighbouring threads
+// on neighbouring addresses), walks the 27 local Q2 nodes q of the element
+// matrix parity by parity with the loops unrolled at compile time (q's
+// offset 2 on an axis lies in cell h-1, offsets 0 and 1 in cell h), skips
+// cells outside the grid per axis (an outside cell still touches nodes
+// inside, so a zero p is not enough), and stores each parity's 3 values
+// (coalesced across the warp) before the next parity: 3 accumulators live
+// instead of 24, which cut the float64 time by 16% (PERF.md).  The 648
+// values of ce sit in shared memory, staged while the loads of p are in
+// flight and read as warp-uniform broadcasts.  Padding lanes and phantom
+// rows touch no cell inside and get zero.
+// ---------------------------------------------------------------------------
+
+// Eight consecutive values of a 16-byte aligned shared array.
+__device__ __forceinline__ void load8(const float* s, float (&v)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(s)[0];
+  const float4 b = reinterpret_cast<const float4*>(s)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(const double* s, double (&v)[8]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const double2 a = reinterpret_cast<const double2*>(s)[i];
+    v[2 * i] = a.x;
+    v[2 * i + 1] = a.y;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kCouplingThreads)
+coupling_rows_kernel(const T* __restrict__ p, const T* __restrict__ ce,
+                     T* __restrict__ y, int n, int W) {
+  __shared__ __align__(16) T cs[kLocal * 8];
+  const int idx = blockIdx.x * kCouplingThreads + threadIdx.x;
+  const int zh = idx / W, lane = idx - zh * W;
+  const int n1 = n + 1;
+  const int yh = lane / n1, xh = lane - yh * n1;
+  const bool real = lane < n1 * n1;
+  // cell h-1 (index 0) and h (index 1) on each axis, inside the grid
+  const bool vx[2] = {real && xh >= 1, real && xh < n};
+  const bool vy[2] = {real && yh >= 1, real && yh < n};
+  const bool vz[2] = {real && zh >= 1, real && zh < n};
+  // p at Q1 nodes h-1+k, k = 0..2, on each axis (zero outside the grid)
+  T pv[3][3][3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int b = 0; b < 3; ++b)
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        const int Z = zh - 1 + a, Y = yh - 1 + b, X = xh - 1 + d;
+        const bool in = real && Z >= 0 && Z <= n && Y >= 0 && Y <= n &&
+                        X >= 0 && X <= n;
+        pv[a][b][d] = in ? __ldg(p + (Z * n1 + Y) * n1 + X) : T(0);
+      }
+  // ce into shared memory while the loads of p are in flight
+  for (int i = threadIdx.x; i < kLocal * 8; i += kCouplingThreads)
+    cs[i] = ce[i];
+  __syncthreads();
+  if (zh > n) return;
+  // parity by parity, its local Q2 nodes q in increasing order: the three
+  // rows of a parity are stored before the next parity's products start
+#pragma unroll
+  for (int par = 0; par < 8; ++par) {
+    const int px = par & 1, py = (par >> 1) & 1, pz = par >> 2;
+    T acc[3] = {T(0), T(0), T(0)};
+#pragma unroll
+    for (int oz = pz; oz < 3; oz += 2)
+#pragma unroll
+      for (int oy = py; oy < 3; oy += 2)
+#pragma unroll
+        for (int ox = px; ox < 3; ox += 2) {
+          // the cell holding local node q: h-1 for offset 2, else h
+          const int dx = ox == 2 ? 0 : 1, dy = oy == 2 ? 0 : 1,
+                    dz = oz == 2 ? 0 : 1;
+          if (!(vx[dx] && vy[dy] && vz[dz])) continue;
+          const int q = ox + 3 * oy + 9 * oz;
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            T cv[8];
+            load8(cs + (q * 3 + c) * 8, cv);
+            T s = T(0);
+#pragma unroll
+            for (int i = 0; i < 8; ++i)   // local Q1 node (i&1, i>>1&1, i>>2)
+              s += cv[i] *
+                   pv[dz + (i >> 2)][dy + ((i >> 1) & 1)][dx + (i & 1)];
+            acc[c] += s;
+          }
+        }
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      y[(zh * 24 + par * 3 + c) * W + lane] = acc[c];
+  }
 }
 
 constexpr int kMaxDevices = 64;
 
-inline unsigned blocks_for(long long total) {
-  return static_cast<unsigned>((total + kThreads - 1) / kThreads);
+inline unsigned blocks_for(long long total, int threads = kThreads) {
+  return static_cast<unsigned>((total + threads - 1) / threads);
+}
+
+// Launch pass 1 with the plan the wrapper passes; refuse any other plan.
+// The element matrix and a tile exceed the 48 KB a block gets without
+// opting in; the attribute is per device, set at a device's first launch.
+template <typename T, int ROWS, bool MASK_INPUT>
+cudaError_t launch_products(const T* x, const T* m, const T* ke, T* ye,
+                            int n, int W, int stride, int grid, int smem,
+                            cudaStream_t s) {
+  using P = ProductTile<T, ROWS>;
+  if (smem != product_smem_bytes<T, ROWS>() || grid < 1 ||
+      stride % P::kCells ||
+      static_cast<long long>(stride) < static_cast<long long>(n) * n * n)
+    return cudaErrorInvalidValue;
+  void (*products)(const T*, const T*, const T*, T*, int, int, int) =
+      rows_products_kernel<T, ROWS, MASK_INPUT>;
+  static bool opted_in[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!opted_in[device]) {
+    err = cudaFuncSetAttribute(
+        products, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    opted_in[device] = true;
+  }
+  products<<<grid, P::kThreads, smem, s>>>(x, m, ke, ye, n, W, stride);
+  return cudaGetLastError();
 }
 
 template <typename T>
 int launch_elasticity(const void* x, const void* m, const void* ke, void* y,
                       void* ye, int n, int W, int stride, int grid, int smem,
                       int mode, void* stream) {
-  using P = ProductTile<T>;
-  if (smem != product_smem_bytes<T>() || grid < 1 || stride % P::kCells ||
-      static_cast<long long>(stride) < static_cast<long long>(n) * n * n ||
-      (mode != kUnmasked && mode != kFree && mode != kConstrained))
+  if (mode != kUnmasked && mode != kFree && mode != kConstrained)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T* xp = static_cast<const T*>(x);
   const T* mp = static_cast<const T*>(m);
+  const T* kp = static_cast<const T*>(ke);
   T* yp = static_cast<T*>(y);
   T* ep = static_cast<T*>(ye);
-  const bool masked = mode == kConstrained;
-  void (*products)(const T*, const T*, const T*, T*, int, int, int) =
-      masked ? elasticity_rows_products_kernel<T, true>
-             : elasticity_rows_products_kernel<T, false>;
-  // K and the tile exceed the 48 KB a block gets without opting in; the
-  // attribute is per device, set at a device's first launch
-  static bool opted_in[2][kMaxDevices] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  const cudaError_t err =
+      mode == kConstrained
+          ? launch_products<T, kLocal, true>(xp, mp, kp, ep, n, W, stride,
+                                             grid, smem, s)
+          : launch_products<T, kLocal, false>(xp, mp, kp, ep, n, W, stride,
+                                              grid, smem, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!opted_in[masked][device]) {
-    err = cudaFuncSetAttribute(
-        products, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in[masked][device] = true;
-  }
-  products<<<grid, P::kThreads, smem, s>>>(xp, mp, static_cast<const T*>(ke),
-                                           ep, n, W, stride);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   const unsigned sum_grid = blocks_for(static_cast<long long>(n + 1) * 8 * W);
   switch (mode) {
     case kUnmasked:
@@ -549,8 +680,9 @@ int launch_elasticity(const void* x, const void* m, const void* ke, void* y,
 template <typename T>
 int launch_coupling(const void* p, const void* ce, void* y, int n, int W,
                     void* stream) {
-  const unsigned grid = blocks_for(static_cast<long long>(n + 1) * 24 * W);
-  coupling_rows_kernel<T><<<grid, kThreads, 0,
+  const unsigned grid = blocks_for(static_cast<long long>(n + 1) * W,
+                                   kCouplingThreads);
+  coupling_rows_kernel<T><<<grid, kCouplingThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(p), static_cast<const T*>(ce),
       static_cast<T*>(y), n, W);
@@ -558,21 +690,26 @@ int launch_coupling(const void* p, const void* ce, void* y, int n, int W,
 }
 
 template <typename T>
-int launch_projection(const void* x, const void* pe, void* out, int n, int W,
-                      int C, void* stream) {
+int launch_projection(const void* x, const void* pe, void* out, void* ye,
+                      int n, int W, int C, int stride, int grid, int smem,
+                      void* stream) {
+  if (C != kVoigt) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  T* ep = static_cast<T*>(ye);
+  const cudaError_t err = launch_products<T, kProjRows, false>(
+      static_cast<const T*>(x), nullptr, static_cast<const T*>(pe), ep, n, W,
+      stride, grid, smem, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const long long g1 = n + 1;
-  const unsigned grid = blocks_for(C * g1 * g1 * g1);
-  projection_rows_kernel<T><<<grid, kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(pe),
-      static_cast<T*>(out), n, W, C);
+  projection_sum_kernel<T><<<blocks_for(g1 * g1 * g1), kThreads, 0, s>>>(
+      ep, static_cast<T*>(out), n, stride);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C interface for ctypes: every pointer and the stream are void*,
-// every entry point returns cudaGetLastError() after its launch.
+// every entry point returns cudaGetLastError() after its launches.
 extern "C" {
 
 // ye: the (81, stride) product scratch; grid, smem: pass 1's launch plan.
@@ -600,14 +737,20 @@ int coupling_rows_f64(const void* p, const void* ce, void* y, int n, int W,
   return launch_coupling<double>(p, ce, y, n, W, stream);
 }
 
-int projection_rows_f32(const void* x, const void* pe, void* out, int n,
-                        int W, int C, void* stream) {
-  return launch_projection<float>(x, pe, out, n, W, C, stream);
+// ye: the (48, stride) product scratch; grid, smem: pass 1's launch plan;
+// C: Voigt components, 6 only.
+int projection_rows_f32(const void* x, const void* pe, void* out, void* ye,
+                        int n, int W, int C, int stride, int grid, int smem,
+                        void* stream) {
+  return launch_projection<float>(x, pe, out, ye, n, W, C, stride, grid,
+                                  smem, stream);
 }
 
-int projection_rows_f64(const void* x, const void* pe, void* out, int n,
-                        int W, int C, void* stream) {
-  return launch_projection<double>(x, pe, out, n, W, C, stream);
+int projection_rows_f64(const void* x, const void* pe, void* out, void* ye,
+                        int n, int W, int C, int stride, int grid, int smem,
+                        void* stream) {
+  return launch_projection<double>(x, pe, out, ye, n, W, C, stride, grid,
+                                   smem, stream);
 }
 
 }  // extern "C"

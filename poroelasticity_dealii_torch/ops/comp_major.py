@@ -20,7 +20,8 @@ Each wrapper takes its plain PyTorch twin (``*_plain``) for CPU tensors and
 launches its kernel for CUDA tensors, counting launches in its
 ``launches`` attribute (one per call; the elasticity apply is two CUDA
 launches, a product pass on tiles of cells and a node-sum pass, planned by
-:func:`rows_apply_plan`).  The plain twins are vectorised over all cells: one
+:func:`rows_apply_plan`; so is the projection, which shares the
+product pass).  The plain twins are vectorised over all cells: one
 advanced-index gather of the cells' local values, one matmul with the
 element matrix, one ``index_add_`` over a precomputed flat index.
 
@@ -131,23 +132,35 @@ def _rows_shape(n: int):
     return ((n + 1) * 24, _width(n))
 
 
-# The product pass of csrc/comp_major.cu (ProductTile<T>): cells per tile,
-# resident blocks per SM (its __launch_bounds__), and the shared-memory
-# shapes of K and of the tile's operand matrix X_E.
+# The cell product pass of csrc/comp_major.cu (ProductTile<T, ROWS>), by
+# output rows per cell: cells per tile, resident blocks per SM (its
+# __launch_bounds__), and the shared-memory shapes of the element matrix and
+# of the tile's operand matrix X_E.  ELASTICITY_ROWS: K (81 x 81) of the
+# apply; PROJECTION_ROWS: pe (8 * 6 x 81) of the projection.
+ELASTICITY_ROWS, N_VOIGT = 81, 6
+PROJECTION_ROWS = 8 * N_VOIGT
 PRODUCT_TILE = {
     torch.float32: {"cells": 256, "blocks_per_sm": 2, "k": (81, 84),
                     "x": (81, 256)},
     torch.float64: {"cells": 64, "blocks_per_sm": 2, "k": (88, 92),
                     "x": (88, 68)},
 }
+PROJECTION_TILE = {
+    torch.float32: {"cells": 256, "blocks_per_sm": 2, "k": (81, 48),
+                    "x": (81, 256)},
+    torch.float64: {"cells": 64, "blocks_per_sm": 2, "k": (48, 92),
+                    "x": (88, 68)},
+}
+_TILES = {ELASTICITY_ROWS: PRODUCT_TILE, PROJECTION_ROWS: PROJECTION_TILE}
 
 
 @dataclasses.dataclass(frozen=True)
 class RowsApplyPlan:
-    """Launch plan of the elasticity apply's product pass: ``tiles`` tiles
-    of ``cells_per_tile`` cells over a persistent grid of ``grid`` blocks
-    with ``smem_bytes`` of dynamic shared memory, writing the (81,
+    """Launch plan of a cell product pass: ``tiles`` tiles of
+    ``cells_per_tile`` cells over a persistent grid of ``grid`` blocks with
+    ``smem_bytes`` of dynamic shared memory, writing the (``rows``,
     ``stride``) product scratch (cell fastest)."""
+    rows: int
     cells_per_tile: int
     tiles: int
     stride: int
@@ -156,21 +169,23 @@ class RowsApplyPlan:
 
     @property
     def scratch_numel(self) -> int:
-        return 81 * self.stride
+        return self.rows * self.stride
 
 
 @functools.lru_cache(maxsize=64)
-def rows_apply_plan(n: int, dtype: torch.dtype, sms: int) -> RowsApplyPlan:
+def rows_apply_plan(n: int, dtype: torch.dtype, sms: int,
+                    rows: int = ELASTICITY_ROWS) -> RowsApplyPlan:
     """The product pass's plan at grid size ``n`` on a card with ``sms``
-    multiprocessors: at most one resident wave of blocks, each loading K
-    once and walking tiles."""
-    t = PRODUCT_TILE[dtype]
+    multiprocessors, for ``rows`` output rows per cell (the elasticity
+    apply's 81 or the projection's 48): at most one resident wave of
+    blocks, each loading the element matrix once and walking tiles."""
+    t = _TILES[rows][dtype]
     item = torch.tensor([], dtype=dtype).element_size()
     smem = ((t["k"][0] * t["k"][1] + t["x"][0] * t["x"][1]) * item
             + (t["cells"] + 81) * 4)        # + cell bases, node offsets
     tiles = -(-n ** 3 // t["cells"])
     return RowsApplyPlan(
-        cells_per_tile=t["cells"], tiles=tiles,
+        rows=rows, cells_per_tile=t["cells"], tiles=tiles,
         stride=tiles * t["cells"], grid=min(tiles, sms * t["blocks_per_sm"]),
         smem_bytes=smem)
 
@@ -266,17 +281,22 @@ def coupling_rows(p, ce, n: int):
 
 def projection_rows(x, pe, n: int):
     """All-Voigt strain-projection RHS (C, (n+1)^3) from u in the row
-    layout.  ``pe``: (8*C, 81), rows (Q1 local node * C + Voigt c)."""
+    layout.  ``pe``: (8*C, 81), rows (Q1 local node * C + Voigt c); the
+    kernel takes the 3D count C = 6 only.  Two CUDA launches: the cell
+    product pass into a (48, n^3) scratch (:func:`rows_apply_plan` with
+    ``rows=PROJECTION_ROWS``), then the Q1 node sums."""
     if x.device.type == "cpu":
         return projection_rows_plain(x, pe, n)
     _cuda.require_cuda(x)
     _cuda.check("x", x, _rows_shape(n), x.dtype, x.device)
-    if pe.shape[0] % 8 or pe.shape[1] != 81:
-        raise ValueError(f"pe has shape {tuple(pe.shape)}, expected (8*C, 81)")
-    _cuda.check("pe", pe, pe.shape, x.dtype, x.device)
-    C = pe.shape[0] // 8
-    out = torch.empty((C, (n + 1) ** 3), dtype=x.dtype, device=x.device)
-    _cuda.launch("projection_rows", x, x, pe, out, n, _width(n), C)
+    _cuda.check("pe", pe, (PROJECTION_ROWS, 81), x.dtype, x.device)
+    plan = rows_apply_plan(n, x.dtype, _sm_count(x.device),
+                           rows=PROJECTION_ROWS)
+    out = torch.empty((N_VOIGT, (n + 1) ** 3), dtype=x.dtype,
+                      device=x.device)
+    ye = torch.empty(plan.scratch_numel, dtype=x.dtype, device=x.device)
+    _cuda.launch("projection_rows", x, x, pe, out, ye, n, _width(n), N_VOIGT,
+                 plan.stride, plan.grid, plan.smem_bytes)
     projection_rows.launches += 1
     return out
 

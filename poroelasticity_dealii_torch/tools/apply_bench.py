@@ -11,11 +11,11 @@ two entry points (``make_flat_apply``, the K6 counterpart, and
 FLOP count.  It needs a CUDA device; :func:`run` also takes the CPU for
 tests, with no times.
 
-:func:`rows_free_csr` and :func:`rows_spmv_ms` give the row-layout
-kernel's library yardstick (``library_ms`` in ``chip_smoke.py``): one
-cuSPARSE CSR matrix-vector product over the assembled operator, as the
-reference deal.II program applies its assembled matrices.  The port never
-calls them.
+:func:`library_csr` and :func:`spmv_ms` give every kernel's library
+yardstick (``library_ms`` in ``chip_smoke.py``): one cuSPARSE CSR
+matrix-vector product over the assembled operator, as the reference
+deal.II program applies its assembled matrices.  The port never calls
+them.
 """
 
 from __future__ import annotations
@@ -68,33 +68,99 @@ def cuda_time_ms(fn, reps: int = 20) -> float:
     return device_and_host_ms(fn, reps)[0]
 
 
-def rows_free_csr(ke: torch.Tensor, mask_rows: torch.Tensor,
-                  n: int) -> torch.Tensor:
-    """The Q2 elasticity operator on the row layout as one sparse CSR
-    matrix with the FREE mask folded into its rows: ``M @ x.view(-1)``
-    equals ``m * A x``.  Assembled on ``ke``'s device: every cell's 81 x 81
-    entries at their flat row-layout indices, zero entries (the rows the
-    mask zeroes among them) left out, duplicates summed (COO coalesce)."""
+# every function a kernel wrapper computes, by the name chip_smoke.py gives
+# its case: each is linear, so one CSR SpMV computes it
+LIBRARY_CASES = ("elasticity_rows_apply[unmasked]",
+                 "elasticity_rows_apply[free]",
+                 "elasticity_rows_apply[constrained]",
+                 "coupling_rows", "projection_rows", "elasticity_grid_apply")
+
+
+def _flat_index(n: int, device) -> torch.Tensor:
+    """(81, n^3): flat Q2 dof index (((z*g + y)*g + x)*3 + c) of local
+    (node, comp) a*3+c of every cell, cells in z, y, x order."""
+    from ..ops.shape import node_lattice
+    g = 2 * n + 1
+    iz, iy, ix = np.meshgrid(*(np.arange(n),) * 3, indexing="ij")
+    cell = ((2 * iz * g + 2 * iy) * g + 2 * ix).reshape(-1)
+    off = [((int(oz) * g + int(oy)) * g + int(ox)) * 3 + c
+           for (ox, oy, oz) in node_lattice(2, 3) for c in range(3)]
+    idx = np.asarray(off)[:, None] + 3 * cell[None, :]
+    return torch.as_tensor(idx, dtype=torch.int64, device=device)
+
+
+def _cell_entries(R, C, V, rscale=None, cscale=None):
+    """Flat (rows, cols, vals) of every cell's V[a][b] at (R[a, cell],
+    C[b, cell]), times rscale[a, cell] and cscale[b, cell] if given."""
+    a, b = V.shape
+    cells = R.shape[1]
+    v = V[:, :, None]
+    if rscale is not None:
+        v = v * rscale[:, None, :]
+    if cscale is not None:
+        v = v * cscale[None, :, :]
+    return (R[:, None, :].expand(a, b, cells).reshape(-1),
+            C[None, :, :].expand(a, b, cells).reshape(-1),
+            v.expand(a, b, cells).reshape(-1))
+
+
+def library_csr(name: str, n: int, ke, ce, pe, mask_rows) -> torch.Tensor:
+    """The function of kernel case ``name`` (:data:`LIBRARY_CASES`) at grid
+    size ``n`` as one sparse CSR matrix ``M``: ``M @ input.view(-1)`` equals
+    the case's output, flattened (input: x in the row layout, p, or flat u).
+    Assembled on ``ke``'s device from every cell's element-matrix entries at
+    their flat indices, the masks of the FREE and CONSTRAINED modes folded
+    in (CONSTRAINED adds the identity on the constrained rows), zero entries
+    left out, duplicates summed (COO coalesce)."""
     from ..ops import comp_major as cm
-    G = cm._u_index(n, ke.device)                      # (81, n^3)
-    m = mask_rows.reshape(-1)
-    rows = G[:, None, :].expand(81, 81, -1).reshape(-1)
-    cols = G[None, :, :].expand(81, 81, -1).reshape(-1)
-    vals = (ke[:, :, None] * m[G][:, None, :]).reshape(-1)
+    dev = ke.device
+    N = int(np.prod(cm._rows_shape(n)))
+    g3 = (n + 1) ** 3
+    G = cm._u_index(n, dev)                            # (81, n^3)
+    diag = None
+    if name.startswith("elasticity_rows_apply"):
+        mG = mask_rows.reshape(-1)[G]
+        mode = name[len("elasticity_rows_apply["):-1]
+        rows, cols, vals = _cell_entries(
+            G, G, ke, rscale=None if mode == "unmasked" else mG,
+            cscale=mG if mode == "constrained" else None)
+        if mode == "constrained":
+            diag = 1.0 - mask_rows.reshape(-1)
+        shape = (N, N)
+    elif name == "coupling_rows":
+        rows, cols, vals = _cell_entries(G, cm._p_index(n, dev), ce)
+        shape = (N, g3)
+    elif name == "projection_rows":
+        C = pe.shape[0] // 8                           # pe rows ip*C + c
+        Gp = cm._p_index(n, dev)                       # (8, n^3)
+        R = (Gp.repeat_interleave(C, dim=0)
+             + g3 * torch.arange(C, device=dev).repeat(8)[:, None])
+        rows, cols, vals = _cell_entries(R, G, pe)
+        shape = (C * g3, N)
+    elif name == "elasticity_grid_apply":
+        F = _flat_index(n, dev)
+        rows, cols, vals = _cell_entries(F, F, ke)
+        shape = (3 * (2 * n + 1) ** 3,) * 2
+    else:
+        raise ValueError(f"no library operator for {name!r}")
     keep = vals != 0
-    N = m.numel()
-    A = torch.sparse_coo_tensor(torch.stack([rows[keep], cols[keep]]),
-                                vals[keep], (N, N),
+    idx = torch.stack([rows[keep], cols[keep]])
+    vals = vals[keep]
+    del rows, cols, keep
+    if diag is not None:
+        i = torch.nonzero(diag).reshape(-1)
+        idx = torch.cat([idx, torch.stack([i, i])], dim=1)
+        vals = torch.cat([vals, diag[i]])
+    A = torch.sparse_coo_tensor(idx, vals, shape,
                                 check_invariants=False).coalesce()
     return A.to_sparse_csr()
 
 
-def rows_spmv_ms(M: torch.Tensor, x: torch.Tensor, reps: int = 20):
-    """(median ms, result) of the CSR product ``M @ x`` on the row layout
+def spmv_ms(M: torch.Tensor, inp: torch.Tensor, reps: int = 20):
+    """(median ms, flat result) of the CSR product ``M @ inp.view(-1)``
     (``torch.mv``: cuSPARSE SpMV)."""
-    xf = x.reshape(-1)
-    return cuda_time_ms(lambda: torch.mv(M, xf), reps), \
-        torch.mv(M, xf).view_as(x)
+    xf = inp.reshape(-1)
+    return cuda_time_ms(lambda: torch.mv(M, xf), reps), torch.mv(M, xf)
 
 
 def _rel_err(got, ref) -> float:

@@ -9,14 +9,16 @@ It profiles the last evolving and the last steady step and prints one JSON
 line for each: the step's counts, its wall time unprofiled (the step
 before, of the same kind) and profiled, the device busy time (union of the
 device activity intervals) over the profiled wall span, and device time and
-launches per kernel name, with the row-layout elasticity apply's kernels
-summed under ``elasticity_rows_apply``.
+launches per kernel name, with each row-layout wrapper's kernels also
+summed under its name (``elasticity_rows_apply``, ``coupling_rows``,
+``projection_rows``) beside its calls.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import sys
 import time
 from collections import defaultdict
@@ -56,8 +58,27 @@ def _short(name: str) -> str:
     return name.split("(")[0]
 
 
+ROW_WRAPPERS = ("elasticity_rows_apply", "coupling_rows", "projection_rows")
+
+
+def _row_wrapper(name: str):
+    """The row-layout wrapper (:data:`ROW_WRAPPERS`) that launches the CUDA
+    kernel ``name``, or None.  The apply and the projection share the cell
+    product pass, told apart by its row count (81 or 48); older trees'
+    kernel names are recognised too."""
+    if "projection" in name or re.search(r"rows_products_kernel<\w+, 48\b",
+                                         name):
+        return "projection_rows"
+    if "coupling_rows" in name:
+        return "coupling_rows"
+    if "elasticity_rows" in name or "rows_products_kernel" in name:
+        return "elasticity_rows_apply"
+    return None
+
+
 def device_summary(prof) -> dict:
-    """Busy ms and per-kernel (ms, launches) of the device events."""
+    """Busy ms, and per-kernel (ms, launches) of the device events, with
+    each row-layout wrapper's kernels also summed under its name."""
     per = defaultdict(lambda: [0.0, 0])
     intervals = []
     for e in prof.events():
@@ -67,16 +88,18 @@ def device_summary(prof) -> dict:
         intervals.append((a, b))
         per[e.name][0] += (b - a) / 1e3
         per[e.name][1] += 1
-    rows = {_short(k): {"ms": v[0], "launches": v[1]}
-            for k, v in per.items() if "elasticity_rows" in k}
-    return {"busy_ms": _busy_ms(intervals),
-            "elasticity_rows_apply": {
-                "ms": sum(v["ms"] for v in rows.values()),
-                "kernel_launches": sum(v["launches"] for v in rows.values()),
-                "by_kernel": rows},
-            "kernels": {k: {"ms": v[0], "launches": v[1]}
-                        for k, v in sorted(per.items(),
-                                           key=lambda kv: -kv[1][0])}}
+    out = {"busy_ms": _busy_ms(intervals)}
+    for wrapper in ROW_WRAPPERS:
+        rows = {_short(k): {"ms": v[0], "launches": v[1]}
+                for k, v in per.items() if _row_wrapper(k) == wrapper}
+        out[wrapper] = {
+            "ms": sum(v["ms"] for v in rows.values()),
+            "kernel_launches": sum(v["launches"] for v in rows.values()),
+            "by_kernel": rows}
+    out["kernels"] = {k: {"ms": v[0], "launches": v[1]}
+                      for k, v in sorted(per.items(),
+                                         key=lambda kv: -kv[1][0])}
+    return out
 
 
 def _step(solver, state, bc, bc_prev):
@@ -118,8 +141,8 @@ def run(n: int = 40, n_evolving: int = 5, n_steady: int = 3,
             state, stats, ms = _step(solver, state, bc, bc_prev)
         bc_prev = bc
         dev = device_summary(prof)
-        dev["elasticity_rows_apply"]["applies"] = \
-            cm.elasticity_rows_apply.launches
+        for wrapper in ROW_WRAPPERS:
+            dev[wrapper]["calls"] = getattr(cm, wrapper).launches
         records.append({
             "step": k, "kind": kind, "n": n,
             "gpu": torch.cuda.get_device_name(),

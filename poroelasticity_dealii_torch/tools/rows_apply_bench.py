@@ -1,15 +1,19 @@
-"""Device time of the row-layout elasticity apply (K1/K2/K5) alone:
+"""Device time of the row-layout kernels alone: the elasticity apply
+(K1/K2/K5), the coupling right-hand side (K3) and the projection
+right-hand side (K4):
 
     python -m poroelasticity_dealii_torch.tools.rows_apply_bench [n] [label]
 
-prints one JSON line per dtype (float32, float64) and mode (unmasked,
-free, constrained) at ``n`` cells per axis (default 40): the wrapper's
-device and host-enqueue ms per call (``apply_bench.device_and_host_ms``)
-and, from ``torch.profiler`` over ten calls, the device ms per call of
-each CUDA kernel it launched.  It uses only the wrapper's public interface
-(``elasticity_rows_apply``, ``to_rows``, ``to_rows_np``), so the same file
-also times an older tree of the port on the same card (``label`` tags the
-lines).
+prints one JSON line per dtype (float32, float64) and case (the apply in
+modes unmasked, free, constrained; ``coupling_rows``; ``projection_rows``)
+at ``n`` cells per axis (default 40): the wrapper's device and host-enqueue
+ms per call (``apply_bench.device_and_host_ms``) and, from
+``torch.profiler`` over ten calls, the device ms per call of each CUDA
+kernel it launched (for the apply and the projection: the product pass and
+the sum pass).  It uses only the wrappers' public interface
+(``elasticity_rows_apply``, ``coupling_rows``, ``projection_rows``,
+``to_rows``, ``to_rows_np``), so the same file also times an older tree of
+the port on the same card (``label`` tags the lines).
 """
 
 from __future__ import annotations
@@ -21,8 +25,9 @@ import numpy as np
 import torch
 
 
-def _profile_split(fn, calls: int = 10) -> dict:
-    """Device ms per call of each elasticity kernel ``fn`` launches."""
+def _profile_split(fn, wrapper: str, calls: int = 10) -> dict:
+    """Device ms per call of each CUDA kernel of ``wrapper`` that ``fn``
+    launches."""
     from torch.profiler import ProfilerActivity, profile
 
     from .profile_step import device_summary
@@ -31,7 +36,7 @@ def _profile_split(fn, calls: int = 10) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    rows = device_summary(prof)["elasticity_rows_apply"]["by_kernel"]
+    rows = device_summary(prof)[wrapper]["by_kernel"]
     return {k: v["ms"] / calls for k, v in rows.items()}
 
 
@@ -45,23 +50,35 @@ def run(n: int = 40, label: str = "", device="cuda") -> list:
                                   multigrid="off", device="cpu")
     rng = np.random.default_rng(n)
     u = rng.standard_normal(d.n_udofs)
+    p_np = rng.standard_normal(d.n_pdofs)
     out = []
     for dtype in (torch.float32, torch.float64):
-        x = cm.to_rows(torch.as_tensor(u, dtype=dtype, device=device), n)
-        m = torch.as_tensor(cm.to_rows_np(d.free_mask_u.numpy(), n),
-                            dtype=dtype, device=device)
-        K = torch.as_tensor(d.element_ke, dtype=dtype, device=device)
-        cases = {"unmasked": (x, None, cm.UNMASKED),
-                 "free": (x * m, m, cm.FREE),
-                 "constrained": (x, m, cm.CONSTRAINED)}
-        for mode, (xi, mi, code) in cases.items():
-            def fn(xi=xi, mi=mi, code=code):
-                return cm.elasticity_rows_apply(xi, mi, K, n, code)
+        dev = lambda a: torch.as_tensor(a, dtype=dtype,  # noqa: E731
+                                        device=device)
+        x = cm.to_rows(dev(u), n)
+        m = dev(cm.to_rows_np(d.free_mask_u.numpy(), n))
+        xf = x * m                                  # free-subspace input
+        K, Ce, Pe, p = (dev(a) for a in (d.element_ke, d.element_ce,
+                                         d.element_pe, p_np))
+        apply = cm.elasticity_rows_apply
+        cases = {
+            "unmasked": ("elasticity_rows_apply",
+                         lambda: apply(x, None, K, n, cm.UNMASKED)),
+            "free": ("elasticity_rows_apply",
+                     lambda: apply(xf, m, K, n, cm.FREE)),
+            "constrained": ("elasticity_rows_apply",
+                            lambda: apply(x, m, K, n, cm.CONSTRAINED)),
+            "coupling_rows": ("coupling_rows",
+                              lambda: cm.coupling_rows(p, Ce, n)),
+            "projection_rows": ("projection_rows",
+                                lambda: cm.projection_rows(x, Pe, n)),
+        }
+        for case, (wrapper, fn) in cases.items():
             ms, host_ms = device_and_host_ms(fn)
             rec = {"label": label, "n": n,
-                   "dtype": str(dtype).split(".")[-1], "mode": mode,
+                   "dtype": str(dtype).split(".")[-1], "mode": case,
                    "ms": ms, "host_ms": host_ms,
-                   "kernels_ms": _profile_split(fn),
+                   "kernels_ms": _profile_split(fn, wrapper),
                    "gpu": torch.cuda.get_device_name()}
             print(json.dumps(rec), flush=True)
             out.append(rec)

@@ -106,6 +106,38 @@ def test_projection_rows_matches_oracle_f64(n):
     assert _rel(got, ref) < 1e-10
 
 
+@pytest.mark.parametrize("n", [4, 9, 10])
+def test_coupling_rows_matches_pallas_interpret_f32(n):
+    """coupling_rows == _kernel_coupling (interpret mode), float32 to 1e-6;
+    the Pallas kernel forces tc = 8 from n = 8 on, so n = 9 and 10 end in a
+    tail slab (n % tc != 0)."""
+    d, _ = _setup(n)
+    p = np.random.default_rng(n).standard_normal(d.n_pdofs).astype(
+        np.float32)
+    ref = jcm.make_coupling_rows_pallas(d.element_ce, n, jnp.float32,
+                                        interpret=True)(jnp.asarray(p))
+    got = cm.coupling_rows(torch.as_tensor(p), torch.as_tensor(
+        d.element_ce, dtype=torch.float32), n)
+    assert got.shape == ref.shape
+    assert _rel(got, ref) < 1e-6
+
+
+@pytest.mark.parametrize("n,tc", [(4, 2), (5, 2), (6, 4), (5, 5)])
+def test_projection_rows_matches_pallas_interpret_f32(n, tc):
+    """projection_rows == _kernel_projection (interpret mode), float32 to
+    1e-6, including tail slabs (n % tc != 0)."""
+    d, _ = _setup(n)
+    u = np.random.default_rng(n).standard_normal(d.n_udofs).astype(
+        np.float32)
+    R = jcm.to_rows(jnp.asarray(u), n)
+    ref = jcm.make_projection_rows_pallas(d.element_pe, n, jnp.float32,
+                                          tc=tc, interpret=True)(R)
+    got = cm.projection_rows(torch.as_tensor(np.array(R)), torch.as_tensor(
+        d.element_pe, dtype=torch.float32), n)
+    assert got.shape == ref.shape
+    assert _rel(got, ref) < 1e-6
+
+
 def test_row_ops_route_and_counters_on_cpu():
     """On CPU tensors every wrapper takes its plain twin and counts no
     kernel launch; plain=True gives the same operators."""

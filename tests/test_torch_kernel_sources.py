@@ -1,8 +1,10 @@
 """Contracts between the CUDA sources (``csrc/*.cu``), which no compiler
 checks here, and the Python that binds and launches them: entry points and
-their arity, the mode constants, the product-pass tile shapes, no float
-atomics, every source built; and the elasticity apply's launch plan at the
-grid sizes users run.  Imports nothing of JAX."""
+their arity, the mode constants, the product-pass tile shapes of the
+elasticity apply and the projection, no float atomics, every source built;
+the product pass's launch plans and the coupling kernel's launch geometry
+at the grid sizes users run; and the library yardsticks' assembled
+operators against the plain twins.  Imports nothing of JAX."""
 
 import re
 
@@ -59,14 +61,24 @@ def test_mode_constants_match():
                       "kConstrained": cm.CONSTRAINED}
 
 
+def _tile_constants(ctype: str, rows: str) -> dict:
+    """The constants of ``ProductTile<ctype, rows>`` in the source."""
+    text = (CSRC / "comp_major.cu").read_text()
+    body = re.search(r"struct ProductTile<%s, %s> \{(.*?)\};"
+                     % (ctype, rows), text, re.S).group(1)
+    return {k: int(v) for k, v in re.findall(
+        r"static constexpr int (\w+) = (\d+);", body)}
+
+
+def _source_int(name: str) -> int:
+    text = (CSRC / "comp_major.cu").read_text()
+    return int(re.search(r"constexpr int %s = (\d+);" % name, text).group(1))
+
+
 @pytest.mark.parametrize("dtype,ctype", [(torch.float32, "float"),
                                          (torch.float64, "double")])
 def test_product_tile_matches_source(dtype, ctype):
-    text = (CSRC / "comp_major.cu").read_text()
-    body = re.search(r"struct ProductTile<%s> \{(.*?)\};" % ctype, text,
-                     re.S).group(1)
-    c = {k: int(v) for k, v in re.findall(
-        r"static constexpr int (\w+) = (\d+);", body)}
+    c = _tile_constants(ctype, "kLocal")
     t = cm.PRODUCT_TILE[dtype]
     assert (c["kCells"], c["kMinBlocks"]) == (t["cells"], t["blocks_per_sm"])
     assert (c["kKRows"], c["kKCols"]) == t["k"]
@@ -97,21 +109,195 @@ def test_rows_apply_plan(n, dtype):
     assert int(cm._u_index(n, torch.device("cpu")).max()) < rows * W
 
 
+def _row_ops(n):
+    from poroelasticity_dealii_torch import read_input_file
+    from poroelasticity_dealii_torch.solvers.structured import \
+        build_grid_discretization
+    return build_grid_discretization(
+        read_input_file("configs/consolidation_3d.data"), cells_per_axis=n,
+        device="cpu").row_ops
+
+
 @pytest.mark.parametrize("n", [2, 3])
 def test_csr_yardstick_equals_free_apply(n):
     """tools/apply_bench's assembled CSR operator (the library yardstick)
     computes the FREE apply."""
-    from poroelasticity_dealii_torch import read_input_file
-    from poroelasticity_dealii_torch.solvers.structured import \
-        build_grid_discretization
     from poroelasticity_dealii_torch.tools import apply_bench
-    ro = build_grid_discretization(
-        read_input_file("configs/consolidation_3d.data"), cells_per_axis=n,
-        device="cpu").row_ops
-    M = apply_bench.rows_free_csr(ro.ke, ro.free_mask_rows, n)
+    ro = _row_ops(n)
+    M = apply_bench.library_csr("elasticity_rows_apply[free]", n, ro.ke,
+                                ro.ce, ro.pe, ro.free_mask_rows)
     x = ro.to_rows(torch.as_tensor(np.random.default_rng(n).standard_normal(
         3 * (2 * n + 1) ** 3))) * ro.free_mask_rows
     ref = cm.elasticity_rows_apply_plain(x, ro.free_mask_rows, ro.ke, n,
                                          cm.FREE)
     got = torch.mv(M, x.reshape(-1)).view_as(x)
     assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-13
+
+
+def _plain_case(name, n, ro, rng):
+    """(input, plain twin's output) of kernel case ``name``."""
+    from poroelasticity_dealii_torch.ops import elasticity as eg
+    m = ro.free_mask_rows
+    u = torch.as_tensor(rng.standard_normal(3 * (2 * n + 1) ** 3))
+    x = ro.to_rows(u)
+    if name == "coupling_rows":
+        p = torch.as_tensor(rng.standard_normal((n + 1) ** 3))
+        return p, cm.coupling_rows_plain(p, ro.ce, n)
+    if name == "projection_rows":
+        return x, cm.projection_rows_plain(x, ro.pe, n)
+    if name == "elasticity_grid_apply":
+        return u, eg.elasticity_grid_apply_plain(u, ro.ke, n)
+    mode = {"unmasked": cm.UNMASKED, "free": cm.FREE,
+            "constrained": cm.CONSTRAINED}[name.split("[")[1][:-1]]
+    if mode == cm.FREE:
+        x = x * m
+    return x, cm.elasticity_rows_apply_plain(
+        x, None if mode == cm.UNMASKED else m, ro.ke, n, mode)
+
+
+def _library_case_ids():
+    from poroelasticity_dealii_torch.tools import apply_bench
+    return apply_bench.LIBRARY_CASES
+
+
+@pytest.mark.parametrize("name", _library_case_ids())
+@pytest.mark.parametrize("n", [2, 3])
+def test_library_operator_equals_plain_twin(name, n):
+    """Every kernel's library yardstick, one CSR operator assembled by
+    tools/apply_bench.library_csr, computes what the kernel's plain twin
+    computes (float64, random input with nonzero padding where the layout
+    has it, so CONSTRAINED's identity rows are exercised)."""
+    from poroelasticity_dealii_torch.tools import apply_bench
+    ro = _row_ops(n)
+    inp, ref = _plain_case(name, n, ro, np.random.default_rng(n))
+    M = apply_bench.library_csr(name, n, ro.ke, ro.ce, ro.pe,
+                                ro.free_mask_rows)
+    got = torch.mv(M, inp.reshape(-1)).view_as(ref)
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-13
+
+
+@pytest.mark.parametrize("dtype,ctype", [(torch.float32, "float"),
+                                         (torch.float64, "double")])
+def test_projection_tile_matches_source(dtype, ctype):
+    c = _tile_constants(ctype, "kProjRows")
+    t = cm.PROJECTION_TILE[dtype]
+    assert (c["kCells"], c["kMinBlocks"]) == (t["cells"], t["blocks_per_sm"])
+    assert (c["kKRows"], c["kKCols"]) == t["k"]
+    assert (c["kXRows"], c["kXStride"]) == t["x"]
+    assert (_source_int("kLocal"), _source_int("kVoigt")) == \
+        (cm.ELASTICITY_ROWS, cm.N_VOIGT)
+    assert 8 * cm.N_VOIGT == cm.PROJECTION_ROWS
+    # float32: 12 output rows per warp cover the 48 rows; float64: the
+    # 8-row n-tiles of the 16 x 8 x 8 DMMA cover them, b padded to 88
+    if dtype == torch.float32:
+        assert c["kThreads"] == 32 * cm.PROJECTION_ROWS // 12
+        assert t["k"] == (81, cm.PROJECTION_ROWS)
+    else:
+        assert t["k"][0] == cm.PROJECTION_ROWS and t["k"][0] % 8 == 0
+        assert t["k"][1] >= t["x"][0] >= 88
+        assert c["kThreads"] == 32 * t["cells"] // 16
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 2, 3, 7, 21, 40, 56, 64])
+def test_projection_plan(n, dtype):
+    plan = cm.rows_apply_plan(n, dtype, SMS, rows=cm.PROJECTION_ROWS)
+    t = cm.PROJECTION_TILE[dtype]
+    assert plan.rows == cm.PROJECTION_ROWS
+    assert plan.smem_bytes <= SMEM_PER_BLOCK
+    assert t["blocks_per_sm"] * (plan.smem_bytes + 1024) <= SMEM_PER_SM
+    assert plan.stride % plan.cells_per_tile == 0
+    assert n ** 3 <= plan.stride < n ** 3 + plan.cells_per_tile
+    assert plan.tiles * plan.cells_per_tile == plan.stride
+    assert 1 <= plan.grid <= min(plan.tiles, SMS * t["blocks_per_sm"])
+    assert plan.scratch_numel == cm.PROJECTION_ROWS * plan.stride < 2 ** 31
+    # the projection's plan differs from the apply's only in K's shape
+    apply = cm.rows_apply_plan(n, dtype, SMS)
+    assert (plan.stride, plan.grid) == (apply.stride, apply.grid)
+    assert plan.smem_bytes < apply.smem_bytes
+    # the sum pass's largest read, row 47 at the last cell, is inside
+    assert (cm.PROJECTION_ROWS - 1) * plan.stride + n ** 3 - 1 < \
+        plan.scratch_numel
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 7, 21, 40, 56, 64])
+def test_coupling_launch_geometry(n):
+    """One thread per row-layout column and component: the grid covers the
+    (n+1) x 3 x W (column, component) pairs; W is a multiple of the block,
+    so a block never straddles two (z-half layer, component) pairs and the
+    element-matrix reads stay warp-uniform; ce (81 x 8, float64) fits the
+    static shared memory; the row-layout and pressure indices fit int32."""
+    threads = _source_int("kCouplingThreads")
+    rows, W = cm._rows_shape(n)
+    assert rows == 24 * (n + 1)
+    assert threads % 32 == 0 and W % threads == 0
+    grid = -(-(n + 1) * W // threads)
+    assert grid * threads == (n + 1) * W
+    assert 81 * 8 * 8 <= 48 * 1024
+    assert rows * W < 2 ** 31 and (n + 1) ** 3 < 2 ** 31
+    text = (CSRC / "comp_major.cu").read_text()
+    launch = re.search(r"int launch_coupling\(.*?\n\}", text, re.S).group(0)
+    assert "(n + 1) * W" in launch and "kCouplingThreads" in launch
+
+
+def _kernel_body(name: str) -> str:
+    """The source of ``__global__`` function ``name``, braces matched."""
+    text = (CSRC / "comp_major.cu").read_text()
+    start = text.index("{", re.search(r"\n%s\(" % name, text).end())
+    depth = 0
+    for i in range(start, len(text)):
+        depth += {"{": 1, "}": -1}.get(text[i], 0)
+        if depth == 0:
+            return text[start:i + 1]
+    raise AssertionError(f"unbalanced braces in {name}")
+
+
+@pytest.mark.parametrize("name", ["rows_products_kernel",
+                                  "projection_sum_kernel",
+                                  "coupling_rows_kernel",
+                                  "elasticity_rows_sum_kernel"])
+def test_row_layout_kernels_hold_no_atomics(name):
+    """Each output value is summed by one thread in a fixed order: no
+    atomic of any kind in the cell product, sum and coupling kernels."""
+    body = _kernel_body(name)
+    assert "__syncthreads" in body or "acc" in body
+    assert "atomic" not in body and "red." not in body
+
+
+@pytest.mark.parametrize("name,wrapper", [
+    ("void (anonymous namespace)::rows_products_kernel<float, 81, false>"
+     "(float const*, float const*, float const*, float*, int, int, int)",
+     "elasticity_rows_apply"),
+    ("rows_products_kernel<double, 81, true>", "elasticity_rows_apply"),
+    ("elasticity_rows_sum_kernel<float, 2>", "elasticity_rows_apply"),
+    ("rows_products_kernel<float, 48, false>", "projection_rows"),
+    ("rows_products_kernel<double, 48, false>", "projection_rows"),
+    ("projection_sum_kernel<double>", "projection_rows"),
+    ("coupling_rows_kernel<float>", "coupling_rows"),
+    # an older tree's names, timed beside this one's by rows_apply_bench
+    ("elasticity_rows_products_kernel<float, false>",
+     "elasticity_rows_apply"),
+    ("projection_rows_kernel<double>", "projection_rows"),
+    ("elasticity_grid_apply_kernel<float>", None),
+    ("void at::native::vectorized_elementwise_kernel<4>", None),
+])
+def test_profiler_groups_kernels_by_wrapper(name, wrapper):
+    """tools/profile_step sums each row-layout wrapper's CUDA kernels under
+    its name: the apply and the projection share the product pass and are
+    told apart by its row count."""
+    from poroelasticity_dealii_torch.tools import profile_step
+    assert profile_step._row_wrapper(name) == wrapper
+
+
+def test_profiler_groups_every_row_kernel_of_the_source():
+    """Every __global__ kernel of comp_major.cu belongs to a wrapper."""
+    from poroelasticity_dealii_torch.tools import profile_step
+    text = (CSRC / "comp_major.cu").read_text()
+    kernels = re.findall(r"__global__ void __launch_bounds__\([^;{]*?\)\s*"
+                         r"\n(\w+)\(", text)
+    assert sorted(kernels) == ["coupling_rows_kernel",
+                               "elasticity_rows_sum_kernel",
+                               "projection_sum_kernel",
+                               "rows_products_kernel"]
+    for k in kernels:
+        assert profile_step._row_wrapper(k) is not None, k

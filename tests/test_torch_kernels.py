@@ -66,6 +66,33 @@ def test_kernels_match_plain_twins(dev, n, dtype):
     assert not pairs[0][0][:, (n + 1) ** 2:].any()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [5, 21])
+def test_rhs_kernels_on_ragged_tiles(dev, n, dtype):
+    """coupling_rows and projection_rows where the projection's last
+    product tile is partial (n^3 % 256 and n^3 % 64 != 0): equal to the
+    plain twins, bitwise repeatable; the projection kernel takes C = 6
+    only and raises for another count."""
+    d = build_grid_discretization(read_input_file(DECK), cells_per_axis=n,
+                                  dtype=dtype, device=dev)
+    ro = d.row_ops
+    rng = np.random.default_rng(n)
+    x = ro.to_rows(torch.as_tensor(rng.standard_normal(d.n_udofs),
+                                   dtype=dtype, device=dev))
+    p = torch.as_tensor(rng.standard_normal(d.n_pdofs), dtype=dtype,
+                        device=dev)
+    for fn, plain, inp, mat in (
+            (cm.coupling_rows, cm.coupling_rows_plain, p, ro.ce),
+            (cm.projection_rows, cm.projection_rows_plain, x, ro.pe)):
+        got = fn(inp, mat, n)
+        ref = plain(inp, mat, n)
+        assert got.shape == ref.shape
+        assert _rel(got, ref) <= TOL[dtype]
+        assert torch.equal(fn(inp, mat, n), got)
+    with pytest.raises(ValueError):
+        cm.projection_rows(x, ro.pe[:40], n)
+
+
 def test_step_on_card_matches_plain_twins(dev):
     data = read_input_file(DECK)
     runs = []
