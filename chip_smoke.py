@@ -64,6 +64,10 @@ TOL = {torch.float64: 1e-12, torch.float32: 1e-5}   # relative to max |plain|
 # tensor cores (DMMA, full IEEE float64), the card's highest rate for each
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 PEAK_BYTES = 3.35e12
+# an element-matrix entry below this share of the largest is quadrature
+# roundoff of an exact zero (at most 7e-17 of it in the bench deck's ke, ce
+# and pe; the smallest other entry is 1.7e-4): the bounds count the others
+NONZERO_RTOL = 1e-12
 
 
 def _rel_err(got, ref) -> float:
@@ -109,32 +113,39 @@ def kernel_cases(n: int, dtype, dev, ke, ce, pe, free_mask_u, rng):
     ]
 
 
-def kernel_work(name: str, n: int, dtype) -> tuple:
+def nonzeros(a) -> int:
+    """Entries of element matrix ``a`` that are not roundoff zeros."""
+    a = np.abs(np.asarray(a))
+    return int((a > NONZERO_RTOL * a.max()).sum())
+
+
+def kernel_work(name: str, n: int, dtype, nnz: dict) -> tuple:
     """(bytes, flop) that kernel ``name`` must move and compute at grid
     size n: each input read once, each output written once, the element
-    products counted as 2 flop per multiply-add plus the masking ops."""
+    products counted as 2 flop per nonzero of the element matrix (``nnz``:
+    {"ke", "ce", "pe"} counts) per cell, plus the masking ops."""
     rows = (n + 1) * 24 * cm._width(n)        # row-layout array, padded
     flat = (2 * n + 1) ** 3 * 3               # flat Q2 vector
     q1 = (n + 1) ** 3                         # flat Q1 vector
     cells = n ** 3
-    mat = 2 * 81 * 81 * cells
+    mat = 2 * nnz["ke"] * cells
     elems, flop = {
         "elasticity_rows_apply[unmasked]": (2 * rows + 81 * 81, mat),
         "elasticity_rows_apply[free]": (3 * rows + 81 * 81, mat + rows),
         "elasticity_rows_apply[constrained]": (3 * rows + 81 * 81,
                                                mat + 5 * rows),
-        "coupling_rows": (q1 + 81 * 8 + rows, 2 * 81 * 8 * cells),
-        "projection_rows": (rows + 48 * 81 + 6 * q1, 2 * 48 * 81 * cells),
+        "coupling_rows": (q1 + 81 * 8 + rows, 2 * nnz["ce"] * cells),
+        "projection_rows": (rows + 48 * 81 + 6 * q1, 2 * nnz["pe"] * cells),
         "elasticity_grid_apply": (2 * flat + 81 * 81, mat),
     }[name]
     item = torch.tensor([], dtype=dtype).element_size()
     return elems * item, flop
 
 
-def bound(name: str, n: int, dtype) -> tuple:
+def bound(name: str, n: int, dtype, nnz: dict) -> tuple:
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     flop over the peak rate of ``dtype``."""
-    nbytes, flop = kernel_work(name, n, dtype)
+    nbytes, flop = kernel_work(name, n, dtype, nnz)
     t_bytes, t_flop = nbytes / PEAK_BYTES, flop / PEAK_FLOPS[dtype]
     return (max(t_bytes, t_flop) * 1e3,
             "bytes" if t_bytes >= t_flop else "operations")
@@ -144,6 +155,7 @@ def kernel_phase(n: int, dtype, dev, ke, ce, pe, free_mask_u, timing: bool):
     """Compare every kernel with its plain twin at grid size n; assert the
     tolerance and bitwise repeatability; return one record per kernel."""
     rng = np.random.default_rng(n)
+    nnz = {"ke": nonzeros(ke), "ce": nonzeros(ce), "pe": nonzeros(pe)}
     out = []
     for name, _, kern, plain in kernel_cases(n, dtype, dev, ke, ce, pe,
                                              free_mask_u, rng):
@@ -159,7 +171,8 @@ def kernel_phase(n: int, dtype, dev, ke, ce, pe, free_mask_u, timing: bool):
         if timing:
             rec["ms"], rec["host_ms"] = device_and_host_ms(kern)
             rec["plain_ms"] = cuda_time_ms(plain)
-            rec["bound_ms"], rec["bound_by"] = bound(name, n, dtype)
+            rec["bound_ms"], rec["bound_by"] = bound(name, n, dtype, nnz)
+            rec["element_nonzeros"] = nnz
         print(json.dumps(rec), flush=True)
         if not (err <= TOL[dtype]):
             raise AssertionError(f"{name} n={n} {dtype}: rel err {err:.3e} "
@@ -570,13 +583,6 @@ def main() -> int:
                  "bound_by": rec["bound_by"],
                  # one CSR SpMV over the assembled operator
                  "library_ms": rec["library_ms"]}
-        if name == "elasticity_rows_apply":
-            entry["modes"] = {
-                case: {k: records[(case, N_MAIN, "float32")][k]
-                       for k in ("ms", "plain_ms", "bound_ms",
-                                 "library_ms")}
-                for case in apply_bench.LIBRARY_CASES
-                if case.startswith(name)}
         if name == "elasticity_grid_apply":
             entry["conv_ms"] = flat["ms"]["conv disc.elasticity"]
         summary.append(entry)

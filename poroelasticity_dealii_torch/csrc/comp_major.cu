@@ -101,12 +101,16 @@ __device__ __forceinline__ RowPos decode_row(int idx, int n, int W) {
 // one matrix product and scatter it with a z-carry through a sequential
 // grid.
 //
-// Bound (H100, 700 W): one apply at n = 40 is 2*81*81*n^3 = 0.84 GFLOP
-// against ~14-21 MB of compulsory f32 traffic (x, mask, y), so it is bound
-// by operations: 12.5 us at the 67 TFLOP/s of float32 outside the tensor
-// cores (TF32 is not float32, and the reference multiplies at
-// Precision.HIGHEST) and of float64 on the tensor cores (DMMA).  The
-// projection is 48/81 of that work, 7.4 us.  The first design, a thread per
+// Bound (H100, 700 W): K has 5619 nonzeros of 6561 on the bench deck's
+// cell, so one apply at n = 40 needs 2*5619*n^3 = 0.72 GFLOP against
+// ~14-21 MB of compulsory f32 traffic (x, mask, y): bound by operations,
+// 10.7 us at the 67 TFLOP/s of float32 outside the tensor cores (TF32 is not
+// float32, and the reference multiplies at Precision.HIGHEST) and of float64
+// on the tensor cores (DMMA).  pe has 864 nonzeros of 3888 (a normal-strain
+// row of a Q1 node reads one displacement component, a shear row two, and
+// the quadrature zeroes more), so the projection needs 0.11 GFLOP and is
+// bound by its 8.7 MB of f32 traffic, 2.6 us.  The product pass below
+// multiplies every entry, zeros included.  The first design, a thread per
 // output value re-gathering its <= 8 cells, issued one or two loads per FMA
 // and was bound by the load pipe (11-25x the bound).
 //
@@ -691,9 +695,8 @@ int launch_coupling(const void* p, const void* ce, void* y, int n, int W,
 
 template <typename T>
 int launch_projection(const void* x, const void* pe, void* out, void* ye,
-                      int n, int W, int C, int stride, int grid, int smem,
+                      int n, int W, int stride, int grid, int smem,
                       void* stream) {
-  if (C != kVoigt) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   T* ep = static_cast<T*>(ye);
   const cudaError_t err = launch_products<T, kProjRows, false>(
@@ -737,19 +740,18 @@ int coupling_rows_f64(const void* p, const void* ce, void* y, int n, int W,
   return launch_coupling<double>(p, ce, y, n, W, stream);
 }
 
-// ye: the (48, stride) product scratch; grid, smem: pass 1's launch plan;
-// C: Voigt components, 6 only.
+// ye: the (48, stride) product scratch; grid, smem: pass 1's launch plan.
 int projection_rows_f32(const void* x, const void* pe, void* out, void* ye,
-                        int n, int W, int C, int stride, int grid, int smem,
+                        int n, int W, int stride, int grid, int smem,
                         void* stream) {
-  return launch_projection<float>(x, pe, out, ye, n, W, C, stride, grid,
+  return launch_projection<float>(x, pe, out, ye, n, W, stride, grid,
                                   smem, stream);
 }
 
 int projection_rows_f64(const void* x, const void* pe, void* out, void* ye,
-                        int n, int W, int C, int stride, int grid, int smem,
+                        int n, int W, int stride, int grid, int smem,
                         void* stream) {
-  return launch_projection<double>(x, pe, out, ye, n, W, C, stride, grid,
+  return launch_projection<double>(x, pe, out, ye, n, W, stride, grid,
                                    smem, stream);
 }
 

@@ -40,9 +40,8 @@ _SIGNATURES = {
     "elasticity_rows_apply": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _P),
     "coupling_rows": (_P, _P, _P, _I, _I, _P),
-    # x, pe, out, product scratch, n, W, C, scratch stride, grid, shared
-    # bytes
-    "projection_rows": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, pe, out, product scratch, n, W, scratch stride, grid, shared bytes
+    "projection_rows": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "elasticity_grid_apply": (_P, _P, _I, _P, _P),
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}

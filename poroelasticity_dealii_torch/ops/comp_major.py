@@ -282,9 +282,10 @@ def coupling_rows(p, ce, n: int):
 def projection_rows(x, pe, n: int):
     """All-Voigt strain-projection RHS (C, (n+1)^3) from u in the row
     layout.  ``pe``: (8*C, 81), rows (Q1 local node * C + Voigt c); the
-    kernel takes the 3D count C = 6 only.  Two CUDA launches: the cell
-    product pass into a (48, n^3) scratch (:func:`rows_apply_plan` with
-    ``rows=PROJECTION_ROWS``), then the Q1 node sums."""
+    kernel takes the 3D count C = 6 only (pe of shape (48, 81)).  Two CUDA
+    launches: the cell product pass into a (48, n^3) scratch
+    (:func:`rows_apply_plan` with ``rows=PROJECTION_ROWS``), then the Q1
+    node sums."""
     if x.device.type == "cpu":
         return projection_rows_plain(x, pe, n)
     _cuda.require_cuda(x)
@@ -295,7 +296,7 @@ def projection_rows(x, pe, n: int):
     out = torch.empty((N_VOIGT, (n + 1) ** 3), dtype=x.dtype,
                       device=x.device)
     ye = torch.empty(plan.scratch_numel, dtype=x.dtype, device=x.device)
-    _cuda.launch("projection_rows", x, x, pe, out, ye, n, _width(n), N_VOIGT,
+    _cuda.launch("projection_rows", x, x, pe, out, ye, n, _width(n),
                  plan.stride, plan.grid, plan.smem_bytes)
     projection_rows.launches += 1
     return out
