@@ -17,10 +17,10 @@ just before and read just after:
   plain twins;
 * the flat-apply path: ``tools/apply_bench`` at 40^3 float32, the flat
   elasticity kernel through both its entry points (``make_flat_apply``,
-  ``make_grid_elasticity``) held against the conv-backend
-  ``disc.elasticity``;
+  ``make_grid_elasticity``) held against the conv backend's plain stencil;
 * the conv backend: fixed-stress steps at 40^3 float32 on flat vectors,
-  compared with the rows path;
+  its elasticity apply the flat kernel, step 1 compared with a conv run on
+  the plain stencil and with the rows path;
 * the CLI on the 3D deck, on the rows backend and on a copy of the deck
   with ``Elasticity backend = conv``.
 
@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from poroelasticity_dealii_torch.ops import _cuda
+from poroelasticity_dealii_torch.ops import cell_products as cp
 from poroelasticity_dealii_torch.ops import comp_major as cm
 from poroelasticity_dealii_torch.ops import elasticity as eg
 from poroelasticity_dealii_torch.solvers.fss import FixedStressSolver
@@ -51,7 +52,7 @@ from poroelasticity_dealii_torch.solvers.structured import \
     build_grid_discretization
 from poroelasticity_dealii_torch.tools import apply_bench
 from poroelasticity_dealii_torch.tools.apply_bench import cuda_time_ms, \
-    device_and_host_ms
+    device_and_host_ms, nonzeros
 from poroelasticity_dealii_torch.tools.profile_step import BC_RATE, \
     bench_data
 
@@ -64,10 +65,6 @@ TOL = {torch.float64: 1e-12, torch.float32: 1e-5}   # relative to max |plain|
 # tensor cores (DMMA, full IEEE float64), the card's highest rate for each
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 PEAK_BYTES = 3.35e12
-# an element-matrix entry below this share of the largest is quadrature
-# roundoff of an exact zero (at most 7e-17 of it in the bench deck's ke, ce
-# and pe; the smallest other entry is 1.7e-4): the bounds count the others
-NONZERO_RTOL = 1e-12
 
 
 def _rel_err(got, ref) -> float:
@@ -111,12 +108,6 @@ def kernel_cases(n: int, dtype, dev, ke, ce, pe, free_mask_u, rng):
          lambda: eg.elasticity_grid_apply(uf, K, n),
          lambda: eg.elasticity_grid_apply_plain(uf, K, n)),
     ]
-
-
-def nonzeros(a) -> int:
-    """Entries of element matrix ``a`` that are not roundoff zeros."""
-    a = np.abs(np.asarray(a))
-    return int((a > NONZERO_RTOL * a.max()).sum())
 
 
 def kernel_work(name: str, n: int, dtype, nnz: dict) -> tuple:
@@ -198,7 +189,7 @@ KERNEL_INFO = {
         "poroelasticity_dealii_tpu/ops/pallas_comp_major.py:1111",
         "projection_rows"),
     "elasticity_grid_apply": (
-        "poroelasticity_dealii_torch/csrc/elasticity.cu",
+        "poroelasticity_dealii_torch/csrc/comp_major.cu",
         "poroelasticity_dealii_tpu/ops/pallas_comp_major.py:1363; "
         "poroelasticity_dealii_tpu/ops/pallas_elasticity.py:108",
         "elasticity_grid_apply"),
@@ -340,7 +331,7 @@ def cross_check(dev, states, stats):
 
 def flat_apply_phase(dev) -> dict:
     """tools/apply_bench at 40^3 float32: the flat kernel through both its
-    entry points against the conv-backend ``disc.elasticity``, and times."""
+    entry points against the conv backend's plain stencil, and times."""
     rec = apply_bench.run(N_MAIN, torch.float32, dev)
     print(json.dumps({"flat_apply": rec}), flush=True)
     for entry, count in rec["launches"].items():
@@ -349,16 +340,20 @@ def flat_apply_phase(dev) -> dict:
                                  f"{entry}")
     for entry, err in rec["rel_err_vs_conv"].items():
         if not err <= TOL[torch.float32]:
-            raise AssertionError(f"flat kernel via {entry} vs conv "
-                                 f"disc.elasticity: rel err {err:.3e}")
+            raise AssertionError(f"flat kernel via {entry} vs the conv "
+                                 f"plain stencil: rel err {err:.3e}")
     if not rec["bitwise_repeat"]:
         raise AssertionError("flat kernel: repeat runs differ")
     return rec
 
 
-def conv_phase(dev, rows_states):
-    """The conv backend (flat vectors, plain-torch stencils) at 40^3
-    float32: 2 evolving + 1 steady steps; step 1 against the rows path."""
+def conv_phase(dev, rows_states) -> int:
+    """The conv backend (flat vectors; its elasticity apply is the flat
+    kernel) at 40^3 float32: 2 evolving + 1 steady steps, the flat kernel
+    launched at least once per mechanics CG iteration; step 1 against a
+    conv run on the plain stencil (``kernels="plain"``: equal FSS and
+    pressure counts) and against the rows path.  Returns the flat kernel's
+    launches in the steps."""
     data = bench_data()
     t0 = time.perf_counter()
     disc = build_grid_discretization(data, cells_per_axis=N_MAIN,
@@ -372,18 +367,46 @@ def conv_phase(dev, rows_states):
     states, stats = run_steps(solver, N_CONV_EVOLVING, N_CONV_STEADY,
                               log=True)
     torch.cuda.synchronize()
+    launches = launch_counts()
     print(f"conv backend: initial_state + {N_CONV_EVOLVING} evolving + "
           f"{N_CONV_STEADY} steady steps in {time.perf_counter() - t0:.2f} "
-          f"s, launches {launch_counts()}", flush=True)
+          f"s, launches {launches}", flush=True)
     check_steps(states, stats, disc, N_CONV_EVOLVING)
-    for name in ("p", "u"):
-        err = _rel_err(getattr(states[0], name), getattr(rows_states[0],
-                                                         name))
-        print(json.dumps({"conv_vs_rows_step": 1, "field": name,
-                          "max_rel_err": err, "tol": CROSS_TOL}), flush=True)
-        if not err <= CROSS_TOL:
-            raise AssertionError(f"step 1 {name}: conv vs rows rel err "
-                                 f"{err:.3e} > {CROSS_TOL}")
+    mech = sum(s.mech_cg_iterations for s in stats)
+    if launches["elasticity_grid_apply"] < mech:
+        raise AssertionError(f"conv backend: the flat kernel launched "
+                             f"{launches['elasticity_grid_apply']} times for "
+                             f"{mech} mechanics CG iterations")
+    plain = build_grid_discretization(data, cells_per_axis=N_MAIN,
+                                      multigrid="off",
+                                      elasticity_backend="conv", device=dev,
+                                      kernels="plain")
+    plain_states, plain_stats = run_steps(FixedStressSolver(plain, data), 1,
+                                          0, log=False)
+    a, b = stats[0], plain_stats[0]
+    print(json.dumps({"conv_vs_plain_step": 1,
+                      "fss": [a.fss_iterations, b.fss_iterations],
+                      "pressure": [a.pressure_iterations,
+                                   b.pressure_iterations],
+                      "cg_mechanics": [a.mech_cg_iterations,
+                                       b.mech_cg_iterations]}), flush=True)
+    if (a.fss_iterations, a.pressure_iterations) != \
+            (b.fss_iterations, b.pressure_iterations):
+        raise AssertionError("conv step 1: kernel run fss/pressure "
+                             f"{a.fss_iterations}/{a.pressure_iterations} != "
+                             f"plain {b.fss_iterations}/"
+                             f"{b.pressure_iterations}")
+    for ref_name, ref in (("plain", plain_states[0]),
+                          ("rows", rows_states[0])):
+        for name in ("p", "u"):
+            err = _rel_err(getattr(states[0], name), getattr(ref, name))
+            print(json.dumps({f"conv_vs_{ref_name}_step": 1, "field": name,
+                              "max_rel_err": err, "tol": CROSS_TOL}),
+                  flush=True)
+            if not err <= CROSS_TOL:
+                raise AssertionError(f"step 1 {name}: conv vs {ref_name} "
+                                     f"rel err {err:.3e} > {CROSS_TOL}")
+    return launches["elasticity_grid_apply"]
 
 
 def _run_log(path: Path) -> list:
@@ -459,9 +482,9 @@ TENSOR_CORE_OP = re.compile(r"\b([DHIBQ]G?MMA)\b")
 def sass_check(lib_path: Path) -> dict:
     """Tensor-core instructions per kernel in the built library
     (``cuobjdump -sass``): the float64 cell product pass must hold DMMA in
-    each of its instances (the elasticity apply's, 81 rows, and the
-    projection's, 48 rows), and no float32 kernel any tensor-core
-    instruction (no TF32)."""
+    each of its instances (the row-layout elasticity apply's, 81 rows, the
+    projection's, 48 rows, and the flat apply's, 81 rows), and no float32
+    kernel any tensor-core instruction (no TF32)."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
@@ -476,11 +499,13 @@ def sass_check(lib_path: Path) -> dict:
             for op in TENSOR_CORE_OP.findall(line):
                 ops[name][op] = ops[name].get(op, 0) + 1
     # mangled (kernelId / kernelIf, row count Li81E / Li48E) or demangled
-    # (kernel<double, 81 / kernel<float)
+    # (kernel<double, 81 / kernel<float); the layout by its struct's name
     products64 = [k for k in ops if re.search(
         r"rows_products_kernel(Id|<double)", k)]
-    rows64 = {r: [k for k in products64 if re.search(rf"Li{r}E|, {r}\b", k)]
-              for r in (cm.ELASTICITY_ROWS, cm.PROJECTION_ROWS)}
+    rows64 = {r: [k for k in products64 if "RowLayout" in k and
+                  re.search(rf"Li{r}E|, {r}\b", k)]
+              for r in (cp.ELASTICITY_ROWS, cp.PROJECTION_ROWS)}
+    rows64["flat"] = [k for k in products64 if "FlatLayout" in k]
     float32 = [k for k in ops if re.search(r"kernel(If|<float)", k)]
     rec = {"sass": ops}
     print(json.dumps(rec), flush=True)
@@ -567,9 +592,8 @@ def main() -> int:
 
     launches, states, stats = main_path(dev)
     cross_check(dev, states, stats)
-    flat = flat_apply_phase(dev)
-    launches["elasticity_grid_apply"] = sum(flat["launches"].values())
-    conv_phase(dev, states)
+    flat_apply_phase(dev)
+    launches["elasticity_grid_apply"] = conv_phase(dev, states)
     del states
     cli_phase()
 
@@ -583,8 +607,6 @@ def main() -> int:
                  "bound_by": rec["bound_by"],
                  # one CSR SpMV over the assembled operator
                  "library_ms": rec["library_ms"]}
-        if name == "elasticity_grid_apply":
-            entry["conv_ms"] = flat["ms"]["conv disc.elasticity"]
         summary.append(entry)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,27 +1,30 @@
 // Hand-written Hopper kernels for the 3D Q2/Q1 structured-grid operators in
-// the comp-major row layout (see poroelasticity_dealii_torch/ops/comp_major.py
-// for the layout, the launch plans and the plain PyTorch twin of every kernel
-// here).
+// the comp-major row layout and on flat node-grid vectors (see
+// poroelasticity_dealii_torch/ops/comp_major.py and ops/elasticity.py for the
+// layouts, ops/cell_products.py for the launch plans, and the plain PyTorch
+// twin of every kernel here).
 //
 // Row layout of a Q2 displacement vector on an n^3 grid: rows
 // zh*24 + ((pz*2 + py)*2 + px)*3 + c, lanes yh*(n+1) + xh, W lanes per row,
 // for the node (x, y, z) = (2xh+px, 2yh+py, 2zh+pz) and component c.
-// Padding lanes and rows (nodes past 2n on any axis) are zero.
+// Padding lanes and rows (nodes past 2n on any axis) are zero.  Flat layout:
+// ((z*g + y)*g + x)*3 + c with g = 2n+1 nodes per axis, no padding.
 //
 // No kernel here uses float atomics: every output value is summed by one
 // thread in a fixed order, so the results repeat bitwise (the solver's
 // skip-if-unchanged rule compares mechanics right-hand sides bitwise).
 //
-// The elasticity apply (K1/K2/K5) and the projection right-hand side (K4)
-// share one cell-centric product pass on tiles of cells (rows_products_kernel,
-// 81 output rows per cell for the apply, 48 for the projection), followed by
-// an output-centric sum pass each (Q2 node sums for the apply, Q1 node sums
-// for the projection; the projection's product pass multiplies by pe,
-// 48 x 81, as four warps of 12 rows in float32 and six DMMA n-tiles in
-// float64).  The coupling right-hand side (K3) is one launch: a thread per
-// row-layout column loads its 3x3x3 Q1 neighbourhood of p once and writes
-// the column's 24 rows parity by parity, with the element matrix in shared
-// memory.
+// The elasticity apply in both layouts (K1/K2/K5 in rows, K6/K7 flat) and
+// the projection right-hand side (K4) share one cell-centric product pass on
+// tiles of cells (rows_products_kernel, a template on the output rows, 81
+// per cell for the apply and 48 for the projection, and on the input
+// layout), followed by an output-centric sum pass each (Q2 node sums for the
+// apply, written in its layout; Q1 node sums for the projection, whose
+// product pass multiplies by pe, 48 x 81, as four warps of 12 rows in
+// float32 and six DMMA n-tiles in float64).  The coupling right-hand side
+// (K3) is one launch: a thread per row-layout column loads its 3x3x3 Q1
+// neighbourhood of p once and writes the column's 24 rows parity by parity,
+// with the element matrix in shared memory.
 
 #include <cuda_runtime.h>
 
@@ -64,6 +67,33 @@ __device__ __forceinline__ int q2_node_offset(int q, int n1, int W) {
   return ((oz >> 1) * 24 + base) * W + (oy >> 1) * n1 + (ox >> 1);
 }
 
+// Input layouts of the cell product pass: where cell (iz, iy, ix)'s 81
+// values lie, as the offset of its local node 0, component 0 (cell_base)
+// plus that of local value b = 3q + c, q the x-fastest local node
+// (node_offset).
+struct RowLayout {
+  static __device__ __forceinline__ int cell_base(int iz, int iy, int ix,
+                                                  int n, int W) {
+    return iz * 24 * W + iy * (n + 1) + ix;
+  }
+  static __device__ __forceinline__ int node_offset(int b, int n, int W) {
+    return q2_node_offset(b / 3, n + 1, W) + (b % 3) * W;
+  }
+};
+
+struct FlatLayout {   // W unused
+  static __device__ __forceinline__ int cell_base(int iz, int iy, int ix,
+                                                  int n, int) {
+    const int sy = 3 * (2 * n + 1), sz = sy * (2 * n + 1);
+    return 2 * iz * sz + 2 * iy * sy + 6 * ix;
+  }
+  static __device__ __forceinline__ int node_offset(int b, int n, int) {
+    const int sy = 3 * (2 * n + 1), sz = sy * (2 * n + 1);
+    const int q = b / 3;
+    return (q / 9) * sz + ((q / 3) % 3) * sy + (q % 3) * 3 + b % 3;
+  }
+};
+
 // Decoded output position of a row-layout thread.
 struct RowPos {
   int zh, yh, xh, pz, py, px, c;
@@ -89,40 +119,54 @@ __device__ __forceinline__ RowPos decode_row(int idx, int n, int W) {
 }
 
 // ---------------------------------------------------------------------------
-// The cell product pass (K1, K2, K5 and K4)
+// The cell product pass (K1, K2, K5, K6/K7 and K4)
 //
 // Replaces poroelasticity_dealii_tpu/ops/pallas_comp_major.py _kernel_v4
 // (make_pallas_free_apply, K1), _kernel_v3 (make_pallas_constrained_apply,
 // K2) and _kernel_v2 (make_pallas_apply_rows, K5): the Q2 elasticity apply,
-// row layout in and out, in the three masking modes; and _kernel_projection
-// (make_projection_rows_pallas, K4): the all-Voigt strain-projection
-// right-hand side, row layout in, (6, (n+1)^3) out.  The TPU kernels gather
-// one cell layer, multiply it by the element matrix (81 x 81, or 48 x 81) in
-// one matrix product and scatter it with a z-carry through a sequential
-// grid.
+// row layout in and out, in the three masking modes; _kernel v1
+// (make_pallas_apply, K6) and ops/pallas_elasticity.py _kernel
+// (make_pallas_elasticity, K7): y = A u on flat ((2n+1)^3 * 3,) vectors,
+// which the TPU kernels take through comp-major rows and a host stitch of
+// z-slab overlaps (K6) or 8 parity subgrids and a recomputed halo layer
+// (K7), layouts that give Mosaic contiguous 2-D slices; and
+// _kernel_projection (make_projection_rows_pallas, K4): the all-Voigt
+// strain-projection right-hand side, row layout in, (6, (n+1)^3) out.  The
+// TPU kernels gather one cell layer, multiply it by the element matrix
+// (81 x 81, or 48 x 81) in one matrix product and scatter it with a z-carry
+// through a sequential grid.
 //
 // Bound (H100, 700 W): K has 5619 nonzeros of 6561 on the bench deck's
 // cell, so one apply at n = 40 needs 2*5619*n^3 = 0.72 GFLOP against
-// ~14-21 MB of compulsory f32 traffic (x, mask, y): bound by operations,
-// 10.7 us at the 67 TFLOP/s of float32 outside the tensor cores (TF32 is not
-// float32, and the reference multiplies at Precision.HIGHEST) and of float64
-// on the tensor cores (DMMA).  pe has 864 nonzeros of 3888 (a normal-strain
-// row of a Q1 node reads one displacement component, a shear row two, and
-// the quadrature zeroes more), so the projection needs 0.11 GFLOP and is
-// bound by its 8.7 MB of f32 traffic, 2.6 us.  The product pass below
-// multiplies every entry, zeros included.  The first design, a thread per
-// output value re-gathering its <= 8 cells, issued one or two loads per FMA
-// and was bound by the load pipe (11-25x the bound).
+// ~13-21 MB of compulsory f32 traffic (x, mask, y; flat u and y 12.8 MB):
+// bound by operations, 10.7 us at the 67 TFLOP/s of float32 outside the
+// tensor cores (TF32 is not float32, and the reference multiplies at
+// Precision.HIGHEST) and of float64 on the tensor cores (DMMA).  The flat
+// apply's float64 traffic is 25.5 MB, 7.6 us: still bound by operations.
+// pe has 864 nonzeros of 3888 (a normal-strain row of a Q1 node reads one
+// displacement component, a shear row two, and the quadrature zeroes more),
+// so the projection needs 0.11 GFLOP and is bound by its 8.7 MB of f32
+// traffic, 2.6 us.  The product pass below multiplies every entry, zeros
+// included.  The first designs, a thread per output value (row layout) or
+// per node (flat) re-gathering its <= 8 cells, issued one or two loads per
+// FMA and were bound by the load pipe (11-45x the bound).
 //
 // Design: two launches, no atomics.
-//  1. Products, cell-centric (rows_products_kernel<T, ROWS>): a persistent
-//     grid of at most one resident wave; each block loads the element matrix
-//     once into shared memory with cp.async, zero-padded to the product's
-//     tile shape, so the load overlaps the first tile's gather (at n = 40 a
-//     float32 block walks about one tile), then walks tiles of kCells
-//     consecutive cells (z, y, x order).  It gathers the tile's 81 x kCells
-//     operand matrix X_E from the row layout into shared memory with
-//     cp.async (CONSTRAINED: batched loads times the mask), computes
+//  1. Products, cell-centric (rows_products_kernel<T, ROWS, MASK_INPUT,
+//     Layout>): a persistent grid of at most one resident wave; each block
+//     loads the element matrix once into shared memory with cp.async,
+//     zero-padded to the product's tile shape, so the load overlaps the
+//     first tile's gather (at n = 40 a float32 block walks about one tile),
+//     then walks tiles of kCells consecutive cells (z, y, x order).  It
+//     gathers the tile's 81 x kCells operand matrix X_E from the input
+//     layout (RowLayout or FlatLayout: only the cell base and the 81 value
+//     offsets differ) into shared memory with cp.async, element by element
+//     (CONSTRAINED: batched loads times the mask).  In the flat layout
+//     x-neighbouring cells start 6 values apart, so a warp's 32 loads of
+//     one value row touch ~7 cache lines, not 1; the next 8 value rows
+//     (the rest of the 3 nodes x 3 components of one (z, y) node row)
+//     read the same lines from L1, and the flat pass measured within 4% of
+//     the row-layout one (PERF.md).  It computes
 //     Y_E = K X_E (ROWS x kCells) and writes it to the
 //     scratch ye (ROWS, stride), cell fastest.  float32: each thread owns a
 //     12 x 8 register tile of Y_E and reads K and X_E as float4 (K
@@ -134,12 +178,14 @@ __device__ __forceinline__ RowPos decode_row(int idx, int n, int W) {
 //     of the product pass's time at n = 40 (PERF.md): the products bound it.
 //  2. Sums, output-centric: elasticity_rows_sum_kernel, one thread per Q2
 //     node adds its <= 8 cells' entries of ye in a fixed cell order, applies
-//     the mode and writes the row layout; projection_sum_kernel, one thread
-//     per Q1 node adds its <= 8 cells' entries for each Voigt component.
+//     the mode and writes the row layout; elasticity_flat_sum_kernel, the
+//     same sum for one node per thread in [z][y][x] order, so a warp writes
+//     96 consecutive values of y; projection_sum_kernel, one thread per Q1
+//     node adds its <= 8 cells' entries for each Voigt component.
 // ---------------------------------------------------------------------------
 
-// Pass-1 tile shapes by value type and output rows;
-// ops/comp_major.py::rows_apply_plan mirrors them and passes the dynamic
+// Pass-1 tile shapes by value type and output rows (both layouts);
+// ops/cell_products.py::rows_apply_plan mirrors them and passes the dynamic
 // shared-memory bytes, which the launchers check.
 template <typename T, int ROWS>
 struct ProductTile;
@@ -335,10 +381,10 @@ __device__ __forceinline__ void tile_products(const double* ks,
 }
 
 // Pass 1: ye[a][cell] = sum_b K[a][b] X_E[b][cell] for every cell and each
-// of the ROWS rows of K (ROWS x 81), X_E gathered from x (times the mask
-// when MASK_INPUT).  stride: the scratch row length, a multiple of kCells
-// >= n^3; cells past n^3 get zero.
-template <typename T, int ROWS, bool MASK_INPUT>
+// of the ROWS rows of K (ROWS x 81), X_E gathered from x in Layout (times
+// the mask when MASK_INPUT).  stride: the scratch row length, a multiple of
+// kCells >= n^3; cells past n^3 get zero.
+template <typename T, int ROWS, bool MASK_INPUT, typename Layout>
 __global__ void __launch_bounds__(ProductTile<T, ROWS>::kThreads,
                                   ProductTile<T, ROWS>::kMinBlocks)
 rows_products_kernel(const T* __restrict__ x, const T* __restrict__ m,
@@ -351,11 +397,11 @@ rows_products_kernel(const T* __restrict__ x, const T* __restrict__ m,
   int* cell_base = reinterpret_cast<int*>(xs + P::kXRows * P::kXStride);
   int* node_off = cell_base + P::kCells;
   const int tid = threadIdx.x;
-  const int n1 = n + 1, nn = n * n, cells = nn * n;
+  const int nn = n * n, cells = nn * n;
 
   load_k<ROWS>(ks, ke);
   for (int b = tid; b < kLocal; b += P::kThreads)
-    node_off[b] = q2_node_offset(b / 3, n1, W) + (b % 3) * W;
+    node_off[b] = Layout::node_offset(b, n, W);
   for (int i = kLocal * P::kXStride + tid; i < P::kXRows * P::kXStride;
        i += P::kThreads)
     xs[i] = T(0);   // padding rows of X_E (float64), never gathered
@@ -370,7 +416,7 @@ rows_products_kernel(const T* __restrict__ x, const T* __restrict__ m,
       if (cell < cells) {
         const int iz = cell / nn, rem = cell - iz * nn;
         const int iy = rem / n, ix = rem - iy * n;
-        base = iz * 24 * W + iy * n1 + ix;
+        base = Layout::cell_base(iz, iy, ix, n, W);
       }
       cell_base[j] = base;
     }
@@ -417,9 +463,33 @@ rows_products_kernel(const T* __restrict__ x, const T* __restrict__ m,
   }
 }
 
-// Pass 2 of the apply: one thread per node sums its <= 8 cells' entries of
-// ye (cells in z, y, x order, offset 0 before offset 2 on each axis) for its
-// three components, applies the mode and writes the row layout.
+// The three components of Q2 node (2zh+pz, 2yh+py, 2xh+px) of the apply:
+// its <= 8 cells' entries of ye added into acc in a fixed order (cells in
+// z, y, x order, offset 0 before offset 2 on each axis), the same in both
+// layouts.
+template <typename T>
+__device__ __forceinline__ void q2_node_sum(const T* __restrict__ ye, int n,
+                                            int stride, int zh, int pz,
+                                            int yh, int py, int xh, int px,
+                                            T (&acc)[3]) {
+  int cx[2], ox[2], cy[2], oy[2], cz[2], oz[2];
+  const int kx = q2_axis_cells(xh, px, n, cx, ox);
+  const int ky = q2_axis_cells(yh, py, n, cy, oy);
+  const int kz = q2_axis_cells(zh, pz, n, cz, oz);
+  for (int a = 0; a < kz; ++a)
+    for (int b = 0; b < ky; ++b)
+      for (int d = 0; d < kx; ++d) {
+        const int loc = ox[d] + 3 * oy[b] + 9 * oz[a];
+        const T* yc = ye + static_cast<long long>(loc * 3) * stride +
+                      (cz[a] * n + cy[b]) * n + cx[d];
+        acc[0] += yc[0];
+        acc[1] += yc[stride];
+        acc[2] += yc[2 * stride];
+      }
+}
+
+// Pass 2 of the row-layout apply: one thread per node sums its three
+// components (q2_node_sum), applies the mode and writes the row layout.
 template <typename T, int MODE>
 __global__ void __launch_bounds__(kThreads)
 elasticity_rows_sum_kernel(const T* __restrict__ ye, const T* __restrict__ x,
@@ -431,22 +501,8 @@ elasticity_rows_sum_kernel(const T* __restrict__ ye, const T* __restrict__ x,
   const int node_row = idx / W, lane = idx - node_row * W;   // zh*8 + par
   const RowPos r = decode_row((node_row * 3) * W + lane, n, W);
   T acc[3] = {T(0), T(0), T(0)};
-  if (r.real) {
-    int cx[2], ox[2], cy[2], oy[2], cz[2], oz[2];
-    const int kx = q2_axis_cells(r.xh, r.px, n, cx, ox);
-    const int ky = q2_axis_cells(r.yh, r.py, n, cy, oy);
-    const int kz = q2_axis_cells(r.zh, r.pz, n, cz, oz);
-    for (int a = 0; a < kz; ++a)
-      for (int b = 0; b < ky; ++b)
-        for (int d = 0; d < kx; ++d) {
-          const int loc = ox[d] + 3 * oy[b] + 9 * oz[a];
-          const T* yc = ye + static_cast<long long>(loc * 3) * stride +
-                        (cz[a] * n + cy[b]) * n + cx[d];
-          acc[0] += yc[0];
-          acc[1] += yc[stride];
-          acc[2] += yc[2 * stride];
-        }
-  }
+  if (r.real)
+    q2_node_sum(ye, n, stride, r.zh, r.pz, r.yh, r.py, r.xh, r.px, acc);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     const int o = (node_row * 3 + c) * W + lane;
@@ -459,6 +515,25 @@ elasticity_rows_sum_kernel(const T* __restrict__ ye, const T* __restrict__ x,
       y[o] = mi * acc[c] + (T(1) - mi) * x[o];
     }
   }
+}
+
+// Pass 2 of the flat apply (y = A u): one thread per Q2 node in [z][y][x]
+// order sums its three components (q2_node_sum) and writes them to y.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+elasticity_flat_sum_kernel(const T* __restrict__ ye, T* __restrict__ y,
+                           int n, int stride) {
+  const int g = 2 * n + 1;
+  const int node = blockIdx.x * blockDim.x + threadIdx.x;
+  if (node >= g * g * g) return;
+  const int Z = node / (g * g);
+  const int rem = node - Z * g * g;
+  const int Y = rem / g, X = rem - Y * g;
+  T acc[3] = {T(0), T(0), T(0)};
+  q2_node_sum(ye, n, stride, Z >> 1, Z & 1, Y >> 1, Y & 1, X >> 1, X & 1,
+              acc);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) y[3 * node + c] = acc[c];
 }
 
 // Pass 2 of the projection: one thread per Q1 node adds, for each Voigt
@@ -619,7 +694,7 @@ inline unsigned blocks_for(long long total, int threads = kThreads) {
 // Launch pass 1 with the plan the wrapper passes; refuse any other plan.
 // The element matrix and a tile exceed the 48 KB a block gets without
 // opting in; the attribute is per device, set at a device's first launch.
-template <typename T, int ROWS, bool MASK_INPUT>
+template <typename T, int ROWS, bool MASK_INPUT, typename Layout>
 cudaError_t launch_products(const T* x, const T* m, const T* ke, T* ye,
                             int n, int W, int stride, int grid, int smem,
                             cudaStream_t s) {
@@ -629,7 +704,7 @@ cudaError_t launch_products(const T* x, const T* m, const T* ke, T* ye,
       static_cast<long long>(stride) < static_cast<long long>(n) * n * n)
     return cudaErrorInvalidValue;
   void (*products)(const T*, const T*, const T*, T*, int, int, int) =
-      rows_products_kernel<T, ROWS, MASK_INPUT>;
+      rows_products_kernel<T, ROWS, MASK_INPUT, Layout>;
   static bool opted_in[kMaxDevices] = {};
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -659,10 +734,10 @@ int launch_elasticity(const void* x, const void* m, const void* ke, void* y,
   T* ep = static_cast<T*>(ye);
   const cudaError_t err =
       mode == kConstrained
-          ? launch_products<T, kLocal, true>(xp, mp, kp, ep, n, W, stride,
-                                             grid, smem, s)
-          : launch_products<T, kLocal, false>(xp, mp, kp, ep, n, W, stride,
-                                              grid, smem, s);
+          ? launch_products<T, kLocal, true, RowLayout>(
+                xp, mp, kp, ep, n, W, stride, grid, smem, s)
+          : launch_products<T, kLocal, false, RowLayout>(
+                xp, mp, kp, ep, n, W, stride, grid, smem, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned sum_grid = blocks_for(static_cast<long long>(n + 1) * 8 * W);
   switch (mode) {
@@ -699,13 +774,28 @@ int launch_projection(const void* x, const void* pe, void* out, void* ye,
                       void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   T* ep = static_cast<T*>(ye);
-  const cudaError_t err = launch_products<T, kProjRows, false>(
+  const cudaError_t err = launch_products<T, kProjRows, false, RowLayout>(
       static_cast<const T*>(x), nullptr, static_cast<const T*>(pe), ep, n, W,
       stride, grid, smem, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long g1 = n + 1;
   projection_sum_kernel<T><<<blocks_for(g1 * g1 * g1), kThreads, 0, s>>>(
       ep, static_cast<T*>(out), n, stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_flat(const void* u, const void* ke, void* y, void* ye, int n,
+                int stride, int grid, int smem, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  T* ep = static_cast<T*>(ye);
+  const cudaError_t err = launch_products<T, kLocal, false, FlatLayout>(
+      static_cast<const T*>(u), nullptr, static_cast<const T*>(ke), ep, n, 0,
+      stride, grid, smem, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long g = 2 * n + 1;
+  elasticity_flat_sum_kernel<T><<<blocks_for(g * g * g), kThreads, 0, s>>>(
+      ep, static_cast<T*>(y), n, stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -753,6 +843,20 @@ int projection_rows_f64(const void* x, const void* pe, void* out, void* ye,
                         void* stream) {
   return launch_projection<double>(x, pe, out, ye, n, W, stride, grid,
                                    smem, stream);
+}
+
+// y = A u on flat ((2n+1)^3 * 3,) vectors; ye: the (81, stride) product
+// scratch; grid, smem: pass 1's launch plan (the row-layout apply's).
+int elasticity_grid_apply_f32(const void* u, const void* ke, void* y,
+                              void* ye, int n, int stride, int grid,
+                              int smem, void* stream) {
+  return launch_flat<float>(u, ke, y, ye, n, stride, grid, smem, stream);
+}
+
+int elasticity_grid_apply_f64(const void* u, const void* ke, void* y,
+                              void* ye, int n, int stride, int grid,
+                              int smem, void* stream) {
+  return launch_flat<double>(u, ke, y, ye, n, stride, grid, smem, stream);
 }
 
 }  // extern "C"

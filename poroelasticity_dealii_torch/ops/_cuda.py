@@ -25,7 +25,7 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "comp_major.cu", _PKG / "csrc" / "elasticity.cu")
+SOURCES = (_PKG / "csrc" / "comp_major.cu",)
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -42,7 +42,8 @@ _SIGNATURES = {
     "coupling_rows": (_P, _P, _P, _I, _I, _P),
     # x, pe, out, product scratch, n, W, scratch stride, grid, shared bytes
     "projection_rows": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "elasticity_grid_apply": (_P, _P, _I, _P, _P),
+    # u, ke, y, product scratch, n, scratch stride, grid, shared bytes
+    "elasticity_grid_apply": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 

@@ -20,15 +20,15 @@ Each wrapper takes its plain PyTorch twin (``*_plain``) for CPU tensors and
 launches its kernel for CUDA tensors, counting launches in its
 ``launches`` attribute (one per call; the elasticity apply is two CUDA
 launches, a product pass on tiles of cells and a node-sum pass, planned by
-:func:`rows_apply_plan`; so is the projection, which shares the
-product pass).  The plain twins are vectorised over all cells: one
+:func:`.cell_products.rows_apply_plan`; so is the projection, which shares
+the product pass).  The plain twins are vectorised over all cells: one
 advanced-index gather of the cells' local values, one matmul with the
 element matrix, one ``index_add_`` over a precomputed flat index.
 
 :func:`make_flat_apply`, the counterpart of ``make_pallas_apply`` (flat u
 in, flat y out), needs no row layout: it reaches the flat kernel of
-:mod:`.elasticity` (``csrc/elasticity.cu``).  :data:`KERNEL_WRAPPERS`
-lists every kernel wrapper of the port.
+:mod:`.elasticity`, whose product pass is the row-layout apply's.
+:data:`KERNEL_WRAPPERS` lists every kernel wrapper of the port.
 """
 
 from __future__ import annotations
@@ -41,6 +41,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _cuda
+from .cell_products import N_VOIGT, PROJECTION_ROWS, rows_apply_plan, \
+    sm_count
 from .elasticity import elasticity_grid_apply, make_grid_elasticity
 from .shape import node_lattice
 
@@ -132,69 +134,6 @@ def _rows_shape(n: int):
     return ((n + 1) * 24, _width(n))
 
 
-# The cell product pass of csrc/comp_major.cu (ProductTile<T, ROWS>), by
-# output rows per cell: cells per tile, resident blocks per SM (its
-# __launch_bounds__), and the shared-memory shapes of the element matrix and
-# of the tile's operand matrix X_E.  ELASTICITY_ROWS: K (81 x 81) of the
-# apply; PROJECTION_ROWS: pe (8 * 6 x 81) of the projection.
-ELASTICITY_ROWS, N_VOIGT = 81, 6
-PROJECTION_ROWS = 8 * N_VOIGT
-PRODUCT_TILE = {
-    torch.float32: {"cells": 256, "blocks_per_sm": 2, "k": (81, 84),
-                    "x": (81, 256)},
-    torch.float64: {"cells": 64, "blocks_per_sm": 2, "k": (88, 92),
-                    "x": (88, 68)},
-}
-PROJECTION_TILE = {
-    torch.float32: {"cells": 256, "blocks_per_sm": 2, "k": (81, 48),
-                    "x": (81, 256)},
-    torch.float64: {"cells": 64, "blocks_per_sm": 2, "k": (48, 92),
-                    "x": (88, 68)},
-}
-_TILES = {ELASTICITY_ROWS: PRODUCT_TILE, PROJECTION_ROWS: PROJECTION_TILE}
-
-
-@dataclasses.dataclass(frozen=True)
-class RowsApplyPlan:
-    """Launch plan of a cell product pass: ``tiles`` tiles of
-    ``cells_per_tile`` cells over a persistent grid of ``grid`` blocks with
-    ``smem_bytes`` of dynamic shared memory, writing the (``rows``,
-    ``stride``) product scratch (cell fastest)."""
-    rows: int
-    cells_per_tile: int
-    tiles: int
-    stride: int
-    grid: int
-    smem_bytes: int
-
-    @property
-    def scratch_numel(self) -> int:
-        return self.rows * self.stride
-
-
-@functools.lru_cache(maxsize=64)
-def rows_apply_plan(n: int, dtype: torch.dtype, sms: int,
-                    rows: int = ELASTICITY_ROWS) -> RowsApplyPlan:
-    """The product pass's plan at grid size ``n`` on a card with ``sms``
-    multiprocessors, for ``rows`` output rows per cell (the elasticity
-    apply's 81 or the projection's 48): at most one resident wave of
-    blocks, each loading the element matrix once and walking tiles."""
-    t = _TILES[rows][dtype]
-    item = torch.tensor([], dtype=dtype).element_size()
-    smem = ((t["k"][0] * t["k"][1] + t["x"][0] * t["x"][1]) * item
-            + (t["cells"] + 81) * 4)        # + cell bases, node offsets
-    tiles = -(-n ** 3 // t["cells"])
-    return RowsApplyPlan(
-        rows=rows, cells_per_tile=t["cells"], tiles=tiles,
-        stride=tiles * t["cells"], grid=min(tiles, sms * t["blocks_per_sm"]),
-        smem_bytes=smem)
-
-
-@functools.cache
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 # ---------------------------------------------------------------------------
 # plain twins
 # ---------------------------------------------------------------------------
@@ -255,7 +194,7 @@ def elasticity_rows_apply(x, mask, ke, n: int, mode: int):
         _cuda.check("mask", mask, rows, x.dtype, x.device)
     elif mask is not None:
         raise ValueError("UNMASKED mode takes no mask")
-    plan = rows_apply_plan(n, x.dtype, _sm_count(x.device))
+    plan = rows_apply_plan(n, x.dtype, sm_count(x.device))
     y = torch.empty_like(x)
     ye = torch.empty(plan.scratch_numel, dtype=x.dtype, device=x.device)
     _cuda.launch("elasticity_rows_apply", x, x, mask, ke, y, ye, n, rows[1],
@@ -284,14 +223,14 @@ def projection_rows(x, pe, n: int):
     layout.  ``pe``: (8*C, 81), rows (Q1 local node * C + Voigt c); the
     kernel takes the 3D count C = 6 only (pe of shape (48, 81)).  Two CUDA
     launches: the cell product pass into a (48, n^3) scratch
-    (:func:`rows_apply_plan` with ``rows=PROJECTION_ROWS``), then the Q1
-    node sums."""
+    (:func:`.cell_products.rows_apply_plan` with ``rows=PROJECTION_ROWS``),
+    then the Q1 node sums."""
     if x.device.type == "cpu":
         return projection_rows_plain(x, pe, n)
     _cuda.require_cuda(x)
     _cuda.check("x", x, _rows_shape(n), x.dtype, x.device)
     _cuda.check("pe", pe, (PROJECTION_ROWS, 81), x.dtype, x.device)
-    plan = rows_apply_plan(n, x.dtype, _sm_count(x.device),
+    plan = rows_apply_plan(n, x.dtype, sm_count(x.device),
                            rows=PROJECTION_ROWS)
     out = torch.empty((N_VOIGT, (n + 1) ** 3), dtype=x.dtype,
                       device=x.device)
@@ -327,8 +266,8 @@ def make_flat_apply(element_matrix: np.ndarray, n: int, dtype: torch.dtype,
     vector through ``to_rows``, z-slab blocks and a host stitch of the slab
     overlaps).  Those are TPU layout steps: here the flat vector goes
     straight into the hand-written flat kernel
-    (:func:`.elasticity.elasticity_grid_apply`, ``csrc/elasticity.cu``),
-    the same kernel that stands for ``make_pallas_elasticity``."""
+    (:func:`.elasticity.elasticity_grid_apply`), the same kernel that
+    stands for ``make_pallas_elasticity``."""
     return make_grid_elasticity(element_matrix, n, dtype, device)
 
 

@@ -8,9 +8,12 @@ package has two Pallas kernels for this function: ``_kernel`` here
 halo cell layer recomputed per z-slab) and ``_kernel`` v1 of
 ``pallas_comp_major.py`` (``make_pallas_apply``, comp-major rows and a
 host stitch).  Both layouts serve Mosaic; one hand-written CUDA kernel on
-the flat layout, :func:`elasticity_grid_apply` (``csrc/elasticity.cu``),
-stands for both, reached through :func:`make_grid_elasticity` and
-:func:`.comp_major.make_flat_apply`.
+the flat layout, :func:`elasticity_grid_apply` (``csrc/comp_major.cu``: the
+row-layout apply's cell product pass gathering from the flat vector, then a
+flat node sum), stands for both, reached through
+:func:`make_grid_elasticity` and :func:`.comp_major.make_flat_apply`.  On a
+CUDA device the conv backend's elasticity apply is this kernel
+(``solvers/structured.py``).
 
 :func:`split_parities` and :func:`merge_parities` are the torch
 counterparts of the JAX layout helpers; the flat kernel needs neither.
@@ -24,6 +27,7 @@ import torch.nn.functional as F
 
 from . import _cuda
 from . import dense
+from .cell_products import rows_apply_plan, sm_count
 from .stencil import stencil_apply
 
 
@@ -74,14 +78,20 @@ def elasticity_grid_apply(u: torch.Tensor, ke: torch.Tensor,
                           n: int) -> torch.Tensor:
     """``y = A u`` on the flat Q2 grid with ``n`` cells per axis; ``ke``:
     the (81, 81) element matrix, x-fastest ``(node, comp)`` order.  CPU
-    tensors take the plain twin; CUDA tensors launch the kernel."""
+    tensors take the plain twin; CUDA tensors launch the kernel: two CUDA
+    launches, the cell product pass into an (81, n^3) scratch (the
+    row-layout apply's plan, :func:`.cell_products.rows_apply_plan`), then
+    the node sums."""
     if u.device.type == "cpu":
         return elasticity_grid_apply_plain(u, ke, n)
     _cuda.require_cuda(u)
     _cuda.check("u", u, ((2 * n + 1) ** 3 * 3,), u.dtype, u.device)
     _cuda.check("ke", ke, (81, 81), u.dtype, u.device)
+    plan = rows_apply_plan(n, u.dtype, sm_count(u.device))
     y = torch.empty_like(u)
-    _cuda.launch("elasticity_grid_apply", u, u, ke, n, y)
+    ye = torch.empty(plan.scratch_numel, dtype=u.dtype, device=u.device)
+    _cuda.launch("elasticity_grid_apply", u, u, ke, y, ye, n, plan.stride,
+                 plan.grid, plan.smem_bytes)
     elasticity_grid_apply.launches += 1
     return y
 

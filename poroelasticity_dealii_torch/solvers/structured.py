@@ -11,11 +11,13 @@ the host in float64.  The pressure operators are Q1 slice stencils
   layout through :class:`..ops.comp_major.ElasticityRowOps`, whose
   elasticity, coupling and projection operators are the hand-written CUDA
   kernels on a CUDA device;
-* ``conv`` (flat): the mechanics runs on flat dof vectors through the
-  plain-torch stencils (gather, one matmul, strided slice-add scatter;
-  ``make_stencil_apply``), JAX's ``ConvGridDiscretization``.  ``auto``
-  resolves to it in the JAX package on every device but a TPU; in the port
-  it must be asked for.
+* ``conv`` (flat): the mechanics runs on flat dof vectors, JAX's
+  ``ConvGridDiscretization``: the elasticity apply is the hand-written
+  flat CUDA kernel (``make_grid_elasticity``) on a CUDA device and the
+  plain-torch stencil (gather, one matmul, strided slice-add scatter;
+  ``make_stencil_apply``) on the CPU; coupling and projection are the
+  stencils.  ``auto`` resolves to it in the JAX package on every device but
+  a TPU; in the port it must be asked for.
 
 Both backends keep the stencils (``elasticity``, ``coupling_rhs``,
 ``strain_projection_rhs``), as JAX's conv discretization does under its
@@ -44,6 +46,7 @@ from ..ops.shape import shape_tables
 from ..ops import dense
 from ..ops import operators as ops
 from ..ops.comp_major import ElasticityRowOps, make_row_ops
+from ..ops.elasticity import make_grid_elasticity
 from ..ops.geometry import geometry_factors
 from ..ops.stencil import make_q1_slices_apply, make_stencil_apply
 from ..ops.structured import uniform_geometry_factors
@@ -76,7 +79,8 @@ class GridDiscretization:
     diag_elasticity: torch.Tensor   # (n_udofs,) Jacobi, 1 on Dirichlet
     mass: Callable                  # Q1 mass apply
     laplace: Callable               # Q1 Laplace apply
-    stencil_elasticity: Callable    # flat Q2 elasticity apply
+    stencil_elasticity: Callable    # flat Q2 elasticity apply (kernel on
+                                    # a CUDA device unless kernels="plain")
     stencil_coupling: Callable      # flat Q1 p -> Q2 RHS, Biot folded in
     stencil_projection: Callable    # flat u -> (C, n_pdofs) strain RHS
     row_ops: Optional[ElasticityRowOps]   # None on the conv backend
@@ -180,10 +184,12 @@ def build_grid_discretization(data: InputData,
 
     ``elasticity_backend`` (default: the deck's): ``auto``/``pallas`` for
     the rows kit, ``conv`` for flat vectors and no ``row_ops``.
-    ``kernels="auto"`` sends each row-layout operator through its kernel
-    wrapper (CUDA kernel on a CUDA device, plain twin on the CPU);
-    ``kernels="plain"`` forces the plain twins on any device, for
-    comparing a run against the kernels.  ``multigrid``: elasticity GMG,
+    ``kernels="auto"`` sends each row-layout operator, and on a CUDA device
+    the flat elasticity apply (``stencil_elasticity``, the conv backend's
+    mechanics operator), through its kernel wrapper (CUDA kernel on a CUDA
+    device, plain twin on the CPU); ``kernels="plain"`` forces the plain
+    twins and the plain stencil on any device, for comparing a run against
+    the kernels.  ``multigrid``: elasticity GMG,
     which the port does not have; ``auto`` builds none on the rows backend
     (as the JAX package) and raises on the conv backend where JAX would
     build it (from 150,000 displacement dofs)."""
@@ -276,6 +282,11 @@ def build_grid_discretization(data: InputData,
     def st_proj(u):
         return proj_raw(u).reshape(-1, C).T         # (C, n_pdofs)
 
+    if device.type == "cuda" and kernels == "auto":
+        st_el = make_grid_elasticity(Ke, n, dtype, device)
+    else:
+        st_el = mk(Ke, displacement_degree, displacement_degree, dim, dim)
+
     dev = lambda a: torch.as_tensor(  # noqa: E731
         np.asarray(a, np.float64), dtype=dtype, device=device)
     return GridDiscretization(
@@ -289,8 +300,7 @@ def build_grid_discretization(data: InputData,
         diag_elasticity=dev(diag_el), lam=lam, mu=mu,
         mass=make_q1_slices_apply(Me, dim, cells_per_axis, dtype, device),
         laplace=make_q1_slices_apply(Le, dim, cells_per_axis, dtype, device),
-        stencil_elasticity=mk(Ke, displacement_degree, displacement_degree,
-                              dim, dim),
+        stencil_elasticity=st_el,
         stencil_coupling=mk(Ce, pressure_degree, displacement_degree, 1, dim),
         stencil_projection=st_proj,
         row_ops=None if eb == "conv" else make_row_ops(

@@ -4,12 +4,14 @@ counterpart of ``scripts/pallas_apply_bench.py``):
     python -m poroelasticity_dealii_torch.tools.apply_bench [n]
 
 prints CUDA-event times per apply at ``n`` cells per axis (default 40,
-float32) of the conv-backend ``disc.elasticity`` (plain torch stencil),
-``to_rows`` and ``from_rows``, the hand-written flat kernel through its
-two entry points (``make_flat_apply``, the K6 counterpart, and
-``make_grid_elasticity``, the K7 counterpart), its plain twin, and the
-FLOP count.  It needs a CUDA device; :func:`run` also takes the CPU for
-tests, with no times.
+float32) of the conv backend's plain stencil (``disc.elasticity`` built
+with ``kernels="plain"``), ``to_rows`` and ``from_rows``, the hand-written
+flat kernel through its two entry points (``make_flat_apply``, the K6
+counterpart, and ``make_grid_elasticity``, the K7 counterpart; on the card
+the conv backend's ``disc.elasticity`` is this kernel), its plain twin, and
+the FLOP count (2 per nonzero of the element matrix per cell,
+:func:`nonzeros`).  It needs a CUDA device; :func:`run` also takes the CPU
+for tests, with no times.
 
 :func:`library_csr` and :func:`spmv_ms` give every kernel's library
 yardstick (``library_ms`` in ``chip_smoke.py``): one cuSPARSE CSR
@@ -30,6 +32,16 @@ import torch
 
 DECK = (Path(__file__).resolve().parents[2] / "configs"
         / "consolidation_3d.data")
+# an element-matrix entry below this share of the largest is quadrature
+# roundoff of an exact zero (at most 7e-17 of it in the bench deck's ke, ce
+# and pe; the smallest other entry is 1.7e-4): work counts take the others
+NONZERO_RTOL = 1e-12
+
+
+def nonzeros(a) -> int:
+    """Entries of element matrix ``a`` that are not roundoff zeros."""
+    a = np.abs(np.asarray(a))
+    return int((a > NONZERO_RTOL * a.max()).sum())
 
 
 def device_and_host_ms(fn, reps: int = 20, calls: int = 10) -> tuple:
@@ -171,8 +183,9 @@ def _rel_err(got, ref) -> float:
 def run(n: int = 40, dtype=torch.float32, device="cuda", reps: int = 20,
         deck=DECK) -> dict:
     """Apply every variant once to the same random u (launch counts reset
-    just before, read just after), compare them, then time them on a CUDA
-    device.  Returns the record that :func:`main` prints."""
+    just before, read just after), compare them with the conv backend's
+    plain stencil, then time them on a CUDA device.  Returns the record
+    that :func:`main` prints."""
     from ..config import read_input_file
     from ..ops import comp_major as cm
     from ..ops import elasticity as eg
@@ -183,7 +196,8 @@ def run(n: int = 40, dtype=torch.float32, device="cuda", reps: int = 20,
                                dtype=str(dtype).split(".")[-1])
     disc = build_grid_discretization(data, cells_per_axis=n,
                                      multigrid="off",
-                                     elasticity_backend="conv", device=device)
+                                     elasticity_backend="conv", device=device,
+                                     kernels="plain")
     k6 = cm.make_flat_apply(disc.element_ke, n, dtype, device)
     k7 = eg.make_grid_elasticity(disc.element_ke, n, dtype, device)
     ke = torch.as_tensor(disc.element_ke, dtype=dtype, device=device)
@@ -212,14 +226,14 @@ def run(n: int = 40, dtype=torch.float32, device="cuda", reps: int = 20,
         "rel_err_vs_plain": _rel_err(y7, y_plain),
         "max_abs_err_vs_plain": (y7 - y_plain).abs().max().item(),
         "bitwise_repeat": bool(torch.equal(y7, y_again)),
-        "flop": 2 * 81 * 81 * n ** 3,
+        "flop": 2 * nonzeros(disc.element_ke) * n ** 3,
         "bytes": (2 * g ** 3 * 3 + 81 * 81) * item,
     }
     if device.type == "cuda":
         R = cm.to_rows(u, n)
         rec["ms"] = {
-            "conv disc.elasticity": cuda_time_ms(lambda: disc.elasticity(u),
-                                                 reps),
+            "conv plain stencil": cuda_time_ms(lambda: disc.elasticity(u),
+                                               reps),
             "to_rows": cuda_time_ms(lambda: cm.to_rows(u, n), reps),
             "from_rows": cuda_time_ms(lambda: cm.from_rows(R, n), reps),
             "kernel via make_flat_apply": cuda_time_ms(lambda: k6(u), reps),

@@ -1,17 +1,17 @@
 """Device time of fixed-stress steps by kernel, from ``torch.profiler``:
 
-    python -m poroelasticity_dealii_torch.tools.profile_step [n]
+    python -m poroelasticity_dealii_torch.tools.profile_step [n] [backend]
 
 runs the bench configuration (:func:`bench_data`) at ``n`` cells per axis
-(default 40) on the rows backend on the card: ``initial_state``, evolving
-steps with the Dirichlet load ramp, then steady steps at the last load.
-It profiles the last evolving and the last steady step and prints one JSON
-line for each: the step's counts, its wall time unprofiled (the step
-before, of the same kind) and profiled, the device busy time (union of the
-device activity intervals) over the profiled wall span, and device time and
-launches per kernel name, with each row-layout wrapper's kernels also
-summed under its name (``elasticity_rows_apply``, ``coupling_rows``,
-``projection_rows``) beside its calls.
+(default 40) on the card, on the rows backend (default) or the conv backend
+(``backend`` ``conv``): ``initial_state``, evolving steps with the
+Dirichlet load ramp, then steady steps at the last load.  It profiles the
+last evolving and the last steady step and prints one JSON line for each:
+the step's counts, its wall time unprofiled (the step before, of the same
+kind) and profiled, the device busy time (union of the device activity
+intervals) over the profiled wall span, and device time and launches per
+kernel name, with each kernel wrapper's CUDA kernels also summed under its
+name (:data:`WRAPPERS`) beside its calls.
 """
 
 from __future__ import annotations
@@ -58,14 +58,19 @@ def _short(name: str) -> str:
     return name.split("(")[0]
 
 
-ROW_WRAPPERS = ("elasticity_rows_apply", "coupling_rows", "projection_rows")
+WRAPPERS = ("elasticity_rows_apply", "coupling_rows", "projection_rows",
+            "elasticity_grid_apply")
 
 
-def _row_wrapper(name: str):
-    """The row-layout wrapper (:data:`ROW_WRAPPERS`) that launches the CUDA
-    kernel ``name``, or None.  The apply and the projection share the cell
-    product pass, told apart by its row count (81 or 48); older trees'
-    kernel names are recognised too."""
+def _wrapper(name: str):
+    """The kernel wrapper (:data:`WRAPPERS`) that launches the CUDA kernel
+    ``name``, or None.  The applies and the projection share the cell
+    product pass, told apart by its input layout (the flat apply's is
+    ``FlatLayout``) and row count (81 or 48); older trees' kernel names
+    are recognised too."""
+    if any(k in name for k in ("FlatLayout", "elasticity_flat_sum",
+                               "elasticity_grid_apply")):
+        return "elasticity_grid_apply"
     if "projection" in name or re.search(r"rows_products_kernel<\w+, 48\b",
                                          name):
         return "projection_rows"
@@ -78,7 +83,7 @@ def _row_wrapper(name: str):
 
 def device_summary(prof) -> dict:
     """Busy ms, and per-kernel (ms, launches) of the device events, with
-    each row-layout wrapper's kernels also summed under its name."""
+    each kernel wrapper's CUDA kernels also summed under its name."""
     per = defaultdict(lambda: [0.0, 0])
     intervals = []
     for e in prof.events():
@@ -89,9 +94,9 @@ def device_summary(prof) -> dict:
         per[e.name][0] += (b - a) / 1e3
         per[e.name][1] += 1
     out = {"busy_ms": _busy_ms(intervals)}
-    for wrapper in ROW_WRAPPERS:
+    for wrapper in WRAPPERS:
         rows = {_short(k): {"ms": v[0], "launches": v[1]}
-                for k, v in per.items() if _row_wrapper(k) == wrapper}
+                for k, v in per.items() if _wrapper(k) == wrapper}
         out[wrapper] = {
             "ms": sum(v["ms"] for v in rows.values()),
             "kernel_launches": sum(v["launches"] for v in rows.values()),
@@ -112,9 +117,9 @@ def _step(solver, state, bc, bc_prev):
 
 
 def run(n: int = 40, n_evolving: int = 5, n_steady: int = 3,
-        device="cuda") -> list:
-    """Profile the last evolving and the last steady step; returns their
-    records."""
+        device="cuda", backend: str = "rows") -> list:
+    """Profile the last evolving and the last steady step on the rows or
+    the conv backend; returns their records."""
     from torch.profiler import ProfilerActivity, profile
 
     from ..ops import comp_major as cm
@@ -122,8 +127,9 @@ def run(n: int = 40, n_evolving: int = 5, n_steady: int = 3,
     from ..solvers.structured import build_grid_discretization
 
     data = bench_data()
-    disc = build_grid_discretization(data, cells_per_axis=n,
-                                     multigrid="off", device=device)
+    disc = build_grid_discretization(
+        data, cells_per_axis=n, multigrid="off", device=device,
+        elasticity_backend="conv" if backend == "conv" else "auto")
     solver = FixedStressSolver(disc, data)
     state = solver.initial_state()
     records, bc_prev, last_ms = [], 1.0, None
@@ -141,10 +147,10 @@ def run(n: int = 40, n_evolving: int = 5, n_steady: int = 3,
             state, stats, ms = _step(solver, state, bc, bc_prev)
         bc_prev = bc
         dev = device_summary(prof)
-        for wrapper in ROW_WRAPPERS:
+        for wrapper in WRAPPERS:
             dev[wrapper]["calls"] = getattr(cm, wrapper).launches
         records.append({
-            "step": k, "kind": kind, "n": n,
+            "step": k, "kind": kind, "n": n, "backend": backend,
             "gpu": torch.cuda.get_device_name(),
             "wall_ms_unprofiled_previous_step": last_ms,
             "wall_ms_profiled": ms,
@@ -162,10 +168,14 @@ def run(n: int = 40, n_evolving: int = 5, n_steady: int = 3,
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     n = int(argv[0]) if argv else 40
+    backend = argv[1] if len(argv) > 1 else "rows"
+    if backend not in ("rows", "conv"):
+        raise SystemExit(f"profile_step: backend must be rows or conv, got "
+                         f"{backend!r}")
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device "
                          "(torch.cuda.is_available() is False)")
-    for rec in run(n):
+    for rec in run(n, backend=backend):
         top = dict(list(rec.pop("kernels").items())[:12])
         print(json.dumps({**rec, "top_kernels": top}), flush=True)
     return 0

@@ -1,19 +1,20 @@
-"""Device time of the row-layout kernels alone: the elasticity apply
-(K1/K2/K5), the coupling right-hand side (K3) and the projection
-right-hand side (K4):
+"""Device time of the kernels alone: the row-layout elasticity apply
+(K1/K2/K5), the coupling right-hand side (K3), the projection right-hand
+side (K4) and the flat elasticity apply (K6/K7):
 
     python -m poroelasticity_dealii_torch.tools.rows_apply_bench [n] [label]
 
 prints one JSON line per dtype (float32, float64) and case (the apply in
-modes unmasked, free, constrained; ``coupling_rows``; ``projection_rows``)
-at ``n`` cells per axis (default 40): the wrapper's device and host-enqueue
-ms per call (``apply_bench.device_and_host_ms``) and, from
+modes unmasked, free, constrained; ``coupling_rows``; ``projection_rows``;
+``flat``) at ``n`` cells per axis (default 40): the wrapper's device and
+host-enqueue ms per call (``apply_bench.device_and_host_ms``) and, from
 ``torch.profiler`` over ten calls, the device ms per call of each CUDA
-kernel it launched (for the apply and the projection: the product pass and
-the sum pass).  It uses only the wrappers' public interface
+kernel it launched (for the applies and the projection: the product pass
+and the sum pass).  It uses only the wrappers' public interface
 (``elasticity_rows_apply``, ``coupling_rows``, ``projection_rows``,
-``to_rows``, ``to_rows_np``), so the same file also times an older tree of
-the port on the same card (``label`` tags the lines).
+``elasticity_grid_apply``, ``to_rows``, ``to_rows_np``), so the same file
+also times an older tree of the port on the same card (``label`` tags the
+lines).
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ def _profile_split(fn, wrapper: str, calls: int = 10) -> dict:
 
 def run(n: int = 40, label: str = "", device="cuda") -> list:
     from ..ops import comp_major as cm
+    from ..ops import elasticity as eg
     from ..solvers.structured import build_grid_discretization
     from .apply_bench import device_and_host_ms
     from .profile_step import bench_data
@@ -55,7 +57,8 @@ def run(n: int = 40, label: str = "", device="cuda") -> list:
     for dtype in (torch.float32, torch.float64):
         dev = lambda a: torch.as_tensor(a, dtype=dtype,  # noqa: E731
                                         device=device)
-        x = cm.to_rows(dev(u), n)
+        uf = dev(u)
+        x = cm.to_rows(uf, n)
         m = dev(cm.to_rows_np(d.free_mask_u.numpy(), n))
         xf = x * m                                  # free-subspace input
         K, Ce, Pe, p = (dev(a) for a in (d.element_ke, d.element_ce,
@@ -72,6 +75,8 @@ def run(n: int = 40, label: str = "", device="cuda") -> list:
                               lambda: cm.coupling_rows(p, Ce, n)),
             "projection_rows": ("projection_rows",
                                 lambda: cm.projection_rows(x, Pe, n)),
+            "flat": ("elasticity_grid_apply",
+                     lambda: eg.elasticity_grid_apply(uf, K, n)),
         }
         for case, (wrapper, fn) in cases.items():
             ms, host_ms = device_and_host_ms(fn)

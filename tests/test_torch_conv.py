@@ -111,6 +111,25 @@ def test_conv_operators_match_jax(n):
     assert tuple(t.strain_projection_rhs(ut).shape) == (6, t.n_pdofs)
 
 
+@pytest.mark.parametrize("kernels", ["auto", "plain"])
+def test_conv_elasticity_on_cpu_is_the_plain_stencil(kernels):
+    """On the CPU the conv backend's elasticity apply stays the plain
+    stencil (``make_stencil_apply``), bit for bit, with either ``kernels``
+    setting; only a CUDA device with ``kernels="auto"`` takes the flat
+    kernel."""
+    from poroelasticity_dealii_torch.ops.stencil import make_stencil_apply
+    data = read_input_file(DECK)
+    n = 3
+    d = tst.build_grid_discretization(data, cells_per_axis=n,
+                                      multigrid="off",
+                                      elasticity_backend="conv",
+                                      device="cpu", kernels=kernels)
+    ref = make_stencil_apply(d.element_ke, 2, 2, 3, 3, 3, n, d.dtype, "cpu")
+    u = torch.as_tensor(np.random.default_rng(7).standard_normal(d.n_udofs))
+    assert torch.equal(d.stencil_elasticity(u), ref(u))
+    assert torch.equal(d.elasticity(u), ref(u))
+
+
 @pytest.fixture(scope="module")
 def jax_n4():
     """JAX conv states (numpy) after initial_state and each step, and

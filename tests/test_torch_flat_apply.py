@@ -98,16 +98,19 @@ def test_split_merge_parities_equal_jax(jx, n):
 
 
 def test_plain_twin_is_the_conv_stencil_and_repeats():
-    """The twin equals the conv-backend stencil bitwise (same gather, same
-    product, same scatter) and repeats bitwise; on the CPU no launch is
-    counted."""
+    """The twin equals the conv backend's plain stencil bitwise (same
+    gather, same product, same scatter) and repeats bitwise; on the CPU no
+    launch is counted.  The FLOP count takes 2 per nonzero of the element
+    matrix per cell (5619 of 6561 on the deck's cell)."""
     rec = apply_bench.run(3, torch.float64, "cpu")
     assert rec["launches"] == {"make_flat_apply": 0,
                                "make_grid_elasticity": 0}
     assert rec["rel_err_vs_conv"] == {"make_flat_apply": 0.0,
                                       "make_grid_elasticity": 0.0}
     assert rec["bitwise_repeat"] and rec["rel_err_vs_plain"] == 0.0
-    assert rec["flop"] == 2 * 81 * 81 * 27 and "ms" not in rec
+    ke = eg.elasticity_element_matrix(read_input_file(DECK), 3)
+    assert apply_bench.nonzeros(ke) == 5619
+    assert rec["flop"] == 2 * 5619 * 27 and "ms" not in rec
     assert eg.elasticity_grid_apply in cm.KERNEL_WRAPPERS
 
 
@@ -118,13 +121,20 @@ def test_wrapper_checks_its_inputs():
                                              device="meta"), ke, 1)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", [1, 4, 7])
-def test_cuda_kernel_matches_plain_twin(n, dtype):
+@pytest.fixture
+def cuda_dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    dev = torch.device("cuda")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 4, 7, 21])
+def test_cuda_kernel_matches_plain_twin(cuda_dev, n, dtype):
+    """n = 1, 4, 7: one partial product tile; 21: ragged last tiles and
+    tiles that span several x-rows of cells."""
+    dev = cuda_dev
     ke_np = eg.elasticity_element_matrix(read_input_file(DECK), n)
     ke = torch.as_tensor(ke_np, dtype=dtype, device=dev)
     u = torch.as_tensor(_u(n), dtype=dtype, device=dev)
@@ -139,3 +149,35 @@ def test_cuda_kernel_matches_plain_twin(n, dtype):
         assert y.shape == u.shape
         assert ((y - ref).abs().max() / ref.abs().max()).item() <= tol
     assert torch.equal(y6, y7)                       # bitwise repeatable
+
+
+@pytest.mark.cuda
+def test_conv_step_on_card_runs_the_flat_kernel(cuda_dev):
+    """A conv-backend step on the card applies its elasticity through the
+    flat kernel (at least once per mechanics CG iteration); with
+    ``kernels="plain"`` it launches nothing and gives the same FSS and
+    pressure counts and nearly the same fields."""
+    from poroelasticity_dealii_torch.solvers.fss import FixedStressSolver
+    from poroelasticity_dealii_torch.solvers.structured import \
+        build_grid_discretization
+    data = read_input_file(DECK)
+    runs = {}
+    for kernels in ("auto", "plain"):
+        d = build_grid_discretization(data, cells_per_axis=4,
+                                      elasticity_backend="conv",
+                                      device=cuda_dev, kernels=kernels)
+        s = FixedStressSolver(d, data)
+        st = s.initial_state()
+        cm.reset_launch_counts()
+        st, stats = s.time_step(st, data.time_step, 1.05, bc_scale_prev=1.0)
+        torch.cuda.synchronize()
+        runs[kernels] = (st, stats, eg.elasticity_grid_apply.launches)
+    (a, sa, la), (b, sb, lb) = runs["auto"], runs["plain"]
+    assert sa.mech_cg_iterations > 0
+    assert la >= sa.mech_cg_iterations and lb == 0
+    assert (sa.fss_iterations, sa.pressure_iterations) == \
+        (sb.fss_iterations, sb.pressure_iterations)
+    for k in ("p", "u"):
+        ref = getattr(b, k)
+        assert ((getattr(a, k) - ref).abs().max()
+                / ref.abs().max()).item() <= 1e-10

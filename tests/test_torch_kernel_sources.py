@@ -1,10 +1,12 @@
 """Contracts between the CUDA sources (``csrc/*.cu``), which no compiler
 checks here, and the Python that binds and launches them: entry points and
 their arity, the mode constants, the product-pass tile shapes of the
-elasticity apply and the projection, no float atomics, every source built;
-the product pass's launch plans and the coupling kernel's launch geometry
-at the grid sizes users run; and the library yardsticks' assembled
-operators against the plain twins.  Imports nothing of JAX."""
+elasticity apply and the projection, one product-pass body for both input
+layouts and the flat layout's offsets against the conv stencil's gather, no
+float atomics, every source built; the product pass's launch plans and the
+coupling kernel's launch geometry at the grid sizes users run; and the
+library yardsticks' assembled operators against the plain twins.  Imports
+nothing of JAX."""
 
 import re
 
@@ -13,6 +15,7 @@ import pytest
 import torch
 
 from poroelasticity_dealii_torch.ops import _cuda
+from poroelasticity_dealii_torch.ops import cell_products as cp
 from poroelasticity_dealii_torch.ops import comp_major as cm
 
 CSRC = _cuda._PKG / "csrc"
@@ -83,7 +86,7 @@ def _source_int(name: str) -> int:
                                          (torch.float64, "double")])
 def test_product_tile_matches_source(dtype, ctype):
     c = _tile_constants(ctype, "kLocal")
-    t = cm.PRODUCT_TILE[dtype]
+    t = cp.PRODUCT_TILE[dtype]
     assert (c["kCells"], c["kMinBlocks"]) == (t["cells"], t["blocks_per_sm"])
     assert (c["kKRows"], c["kKCols"]) == t["k"]
     assert (c["kXRows"], c["kXStride"]) == t["x"]
@@ -97,8 +100,8 @@ SMS = 132                       # H100 SXM
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n", [1, 2, 3, 7, 21, 40, 56, 64])
 def test_rows_apply_plan(n, dtype):
-    plan = cm.rows_apply_plan(n, dtype, SMS)
-    t = cm.PRODUCT_TILE[dtype]
+    plan = cp.rows_apply_plan(n, dtype, SMS)
+    t = cp.PRODUCT_TILE[dtype]
     assert plan.smem_bytes <= SMEM_PER_BLOCK
     assert t["blocks_per_sm"] * (plan.smem_bytes + 1024) <= SMEM_PER_SM
     # the K and X_E shapes cover the 81 x 81 product, float4/double2 rows
@@ -107,10 +110,12 @@ def test_rows_apply_plan(n, dtype):
     assert n ** 3 <= plan.stride < n ** 3 + plan.cells_per_tile
     assert plan.tiles * plan.cells_per_tile == plan.stride
     assert 1 <= plan.grid <= min(plan.tiles, SMS * t["blocks_per_sm"])
-    # int32 indexing: the scratch, the row layout and its largest gather
+    # int32 indexing: the scratch, the row layout and its largest gather,
+    # the flat vector (the flat apply runs the same plan)
     rows, W = cm._rows_shape(n)
     assert plan.scratch_numel < 2 ** 31 and rows * W < 2 ** 31
     assert int(cm._u_index(n, torch.device("cpu")).max()) < rows * W
+    assert 3 * (2 * n + 1) ** 3 < 2 ** 31
 
 
 def _row_ops(n):
@@ -168,20 +173,20 @@ def test_csr_yardstick_equals_free_apply(name, n):
                                          (torch.float64, "double")])
 def test_projection_tile_matches_source(dtype, ctype):
     c = _tile_constants(ctype, "kProjRows")
-    t = cm.PROJECTION_TILE[dtype]
+    t = cp.PROJECTION_TILE[dtype]
     assert (c["kCells"], c["kMinBlocks"]) == (t["cells"], t["blocks_per_sm"])
     assert (c["kKRows"], c["kKCols"]) == t["k"]
     assert (c["kXRows"], c["kXStride"]) == t["x"]
     assert (_source_int("kLocal"), _source_int("kVoigt")) == \
-        (cm.ELASTICITY_ROWS, cm.N_VOIGT)
-    assert 8 * cm.N_VOIGT == cm.PROJECTION_ROWS
+        (cp.ELASTICITY_ROWS, cp.N_VOIGT)
+    assert 8 * cp.N_VOIGT == cp.PROJECTION_ROWS
     # float32: 12 output rows per warp cover the 48 rows; float64: the
     # 8-row n-tiles of the 16 x 8 x 8 DMMA cover them, b padded to 88
     if dtype == torch.float32:
-        assert c["kThreads"] == 32 * cm.PROJECTION_ROWS // 12
-        assert t["k"] == (81, cm.PROJECTION_ROWS)
+        assert c["kThreads"] == 32 * cp.PROJECTION_ROWS // 12
+        assert t["k"] == (81, cp.PROJECTION_ROWS)
     else:
-        assert t["k"][0] == cm.PROJECTION_ROWS and t["k"][0] % 8 == 0
+        assert t["k"][0] == cp.PROJECTION_ROWS and t["k"][0] % 8 == 0
         assert t["k"][1] >= t["x"][0] >= 88
         assert c["kThreads"] == 32 * t["cells"] // 16
 
@@ -189,22 +194,22 @@ def test_projection_tile_matches_source(dtype, ctype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n", [1, 2, 3, 7, 21, 40, 56, 64])
 def test_projection_plan(n, dtype):
-    plan = cm.rows_apply_plan(n, dtype, SMS, rows=cm.PROJECTION_ROWS)
-    t = cm.PROJECTION_TILE[dtype]
-    assert plan.rows == cm.PROJECTION_ROWS
+    plan = cp.rows_apply_plan(n, dtype, SMS, rows=cp.PROJECTION_ROWS)
+    t = cp.PROJECTION_TILE[dtype]
+    assert plan.rows == cp.PROJECTION_ROWS
     assert plan.smem_bytes <= SMEM_PER_BLOCK
     assert t["blocks_per_sm"] * (plan.smem_bytes + 1024) <= SMEM_PER_SM
     assert plan.stride % plan.cells_per_tile == 0
     assert n ** 3 <= plan.stride < n ** 3 + plan.cells_per_tile
     assert plan.tiles * plan.cells_per_tile == plan.stride
     assert 1 <= plan.grid <= min(plan.tiles, SMS * t["blocks_per_sm"])
-    assert plan.scratch_numel == cm.PROJECTION_ROWS * plan.stride < 2 ** 31
+    assert plan.scratch_numel == cp.PROJECTION_ROWS * plan.stride < 2 ** 31
     # the projection's plan differs from the apply's only in K's shape
-    apply = cm.rows_apply_plan(n, dtype, SMS)
+    apply = cp.rows_apply_plan(n, dtype, SMS)
     assert (plan.stride, plan.grid) == (apply.stride, apply.grid)
     assert plan.smem_bytes < apply.smem_bytes
     # the sum pass's largest read, row 47 at the last cell, is inside
-    assert (cm.PROJECTION_ROWS - 1) * plan.stride + n ** 3 - 1 < \
+    assert (cp.PROJECTION_ROWS - 1) * plan.stride + n ** 3 - 1 < \
         plan.scratch_numel
 
 
@@ -239,15 +244,28 @@ def test_coupling_launch_geometry(n):
     ("elasticity_rows_products_kernel<float, false>",
      "elasticity_rows_apply"),
     ("projection_rows_kernel<double>", "projection_rows"),
-    ("elasticity_grid_apply_kernel<float>", None),
+    ("elasticity_grid_apply_kernel<float>", "elasticity_grid_apply"),
+    ("elasticity_grid_apply_kernel<double>", "elasticity_grid_apply"),
     ("void at::native::vectorized_elementwise_kernel<4>", None),
+    # the shared product pass by layout and row count; the flat node sum
+    ("rows_products_kernel<float, 81, false, FlatLayout>",
+     "elasticity_grid_apply"),
+    ("void (anonymous namespace)::rows_products_kernel<double, 81, false, "
+     "(anonymous namespace)::FlatLayout>(double const*, double const*, "
+     "double const*, double*, int, int, int)", "elasticity_grid_apply"),
+    ("rows_products_kernel<double, 81, false, RowLayout>",
+     "elasticity_rows_apply"),
+    ("rows_products_kernel<double, 48, false, RowLayout>",
+     "projection_rows"),
+    ("elasticity_flat_sum_kernel<double>", "elasticity_grid_apply"),
+    ("elasticity_flat_sum_kernel<float>", "elasticity_grid_apply"),
 ])
 def test_profiler_groups_kernels_by_wrapper(name, wrapper):
-    """tools/profile_step sums each row-layout wrapper's CUDA kernels under
-    its name: the apply and the projection share the product pass and are
-    told apart by its row count."""
+    """tools/profile_step sums each wrapper's CUDA kernels under its name:
+    the applies and the projection share the product pass and are told
+    apart by its input layout and row count."""
     from poroelasticity_dealii_torch.tools import profile_step
-    assert profile_step._row_wrapper(name) == wrapper
+    assert profile_step._wrapper(name) == wrapper
 
 
 def test_profiler_groups_every_row_kernel_of_the_source():
@@ -257,8 +275,75 @@ def test_profiler_groups_every_row_kernel_of_the_source():
     kernels = re.findall(r"__global__ void __launch_bounds__\([^;{]*?\)\s*"
                          r"\n(\w+)\(", text)
     assert sorted(kernels) == ["coupling_rows_kernel",
+                               "elasticity_flat_sum_kernel",
                                "elasticity_rows_sum_kernel",
                                "projection_sum_kernel",
                                "rows_products_kernel"]
     for k in kernels:
-        assert profile_step._row_wrapper(k) is not None, k
+        assert profile_step._wrapper(k) is not None, k
+
+
+def test_one_product_pass_for_both_layouts():
+    """One body of the cell product pass in the sources (the tile products
+    once per value type), launched for the row layout (the apply in its
+    masked and unmasked forms, the projection) and the flat layout."""
+    code = {src.name: re.sub(r"//[^\n]*", "", src.read_text())
+            for src in SOURCES}
+    allcode = "".join(code.values())
+    assert len(re.findall(r"\n(rows_products_kernel)\(", allcode)) == 1
+    assert len(re.findall(r"\nelasticity_\w+_kernel\(", allcode)) == 2
+    for ctype in ("float", "double"):
+        assert len(re.findall(r"void tile_products\(const %s\* ks" % ctype,
+                              allcode)) == 1
+    launches = re.findall(r"launch_products<T, (\w+), (true|false), "
+                          r"(\w+)>", allcode)
+    assert sorted(launches) == [("kLocal", "false", "FlatLayout"),
+                                ("kLocal", "false", "RowLayout"),
+                                ("kLocal", "true", "RowLayout"),
+                                ("kProjRows", "false", "RowLayout")]
+
+
+def _layout_functions(layout: str) -> dict:
+    """{name: python function} of the static members of ``struct layout``
+    in comp_major.cu, translated from their C integer arithmetic (every
+    operand is non-negative, so C's / is Python's //)."""
+    text = (CSRC / "comp_major.cu").read_text()
+    body = re.search(r"struct %s \{(.*?)\n\};" % layout, text, re.S).group(1)
+    out = {}
+    for name, params, code in re.findall(
+            r"int (\w+)\(([^)]*)\)\s*\{(.*?)\n  \}", body, re.S):
+        args = [p.split()[-1] if len(p.split()) > 1 else f"_unused{i}"
+                for i, p in enumerate(params.split(","))]
+        lines = []
+        for stmt in (t.strip() for t in code.split(";") if t.strip()):
+            stmt = stmt.replace("/", "//")
+            if stmt.startswith("return "):
+                lines.append(stmt)
+            else:
+                assert stmt.startswith("const int "), stmt
+                decls = re.split(r",\s*(?=\w+ = )", stmt[len("const int "):])
+                lines += decls
+        src = "def f(%s):\n    %s\n" % (", ".join(args),
+                                          "\n    ".join(lines))
+        scope = {}
+        exec(src, scope)
+        out[name] = scope["f"]
+    return out
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_flat_layout_offsets_match_cell_gather(n):
+    """The flat product pass gathers value b of cell (iz, iy, ix) from
+    u[cell_base + node_offset(b)]: those formulas of the source, evaluated
+    here for every cell and b, give the flat index that the conv stencil's
+    gather (ops/stencil.py::cell_gather) takes for the same entry."""
+    from poroelasticity_dealii_torch.ops.stencil import cell_gather
+    f = _layout_functions("FlatLayout")
+    g = 2 * n + 1
+    idx = torch.arange(3 * g ** 3, dtype=torch.float64)
+    want = cell_gather(idx, 2, (n, n, n), 3).numpy().astype(np.int64)
+    iz, iy, ix = (a.reshape(-1, 1) for a in np.meshgrid(
+        *(np.arange(n),) * 3, indexing="ij"))            # cells z, y, x
+    b = np.arange(81).reshape(1, -1)
+    got = f["cell_base"](iz, iy, ix, n, 0) + f["node_offset"](b, n, 0)
+    np.testing.assert_array_equal(got, want)
