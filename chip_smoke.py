@@ -15,6 +15,10 @@ just before and read just after:
 * the main path: 3D Q2/Q1 fixed-stress steps at 40^3, float32, the bench
   configuration, on the rows backend, cross-checked against a run on the
   plain twins;
+* the sharded production path: the same configuration through
+  ``shard_production_discretization`` on a world-size-1 NCCL process group
+  (one card), every mechanics apply the slab form of the row-layout kernel,
+  held against the main path's steps;
 * the flat-apply path: ``tools/apply_bench`` at 40^3 float32, the flat
   elasticity kernel through both its entry points (``make_flat_apply``,
   ``make_grid_elasticity``) held against the conv backend's plain stencil;
@@ -23,6 +27,12 @@ just before and read just after:
   the plain stencil and with the rows path;
 * the CLI on the 3D deck, on the rows backend and on a copy of the deck
   with ``Elasticity backend = conv``.
+
+Before the paths, the slab form of the row-layout apply (K5's z-slab form,
+``nz``/``nv``) is held against its plain twin on every slab of 2-, 4- and
+8-way splits at n = 40 and 7, and the slabs stitched against the whole-grid
+apply; the 4-way split at 40^3 float32 is timed beside its bound and its
+library yardstick.
 
 It prints the kernel summary and, as its last line,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.
@@ -42,11 +52,14 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from poroelasticity_dealii_torch.ops import _cuda
 from poroelasticity_dealii_torch.ops import cell_products as cp
 from poroelasticity_dealii_torch.ops import comp_major as cm
 from poroelasticity_dealii_torch.ops import elasticity as eg
+from poroelasticity_dealii_torch.parallel import rows as pr
+from poroelasticity_dealii_torch.parallel.sharding import make_slab_group
 from poroelasticity_dealii_torch.solvers.fss import FixedStressSolver
 from poroelasticity_dealii_torch.solvers.structured import \
     build_grid_discretization
@@ -110,18 +123,23 @@ def kernel_cases(n: int, dtype, dev, ke, ce, pe, free_mask_u, rng):
     ]
 
 
-def kernel_work(name: str, n: int, dtype, nnz: dict) -> tuple:
+def kernel_work(name: str, n: int, dtype, nnz: dict, nz: int = None,
+                nv: int = None) -> tuple:
     """(bytes, flop) that kernel ``name`` must move and compute at grid
     size n: each input read once, each output written once, the element
     products counted as 2 flop per nonzero of the element matrix (``nnz``:
-    {"ke", "ce", "pe"} counts) per cell, plus the masking ops."""
-    rows = (n + 1) * 24 * cm._width(n)        # row-layout array, padded
+    {"ke", "ce", "pe"} counts) per cell, plus the masking ops.  The slab
+    form (``elasticity_rows_apply[slab]``) moves ``(nz+1)*24`` rows in and
+    out and multiplies its ``nv`` real cell layers only."""
+    nz = n if nz is None else nz
+    rows = (nz + 1) * 24 * cm._width(n)       # row-layout array, padded
     flat = (2 * n + 1) ** 3 * 3               # flat Q2 vector
     q1 = (n + 1) ** 3                         # flat Q1 vector
-    cells = n ** 3
+    cells = (n if nv is None else nv) * n * n
     mat = 2 * nnz["ke"] * cells
     elems, flop = {
         "elasticity_rows_apply[unmasked]": (2 * rows + 81 * 81, mat),
+        "elasticity_rows_apply[slab]": (2 * rows + 81 * 81, mat),
         "elasticity_rows_apply[free]": (3 * rows + 81 * 81, mat + rows),
         "elasticity_rows_apply[constrained]": (3 * rows + 81 * 81,
                                                mat + 5 * rows),
@@ -133,10 +151,11 @@ def kernel_work(name: str, n: int, dtype, nnz: dict) -> tuple:
     return elems * item, flop
 
 
-def bound(name: str, n: int, dtype, nnz: dict) -> tuple:
+def bound(name: str, n: int, dtype, nnz: dict, nz: int = None,
+          nv: int = None) -> tuple:
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     flop over the peak rate of ``dtype``."""
-    nbytes, flop = kernel_work(name, n, dtype, nnz)
+    nbytes, flop = kernel_work(name, n, dtype, nnz, nz, nv)
     t_bytes, t_flop = nbytes / PEAK_BYTES, flop / PEAK_FLOPS[dtype]
     return (max(t_bytes, t_flop) * 1e3,
             "bytes" if t_bytes >= t_flop else "operations")
@@ -212,10 +231,11 @@ def gpu_line() -> str:
 
 def run_steps(solver, n_evolving, n_steady, log):
     """initial_state, evolving steps (bc_scale = 1 + 0.05 k), then steady
-    steps at the last scale; returns (states after each step, stats)."""
+    steps at the last scale; returns (states after each step, stats, step
+    ms)."""
     dt = solver.data.time_step
     state = solver.initial_state()
-    states, stats_all = [], []
+    states, stats_all, ms_all = [], [], []
     bc_prev = 1.0
     for k in range(1, n_evolving + n_steady + 1):
         bc = 1.0 + BC_RATE * min(k, n_evolving)
@@ -239,7 +259,8 @@ def run_steps(solver, n_evolving, n_steady, log):
                 "cg_converged": stats.cg_converged}), flush=True)
         states.append(state)
         stats_all.append(stats)
-    return states, stats_all
+        ms_all.append(ms)
+    return states, stats_all, ms_all
 
 
 def check_state(state, n_pdofs, n_udofs):
@@ -266,7 +287,7 @@ def main_path(dev):
           f"dofs={disc.n_pdofs + disc.n_udofs}", flush=True)
     cm.reset_launch_counts()
     t0 = time.perf_counter()
-    states, stats = run_steps(solver, N_EVOLVING, N_STEADY, log=True)
+    states, stats, ms = run_steps(solver, N_EVOLVING, N_STEADY, log=True)
     torch.cuda.synchronize()
     launches = launch_counts()
     modes = cm.elasticity_rows_apply.mode_launches
@@ -280,7 +301,7 @@ def main_path(dev):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the main "
                                  "path")
-    return launches, states, stats
+    return launches, states, stats, ms
 
 
 def launch_counts() -> dict:
@@ -305,8 +326,8 @@ def cross_check(dev, states, stats):
     disc = build_grid_discretization(data, cells_per_axis=N_MAIN,
                                      multigrid="off", device=dev,
                                      kernels="plain")
-    plain_states, plain_stats = run_steps(FixedStressSolver(disc, data), 2,
-                                          0, log=False)
+    plain_states, plain_stats, _ = run_steps(FixedStressSolver(disc, data),
+                                             2, 0, log=False)
     for k in range(2):
         a, b = stats[k], plain_stats[k]
         if (a.fss_iterations, a.pressure_iterations) != \
@@ -327,6 +348,200 @@ def cross_check(dev, states, stats):
             if not err <= CROSS_TOL:
                 raise AssertionError(f"step {k + 1} {name}: kernel vs plain "
                                      f"rel err {err:.3e} > {CROSS_TOL}")
+
+
+SLAB_SHAPES_N = (40, 7)
+# slabs of a split (ranks of a group); 1 is the sharded path's own shape on
+# one card (Lz = n+1 z-half layers, nv = n real cell layers)
+SLAB_SPLITS = (1, 2, 4, 8)
+SLAB_TIMED = tuple((N_MAIN, s, t) for s in (1, 4)
+                   for t in (torch.float32, torch.float64))
+# the slabs stitched vs the whole-grid apply, relative to max |whole|: only
+# the sums of each slab's first z-half layer are split in two
+STITCH_TOL = {torch.float64: 1e-12, torch.float32: 2e-7}
+N_SHARDED_EVOLVING, N_SHARDED_STEADY = 2, 1
+
+
+def slab_kernel_phase(dev, d) -> dict:
+    """K5's slab form (``elasticity_rows_apply(..., nz=Lz, nv=nv)``) on
+    every slab of 1-, 2-, 4- and 8-way splits at n = 40 and 7, float64 and
+    float32: against its plain twin at the kernel phase's tolerances and
+    bitwise repeatable, on inputs with random data in every row past the
+    slab's real layers (which its masked cells must not read), and the
+    slabs stitched as the sharded kit adds them against the whole-grid
+    UNMASKED apply.  The 1-way split (the shape the sharded path launches
+    on one card) and the 4-way split at 40^3 are timed slab by slab in both
+    types beside their bound and library yardstick (one CSR SpMV of the
+    slab's operator, ``apply_bench.library_csr(nz=, nv=)``).  Returns the
+    timed records of slab 0 (the most real layers) by (split, type name).
+    ``d``: the discretization whose element matrix the slabs multiply."""
+    ke_np = d.element_ke
+    nnz = {"ke": nonzeros(ke_np), "ce": nonzeros(d.element_ce),
+           "pe": nonzeros(d.element_pe)}
+    timed = {}
+    for n in SLAB_SHAPES_N:
+        rng = np.random.default_rng(n)
+        u = rng.standard_normal((2 * n + 1) ** 3 * 3)
+        W = cm._width(n)
+        for dtype in (torch.float64, torch.float32):
+            K = torch.as_tensor(ke_np, dtype=dtype, device=dev)
+            xg = cm.to_rows(torch.as_tensor(u, dtype=dtype, device=dev), n)
+            whole = cm.elasticity_rows_apply(xg, None, K, n, cm.UNMASKED)
+            for n_dev in SLAB_SPLITS:
+                Lz = pr.slab_layers(n, n_dev)
+                L = Lz * 24
+                full = torch.zeros(((n_dev * Lz + 1) * 24, W), dtype=dtype,
+                                   device=dev)
+                full[:xg.shape[0]] = xg
+                stitched = torch.zeros_like(full)
+                errs = []
+                for r in range(n_dev):
+                    nv = pr.real_layers(n, n_dev, r)
+                    x = full[r * L:r * L + L + 24].clone()
+                    x[(nv + 1) * 24:] = torch.as_tensor(rng.standard_normal(
+                        tuple(x[(nv + 1) * 24:].shape)), dtype=dtype,
+                        device=dev)
+                    kern = lambda: cm.elasticity_rows_apply(  # noqa: E731
+                        x, None, K, n, cm.UNMASKED, nz=Lz, nv=nv)
+                    plain = lambda: cm.elasticity_rows_apply_plain(  # noqa
+                        x, None, K, n, cm.UNMASKED, nz=Lz, nv=nv)
+                    y1, y2, ref = kern(), kern(), plain()
+                    torch.cuda.synchronize()
+                    err = _rel_err(y1, ref)
+                    errs.append(err)
+                    if not err <= TOL[dtype]:
+                        raise AssertionError(
+                            f"slab {r}/{n_dev} n={n} {dtype}: rel err "
+                            f"{err:.3e} vs plain twin > {TOL[dtype]:.0e}")
+                    if not torch.equal(y1, y2):
+                        raise AssertionError(f"slab {r}/{n_dev} n={n} "
+                                             f"{dtype}: repeat runs differ")
+                    stitched[r * L:r * L + L + 24] += y1
+                    if (n, n_dev, dtype) in SLAB_TIMED:
+                        rec = slab_timing(n, dtype, n_dev, Lz, nv, r, x, K,
+                                          kern, plain, y1, ref, nnz)
+                        if r == 0:
+                            timed[(n_dev, rec["dtype"])] = rec
+                serr = _rel_err(stitched[:xg.shape[0]], whole)
+                rec = {"slab_split": n_dev, "n": n, "Lz": Lz,
+                       "dtype": str(dtype).split(".")[-1],
+                       "nv": [pr.real_layers(n, n_dev, r)
+                              for r in range(n_dev)],
+                       "max_rel_err_vs_twin": max(errs),
+                       "stitched_rel_err_vs_whole": serr,
+                       "tol": STITCH_TOL[dtype]}
+                print(json.dumps(rec), flush=True)
+                if not serr <= STITCH_TOL[dtype]:
+                    raise AssertionError(f"{n_dev} slabs stitched, n={n} "
+                                         f"{dtype}: rel err {serr:.3e} vs "
+                                         "the whole-grid apply")
+                if stitched[xg.shape[0]:].any():
+                    raise AssertionError("slab output past the grid's rows")
+    return timed
+
+
+def slab_timing(n, dtype, n_dev, Lz, nv, d, x, K, kern, plain, y, ref,
+                nnz) -> dict:
+    """Device ms of one slab's kernel and twin, its bound, and its library
+    yardstick (assembled in float64 on the card, run in ``dtype``)."""
+    rec = {"name": "elasticity_rows_apply[slab]", "slab_split": n_dev,
+           "slab": d, "n": n, "Lz": Lz, "nv": nv,
+           "dtype": str(dtype).split(".")[-1],
+           "max_abs_err": (y - ref).abs().max().item(),
+           "max_rel_err": _rel_err(y, ref)}
+    rec["ms"], rec["host_ms"] = device_and_host_ms(kern)
+    rec["plain_ms"] = cuda_time_ms(plain)
+    rec["bound_ms"], rec["bound_by"] = bound(
+        "elasticity_rows_apply[slab]", n, dtype, nnz, nz=Lz, nv=nv)
+    M64 = apply_bench.library_csr("elasticity_rows_apply[unmasked]", n,
+                                  K.double(), None, None, None, nz=Lz, nv=nv)
+    M = torch.sparse_csr_tensor(M64.crow_indices(), M64.col_indices(),
+                                M64.values().to(dtype), M64.shape)
+    rec["library_ms"], yl = apply_bench.spmv_ms(M, x)
+    rec["library_nnz"] = M64._nnz()
+    rec["library_rel_err_vs_kernel"] = _rel_err(yl.view_as(y), y)
+    del M, M64, yl
+    torch.cuda.empty_cache()
+    print(json.dumps(rec), flush=True)
+    if nv > 0 and not rec["library_rel_err_vs_kernel"] <= TOL[torch.float32]:
+        raise AssertionError(f"slab {d}: CSR SpMV vs kernel rel err "
+                             f"{rec['library_rel_err_vs_kernel']:.3e}")
+    return rec
+
+
+def sharded_path_phase(dev, rows_states, rows_stats, rows_ms,
+                       slab_shape) -> int:
+    """The bench configuration at 40^3 float32 through
+    ``shard_production_discretization`` on a world-size-1 NCCL process
+    group (initialised here, destroyed at the end): 2 evolving + 1 steady
+    steps, every mechanics apply the slab form (nz = 41 cell layers, nv =
+    40 real), the masks outside the kernel; the two evolving steps held
+    against the main path's (equal FSS and pressure counts, p and u within
+    CROSS_TOL of their max).  ``slab_shape``: the (Lz, nv) at which
+    ``slab_kernel_phase`` held and timed the kernel; the path's must be the
+    same.  Returns the slab form's launches in the steps."""
+    data = bench_data()
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
+                                rank=0, world_size=1)
+        try:
+            t0 = time.perf_counter()
+            disc = build_grid_discretization(data, cells_per_axis=N_MAIN,
+                                             multigrid="off", device=dev)
+            group = make_slab_group(dev)
+            sdisc = pr.shard_production_discretization(disc, group)
+            solver = FixedStressSolver(sdisc, data)
+            torch.cuda.synchronize()
+            print(f"sharded path setup: {time.perf_counter() - t0:.2f} s, "
+                  f"{group.size} rank(s), slab Lz={sdisc.row_ops.Lz} "
+                  f"nv={sdisc.row_ops.nv}", flush=True)
+            if (sdisc.row_ops.Lz, sdisc.row_ops.nv) != tuple(slab_shape):
+                raise AssertionError(f"sharded path slab (Lz, nv) != the "
+                                     f"checked shape {slab_shape}")
+            cm.reset_launch_counts()
+            t0 = time.perf_counter()
+            states, stats, ms = run_steps(solver, N_SHARDED_EVOLVING,
+                                          N_SHARDED_STEADY, log=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+            slab = cm.elasticity_rows_apply.slab_launches
+            modes = cm.elasticity_rows_apply.mode_launches
+        finally:
+            dist.destroy_process_group()
+    print(f"sharded path: initial_state + {N_SHARDED_EVOLVING} evolving + "
+          f"{N_SHARDED_STEADY} steady steps in {wall:.2f} s, launches "
+          f"{launches}, slab form {slab}, whole-grid modes {modes}",
+          flush=True)
+    check_steps(states, stats, sdisc, N_SHARDED_EVOLVING)
+    if slab <= 0 or launches["coupling_rows"] <= 0 or \
+            launches["projection_rows"] <= 0:
+        raise AssertionError("sharded path: a kernel of the path never "
+                             "launched")
+    if any(modes.values()):
+        raise AssertionError(f"sharded path ran whole-grid applies: {modes}")
+    for k in range(N_SHARDED_EVOLVING):
+        a, b = stats[k], rows_stats[k]
+        rec = {"sharded_vs_rows_step": k + 1,
+               "fss": [a.fss_iterations, b.fss_iterations],
+               "pressure": [a.pressure_iterations, b.pressure_iterations],
+               "cg_mechanics": [a.mech_cg_iterations, b.mech_cg_iterations],
+               "ms": [ms[k], rows_ms[k]]}
+        for name in ("p", "u"):
+            rec[f"{name}_max_rel_err"] = _rel_err(getattr(states[k], name),
+                                                  getattr(rows_states[k],
+                                                          name))
+        print(json.dumps(rec), flush=True)
+        if rec["fss"][0] != rec["fss"][1] or \
+                rec["pressure"][0] != rec["pressure"][1]:
+            raise AssertionError(f"sharded step {k + 1}: fss/pressure "
+                                 f"{rec['fss']} {rec['pressure']}")
+        for name in ("p", "u"):
+            if not rec[f"{name}_max_rel_err"] <= CROSS_TOL:
+                raise AssertionError(f"sharded step {k + 1} {name}: rel err "
+                                     f"{rec[f'{name}_max_rel_err']:.3e}")
+    return slab
 
 
 def flat_apply_phase(dev) -> dict:
@@ -364,8 +579,8 @@ def conv_phase(dev, rows_states) -> int:
     print(f"conv backend setup: {time.perf_counter() - t0:.2f} s", flush=True)
     cm.reset_launch_counts()
     t0 = time.perf_counter()
-    states, stats = run_steps(solver, N_CONV_EVOLVING, N_CONV_STEADY,
-                              log=True)
+    states, stats, _ = run_steps(solver, N_CONV_EVOLVING, N_CONV_STEADY,
+                                 log=True)
     torch.cuda.synchronize()
     launches = launch_counts()
     print(f"conv backend: initial_state + {N_CONV_EVOLVING} evolving + "
@@ -381,8 +596,8 @@ def conv_phase(dev, rows_states) -> int:
                                       multigrid="off",
                                       elasticity_backend="conv", device=dev,
                                       kernels="plain")
-    plain_states, plain_stats = run_steps(FixedStressSolver(plain, data), 1,
-                                          0, log=False)
+    plain_states, plain_stats, _ = run_steps(FixedStressSolver(plain, data),
+                                             1, 0, log=False)
     a, b = stats[0], plain_stats[0]
     print(json.dumps({"conv_vs_plain_step": 1,
                       "fss": [a.fss_iterations, b.fss_iterations],
@@ -578,6 +793,7 @@ def main() -> int:
 
     sass_check(lib.path)
     records = {}
+    slab_rec = None
     for n in KERNEL_SHAPES_N:
         d = build_grid_discretization(bench_data(), cells_per_axis=n,
                                       multigrid="off", device="cpu")
@@ -589,9 +805,13 @@ def main() -> int:
                 records[(rec["name"], n, rec["dtype"])] = rec
         if n == N_MAIN:
             library_phase(dev, d, records)
+            # the shape the sharded path launches on one card: a 1-way split
+            slab_rec = slab_kernel_phase(dev, d)[(1, "float32")]
 
-    launches, states, stats = main_path(dev)
+    launches, states, stats, ms = main_path(dev)
     cross_check(dev, states, stats)
+    slab_launches = sharded_path_phase(dev, states, stats, ms,
+                                       (slab_rec["Lz"], slab_rec["nv"]))
     flat_apply_phase(dev)
     launches["elasticity_grid_apply"] = conv_phase(dev, states)
     del states
@@ -608,6 +828,15 @@ def main() -> int:
                  # one CSR SpMV over the assembled operator
                  "library_ms": rec["library_ms"]}
         summary.append(entry)
+    summary.append({
+        "name": "elasticity_rows_apply[slab]", "route": "cuda",
+        "source": "poroelasticity_dealii_torch/csrc/comp_major.cu",
+        "replaces": "poroelasticity_dealii_tpu/ops/pallas_comp_major.py:406",
+        "launches": slab_launches, "max_abs_err": slab_rec["max_abs_err"],
+        # 40^3 float32 at the sharded path's shape (Lz = 41, nv = 40)
+        "ms": slab_rec["ms"], "plain_ms": slab_rec["plain_ms"],
+        "bound_ms": slab_rec["bound_ms"], "bound_by": slab_rec["bound_by"],
+        "library_ms": slab_rec["library_ms"]})
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

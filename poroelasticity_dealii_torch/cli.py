@@ -3,6 +3,14 @@
 ``python -m poroelasticity_dealii_torch run DECK [--device cuda|cpu] [--x64]``
 runs a structured deck; ``check DECK`` parses and prints it; ``devices``
 lists the visible CUDA devices.
+
+A deck with ``TPU / Sharding = production`` runs sharded under ``torchrun``
+(one process per device; rank 0 writes the output), e.g. on the CPU::
+
+    torchrun --standalone --nproc-per-node 2 -m poroelasticity_dealii_torch \
+        run DECK --device cpu
+
+and unsharded, with a warning, as one process.
 """
 
 from __future__ import annotations

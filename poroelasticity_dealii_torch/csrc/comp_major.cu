@@ -100,7 +100,8 @@ struct RowPos {
   bool real;
 };
 
-__device__ __forceinline__ RowPos decode_row(int idx, int n, int W) {
+__device__ __forceinline__ RowPos decode_row(int idx, int n, int nz,
+                                             int W) {
   RowPos r;
   const int n1 = n + 1;
   const int row = idx / W, lane = idx - row * W;
@@ -113,7 +114,7 @@ __device__ __forceinline__ RowPos decode_row(int idx, int n, int W) {
   r.px = par & 1;
   r.yh = lane / n1;
   r.xh = lane - r.yh * n1;
-  r.real = lane < n1 * n1 && 2 * r.zh + r.pz <= 2 * n &&
+  r.real = lane < n1 * n1 && 2 * r.zh + r.pz <= 2 * nz &&
            2 * r.yh + r.py <= 2 * n && 2 * r.xh + r.px <= 2 * n;
   return r;
 }
@@ -124,7 +125,16 @@ __device__ __forceinline__ RowPos decode_row(int idx, int n, int W) {
 // Replaces poroelasticity_dealii_tpu/ops/pallas_comp_major.py _kernel_v4
 // (make_pallas_free_apply, K1), _kernel_v3 (make_pallas_constrained_apply,
 // K2) and _kernel_v2 (make_pallas_apply_rows, K5): the Q2 elasticity apply,
-// row layout in and out, in the three masking modes; _kernel v1
+// row layout in and out, in the three masking modes, and K5's z-slab form
+// (make_pallas_apply_rows(nz=Lz) with a run-time nv, one device's slab in
+// parallel/rows.py): nz cell layers swept, ((nz + 1) * 24, W) in (the
+// slab plus the next slab's first z-half layer) and out (the last 24 rows
+// the band returned to the next slab), cells at iz >= nv contributing
+// nothing whatever their input rows hold.  The slab form is the UNMASKED
+// launch with nz and nv in place of n: the product pass zeroes the cells
+// past nv * n^2 and the sum pass counts nz cell layers on the z axis.  nv
+// is a launch argument, not device memory: each rank is its own program
+// and knows its count on the host; _kernel v1
 // (make_pallas_apply, K6) and ops/pallas_elasticity.py _kernel
 // (make_pallas_elasticity, K7): y = A u on flat ((2n+1)^3 * 3,) vectors,
 // which the TPU kernels take through comp-major rows and a host stitch of
@@ -143,7 +153,10 @@ __device__ __forceinline__ RowPos decode_row(int idx, int n, int W) {
 // tensor cores (TF32 is not float32, and the reference multiplies at
 // Precision.HIGHEST) and of float64 on the tensor cores (DMMA).  The flat
 // apply's float64 traffic is 25.5 MB, 7.6 us: still bound by operations.
-// pe has 864 nonzeros of 3888 (a normal-strain row of a Q1 node reads one
+// A slab's apply does the products of its nv real layers only (at n = 40
+// on 4 slabs, nv = 10 or 11 of 41 z-half layers: ~2.7 us), and its sum
+// pass and traffic scale with its nz + 1 z-half layers.  pe has 864
+// nonzeros of 3888 (a normal-strain row of a Q1 node reads one
 // displacement component, a shear row two, and the quadrature zeroes more),
 // so the projection needs 0.11 GFLOP and is bound by its 8.7 MB of f32
 // traffic, 2.6 us.  The product pass below multiplies every entry, zeros
@@ -382,14 +395,17 @@ __device__ __forceinline__ void tile_products(const double* ks,
 
 // Pass 1: ye[a][cell] = sum_b K[a][b] X_E[b][cell] for every cell and each
 // of the ROWS rows of K (ROWS x 81), X_E gathered from x in Layout (times
-// the mask when MASK_INPUT).  stride: the scratch row length, a multiple of
-// kCells >= n^3; cells past n^3 get zero.
+// the mask when MASK_INPUT).  The first nv layers of n x n cells are real
+// (nv = n on a whole grid; the slab form's run-time count of real cell
+// layers); stride: the scratch row length, a multiple of kCells >= the
+// cells the sum pass reads; cells past nv*n^2 get zero, whatever x holds
+// there.
 template <typename T, int ROWS, bool MASK_INPUT, typename Layout>
 __global__ void __launch_bounds__(ProductTile<T, ROWS>::kThreads,
                                   ProductTile<T, ROWS>::kMinBlocks)
 rows_products_kernel(const T* __restrict__ x, const T* __restrict__ m,
                      const T* __restrict__ ke, T* __restrict__ ye, int n,
-                     int W, int stride) {
+                     int nv, int W, int stride) {
   using P = ProductTile<T, ROWS>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ks = reinterpret_cast<T*>(smem_raw);
@@ -397,7 +413,7 @@ rows_products_kernel(const T* __restrict__ x, const T* __restrict__ m,
   int* cell_base = reinterpret_cast<int*>(xs + P::kXRows * P::kXStride);
   int* node_off = cell_base + P::kCells;
   const int tid = threadIdx.x;
-  const int nn = n * n, cells = nn * n;
+  const int nn = n * n, cells = nn * nv;
 
   load_k<ROWS>(ks, ke);
   for (int b = tid; b < kLocal; b += P::kThreads)
@@ -466,16 +482,18 @@ rows_products_kernel(const T* __restrict__ x, const T* __restrict__ m,
 // The three components of Q2 node (2zh+pz, 2yh+py, 2xh+px) of the apply:
 // its <= 8 cells' entries of ye added into acc in a fixed order (cells in
 // z, y, x order, offset 0 before offset 2 on each axis), the same in both
-// layouts.
+// layouts.  nz: the cell layers along z (n on a whole grid, the slab
+// depth in the slab form, whose z-half layer nz has cells only below it).
 template <typename T>
 __device__ __forceinline__ void q2_node_sum(const T* __restrict__ ye, int n,
-                                            int stride, int zh, int pz,
+                                            int nz, int stride, int zh,
+                                            int pz,
                                             int yh, int py, int xh, int px,
                                             T (&acc)[3]) {
   int cx[2], ox[2], cy[2], oy[2], cz[2], oz[2];
   const int kx = q2_axis_cells(xh, px, n, cx, ox);
   const int ky = q2_axis_cells(yh, py, n, cy, oy);
-  const int kz = q2_axis_cells(zh, pz, n, cz, oz);
+  const int kz = q2_axis_cells(zh, pz, nz, cz, oz);
   for (int a = 0; a < kz; ++a)
     for (int b = 0; b < ky; ++b)
       for (int d = 0; d < kx; ++d) {
@@ -488,21 +506,23 @@ __device__ __forceinline__ void q2_node_sum(const T* __restrict__ ye, int n,
       }
 }
 
-// Pass 2 of the row-layout apply: one thread per node sums its three
-// components (q2_node_sum), applies the mode and writes the row layout.
+// Pass 2 of the row-layout apply: one thread per node of the nz + 1
+// z-half layers sums its three components (q2_node_sum), applies the mode
+// and writes the row layout.
 template <typename T, int MODE>
 __global__ void __launch_bounds__(kThreads)
 elasticity_rows_sum_kernel(const T* __restrict__ ye, const T* __restrict__ x,
                            const T* __restrict__ m, T* __restrict__ y, int n,
-                           int W, int stride) {
-  const int total = (n + 1) * 8 * W;
+                           int nz, int W, int stride) {
+  const int total = (nz + 1) * 8 * W;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
   const int node_row = idx / W, lane = idx - node_row * W;   // zh*8 + par
-  const RowPos r = decode_row((node_row * 3) * W + lane, n, W);
+  const RowPos r = decode_row((node_row * 3) * W + lane, n, nz, W);
   T acc[3] = {T(0), T(0), T(0)};
   if (r.real)
-    q2_node_sum(ye, n, stride, r.zh, r.pz, r.yh, r.py, r.xh, r.px, acc);
+    q2_node_sum(ye, n, nz, stride, r.zh, r.pz, r.yh, r.py, r.xh, r.px,
+                acc);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     const int o = (node_row * 3 + c) * W + lane;
@@ -530,8 +550,8 @@ elasticity_flat_sum_kernel(const T* __restrict__ ye, T* __restrict__ y,
   const int rem = node - Z * g * g;
   const int Y = rem / g, X = rem - Y * g;
   T acc[3] = {T(0), T(0), T(0)};
-  q2_node_sum(ye, n, stride, Z >> 1, Z & 1, Y >> 1, Y & 1, X >> 1, X & 1,
-              acc);
+  q2_node_sum(ye, n, n, stride, Z >> 1, Z & 1, Y >> 1, Y & 1, X >> 1,
+              X & 1, acc);
 #pragma unroll
   for (int c = 0; c < 3; ++c) y[3 * node + c] = acc[c];
 }
@@ -691,19 +711,20 @@ inline unsigned blocks_for(long long total, int threads = kThreads) {
   return static_cast<unsigned>((total + threads - 1) / threads);
 }
 
-// Launch pass 1 with the plan the wrapper passes; refuse any other plan.
-// The element matrix and a tile exceed the 48 KB a block gets without
-// opting in; the attribute is per device, set at a device's first launch.
+// Launch pass 1 over nv real layers of n x n cells with the plan the
+// wrapper passes; refuse any other plan.  The element matrix and a tile
+// exceed the 48 KB a block gets without opting in; the attribute is per
+// device, set at a device's first launch.
 template <typename T, int ROWS, bool MASK_INPUT, typename Layout>
 cudaError_t launch_products(const T* x, const T* m, const T* ke, T* ye,
-                            int n, int W, int stride, int grid, int smem,
-                            cudaStream_t s) {
+                            int n, int nv, int W, int stride, int grid,
+                            int smem, cudaStream_t s) {
   using P = ProductTile<T, ROWS>;
-  if (smem != product_smem_bytes<T, ROWS>() || grid < 1 ||
+  if (smem != product_smem_bytes<T, ROWS>() || grid < 1 || nv < 0 ||
       stride % P::kCells ||
-      static_cast<long long>(stride) < static_cast<long long>(n) * n * n)
+      static_cast<long long>(stride) < static_cast<long long>(nv) * n * n)
     return cudaErrorInvalidValue;
-  void (*products)(const T*, const T*, const T*, T*, int, int, int) =
+  void (*products)(const T*, const T*, const T*, T*, int, int, int, int) =
       rows_products_kernel<T, ROWS, MASK_INPUT, Layout>;
   static bool opted_in[kMaxDevices] = {};
   int device = 0;
@@ -716,15 +737,22 @@ cudaError_t launch_products(const T* x, const T* m, const T* ke, T* ye,
     if (err != cudaSuccess) return err;
     opted_in[device] = true;
   }
-  products<<<grid, P::kThreads, smem, s>>>(x, m, ke, ye, n, W, stride);
+  products<<<grid, P::kThreads, smem, s>>>(x, m, ke, ye, n, nv, W, stride);
   return cudaGetLastError();
 }
 
+// The row-layout apply on nz cell layers ((nz + 1) * 24 rows in and out),
+// of which the first nv are real: nz = nv = n on a whole grid; the slab
+// form (UNMASKED, the wrapper enforces it) passes a slab's depth and its
+// run-time count of real layers, and the last 24 rows of y are the band
+// the caller returns to the next slab.
 template <typename T>
 int launch_elasticity(const void* x, const void* m, const void* ke, void* y,
-                      void* ye, int n, int W, int stride, int grid, int smem,
-                      int mode, void* stream) {
-  if (mode != kUnmasked && mode != kFree && mode != kConstrained)
+                      void* ye, int n, int nz, int nv, int W, int stride,
+                      int grid, int smem, int mode, void* stream) {
+  if ((mode != kUnmasked && mode != kFree && mode != kConstrained) ||
+      nz < 1 || nv < 0 || nv > nz ||
+      static_cast<long long>(stride) < static_cast<long long>(nz) * n * n)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T* xp = static_cast<const T*>(x);
@@ -735,23 +763,24 @@ int launch_elasticity(const void* x, const void* m, const void* ke, void* y,
   const cudaError_t err =
       mode == kConstrained
           ? launch_products<T, kLocal, true, RowLayout>(
-                xp, mp, kp, ep, n, W, stride, grid, smem, s)
+                xp, mp, kp, ep, n, nv, W, stride, grid, smem, s)
           : launch_products<T, kLocal, false, RowLayout>(
-                xp, mp, kp, ep, n, W, stride, grid, smem, s);
+                xp, mp, kp, ep, n, nv, W, stride, grid, smem, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned sum_grid = blocks_for(static_cast<long long>(n + 1) * 8 * W);
+  const unsigned sum_grid =
+      blocks_for(static_cast<long long>(nz + 1) * 8 * W);
   switch (mode) {
     case kUnmasked:
       elasticity_rows_sum_kernel<T, kUnmasked>
-          <<<sum_grid, kThreads, 0, s>>>(ep, xp, mp, yp, n, W, stride);
+          <<<sum_grid, kThreads, 0, s>>>(ep, xp, mp, yp, n, nz, W, stride);
       break;
     case kFree:
       elasticity_rows_sum_kernel<T, kFree>
-          <<<sum_grid, kThreads, 0, s>>>(ep, xp, mp, yp, n, W, stride);
+          <<<sum_grid, kThreads, 0, s>>>(ep, xp, mp, yp, n, nz, W, stride);
       break;
     default:
       elasticity_rows_sum_kernel<T, kConstrained>
-          <<<sum_grid, kThreads, 0, s>>>(ep, xp, mp, yp, n, W, stride);
+          <<<sum_grid, kThreads, 0, s>>>(ep, xp, mp, yp, n, nz, W, stride);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -775,8 +804,8 @@ int launch_projection(const void* x, const void* pe, void* out, void* ye,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   T* ep = static_cast<T*>(ye);
   const cudaError_t err = launch_products<T, kProjRows, false, RowLayout>(
-      static_cast<const T*>(x), nullptr, static_cast<const T*>(pe), ep, n, W,
-      stride, grid, smem, s);
+      static_cast<const T*>(x), nullptr, static_cast<const T*>(pe), ep, n, n,
+      W, stride, grid, smem, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long g1 = n + 1;
   projection_sum_kernel<T><<<blocks_for(g1 * g1 * g1), kThreads, 0, s>>>(
@@ -790,8 +819,8 @@ int launch_flat(const void* u, const void* ke, void* y, void* ye, int n,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   T* ep = static_cast<T*>(ye);
   const cudaError_t err = launch_products<T, kLocal, false, FlatLayout>(
-      static_cast<const T*>(u), nullptr, static_cast<const T*>(ke), ep, n, 0,
-      stride, grid, smem, s);
+      static_cast<const T*>(u), nullptr, static_cast<const T*>(ke), ep, n, n,
+      0, stride, grid, smem, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long g = 2 * n + 1;
   elasticity_flat_sum_kernel<T><<<blocks_for(g * g * g), kThreads, 0, s>>>(
@@ -805,19 +834,23 @@ int launch_flat(const void* u, const void* ke, void* y, void* ye, int n,
 // every entry point returns cudaGetLastError() after its launches.
 extern "C" {
 
-// ye: the (81, stride) product scratch; grid, smem: pass 1's launch plan.
+// x, y: ((nz + 1) * 24, W); nz, nv: cell layers swept and real (n, n on
+// a whole grid); ye: the (81, stride) product scratch; grid, smem: pass
+// 1's launch plan.
 int elasticity_rows_apply_f32(const void* x, const void* m, const void* ke,
-                              void* y, void* ye, int n, int W, int stride,
-                              int grid, int smem, int mode, void* stream) {
-  return launch_elasticity<float>(x, m, ke, y, ye, n, W, stride, grid, smem,
-                                  mode, stream);
+                              void* y, void* ye, int n, int nz, int nv,
+                              int W, int stride, int grid, int smem,
+                              int mode, void* stream) {
+  return launch_elasticity<float>(x, m, ke, y, ye, n, nz, nv, W, stride,
+                                  grid, smem, mode, stream);
 }
 
 int elasticity_rows_apply_f64(const void* x, const void* m, const void* ke,
-                              void* y, void* ye, int n, int W, int stride,
-                              int grid, int smem, int mode, void* stream) {
-  return launch_elasticity<double>(x, m, ke, y, ye, n, W, stride, grid, smem,
-                                   mode, stream);
+                              void* y, void* ye, int n, int nz, int nv,
+                              int W, int stride, int grid, int smem,
+                              int mode, void* stream) {
+  return launch_elasticity<double>(x, m, ke, y, ye, n, nz, nv, W, stride,
+                                   grid, smem, mode, stream);
 }
 
 int coupling_rows_f32(const void* p, const void* ce, void* y, int n, int W,

@@ -4,7 +4,9 @@ The discretization is rebuilt by each package from the same parsed deck,
 so a :class:`~.solvers.fss.State` is all that crosses: as numpy arrays in
 the JAX ``State`` field names (``p``, ``u``, ``eps_v``, ``eps_v0``,
 ``strains``, and optionally the derived caches ``u_rows`` and ``mech_b``,
-which both packages keep in the same comp-major row layout).
+which both packages keep in the same comp-major row layout).  For a sharded
+discretization the caller passes its rows kit, and the caches become the
+rank's slabs (the other fields stay whole, as the solver replicates them).
 """
 
 from __future__ import annotations
@@ -22,10 +24,15 @@ CACHES = ("u_rows", "mech_b")
 
 
 def state_from_numpy(fields: Mapping[str, np.ndarray], device="cuda",
-                     dtype: torch.dtype = None) -> State:
+                     dtype: torch.dtype = None, row_ops=None) -> State:
     """Port ``State`` on ``device`` (default the card; raises without one)
     from numpy arrays keyed by field name (a missing or None cache is left
-    None)."""
+    None).
+
+    ``row_ops``: the discretization's rows kit.  With the z-slab kit of a
+    sharded discretization (:class:`..parallel.rows.ShardedRowOps`),
+    ``u_rows`` is the rank's slab of the whole ``u`` (the kit's
+    ``to_rows``) and ``mech_b`` the rank's slab of the whole rows."""
     device = resolve_device(device)
     def conv(a):
         if a is None:
@@ -34,6 +41,10 @@ def state_from_numpy(fields: Mapping[str, np.ndarray], device="cuda",
         return t if dtype is None else t.to(dtype)
     kw = {k: conv(fields[k]) for k in FIELDS}
     kw.update({k: conv(fields.get(k)) for k in CACHES})
+    if row_ops is not None:
+        kw["u_rows"] = row_ops.to_rows(kw["u"])
+        if kw["mech_b"] is not None:
+            kw["mech_b"] = row_ops.local_rows(kw["mech_b"])
     return State(**kw)
 
 

@@ -1,7 +1,13 @@
 """Host-side simulation driver for structured decks (port of
-``poroelasticity_dealii_tpu/models/runner.py:129-310``): builds the
-problem, steps time, writes the JSONL run log and the VTK files, and stops
-on a diverged FSS residual."""
+``poroelasticity_dealii_tpu/models/runner.py:101-126, 129-310``): builds the
+problem, shards it when the deck asks for ``TPU / Sharding = production``,
+steps time, writes the JSONL run log and the VTK files, and stops on a
+diverged FSS residual.
+
+The sharded run is one process per device in a ``torch.distributed``
+process group (``torchrun``, or a group the caller initialised): every
+rank runs this time loop, and rank 0 alone writes the run log and the VTK
+files."""
 
 from __future__ import annotations
 
@@ -12,8 +18,11 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import InputData
+from ..parallel.rows import shard_production_discretization
+from ..parallel.sharding import SlabGroup, init_from_env
 from ..utils.logging_utils import RunLogger
 from ..solvers.fss import FixedStressSolver, State
 from ..solvers.structured import build_grid_discretization
@@ -25,10 +34,19 @@ def _check_supported(data: InputData) -> None:
     unsupported = [
         (bool(data.mesh_file), "gmsh meshes (ROADMAP A12)"),
         (data.amr, "AMR (ROADMAP A12)"),
-        (data.sharding != "none", "sharding (ROADMAP A13)"),
+        (data.sharding in ("psum", "ghost", "gspmd"),
+         f"'Sharding = {data.sharding}' (ROADMAP item 9, A13: only "
+         "production is ported)"),
+        (data.sharding == "production" and data.dim != 3,
+         "'Sharding = production' on a 2D deck (the y-slab parity form "
+         "needs the 2D parity path, ROADMAP item 5, A9)"),
         (data.checkpoint_every > 0, "checkpoints (ROADMAP A8, runner options)"),
         (data.steps_per_dispatch > 1,
          "'Steps per dispatch' > 1 (multi_step, ROADMAP A7)"),
+        (data.sync_every > 1,
+         "'Sync every' > 1 (deferred syncs with multi_step, ROADMAP item 2, "
+         "A7)"),
+        (data.debug_nans, "'Debug NaNs = true' (ROADMAP Queue C)"),
         (data.nondimensionalize,
          "nondimensionalisation (ROADMAP A8, runner options)"),
     ]
@@ -38,18 +56,53 @@ def _check_supported(data: InputData) -> None:
                                       "yet")
 
 
+def _slab_group(data: InputData, device) -> tuple:
+    """``(slab group, created)`` of a ``Sharding = production`` run (see
+    :func:`..parallel.sharding.init_from_env`); ``TPU / Devices`` must be 0
+    (all ranks) or the group's size."""
+    group, created = init_from_env(device)
+    if data.n_devices not in (0, group.size):
+        if created:
+            dist.destroy_process_group()
+        raise ValueError(f"'TPU / Devices = {data.n_devices}' but the "
+                         f"process group has {group.size} rank(s): set it "
+                         "to 0 or to the world size")
+    return group, created
+
+
+def _apply_sharding(disc, data: InputData, group: SlabGroup):
+    """``Sharding = production``: the z-slab kit over ``group``; with one
+    process, a warning and the unsharded discretization (as the JAX runner
+    does on one visible device)."""
+    if group.size < 2:
+        warnings.warn(f"'TPU / Sharding = {data.sharding}' with a single "
+                      "process: running unsharded", RuntimeWarning)
+        return disc
+    return shard_production_discretization(disc, group)
+
+
 class SimulationRunner:
     def __init__(self, data: InputData, device="cuda",
                  logger: Optional[RunLogger] = None):
         _check_supported(data)
         self.data = data
+        self.group, self._own_group = None, False
+        if data.sharding == "production":
+            self.group, self._own_group = _slab_group(data, device)
+            device = self.group.device
+        self.is_root = self.group is None or self.group.rank == 0
         self.disc = build_grid_discretization(data, device=device)
+        if self.group is not None:
+            self.disc = _apply_sharding(self.disc, data, self.group)
         self.solver = FixedStressSolver(self.disc, data)
-        self.logger = logger or RunLogger(
-            os.path.join(data.output_directory, "run_log.jsonl"))
+        if logger is None:
+            logger = RunLogger(os.path.join(data.output_directory,
+                                            "run_log.jsonl")) \
+                if self.is_root else RunLogger(None, echo=False)
+        self.logger = logger
 
     def output(self, state: State, step: int):
-        if not self.data.output_vtk:
+        if not (self.data.output_vtk and self.is_root):
             return
         sp, su = self.disc.pressure_space, self.disc.displacement_space
         u_p = displacement_at_pressure_nodes(sp, su, state.u.cpu().numpy())
@@ -83,10 +136,16 @@ class SimulationRunner:
                               "iteration cap before reaching tolerance",
                               RuntimeWarning)
         self.logger.close()
-        return self.solver.materialize_u(state)
+        state = self.solver.materialize_u(state)
+        if self._own_group:
+            dist.destroy_process_group()
+        return state
 
 
 def run_from_data(data: InputData, device="cuda") -> State:
     """Full simulation from a parsed deck, on the card unless ``device``
-    says ``"cpu"``."""
+    says ``"cpu"``.  Under ``torchrun`` (or in an initialised process
+    group) a ``Sharding = production`` deck runs sharded, one rank per
+    device (``cuda:{LOCAL_RANK}`` on CUDA); every rank returns the whole
+    state."""
     return SimulationRunner(data, device=device).run()

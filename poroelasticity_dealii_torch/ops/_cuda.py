@@ -35,10 +35,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # name: argtypes (after the dtype suffix _f32/_f64); the last is the
     # stream
-    # x, m, ke, y, product scratch, n, W, scratch stride, grid, shared
-    # bytes, mode
+    # x, m, ke, y, product scratch, n, cell layers swept and real (nz,
+    # nv), W, scratch stride, grid, shared bytes, mode
     "elasticity_rows_apply": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _P),
+                              _I, _I, _P),
     "coupling_rows": (_P, _P, _P, _I, _I, _P),
     # x, pe, out, product scratch, n, W, scratch stride, grid, shared bytes
     "projection_rows": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

@@ -57,16 +57,19 @@ class RowsApplyPlan:
 
 @functools.lru_cache(maxsize=64)
 def rows_apply_plan(n: int, dtype: torch.dtype, sms: int,
-                    rows: int = ELASTICITY_ROWS) -> RowsApplyPlan:
+                    rows: int = ELASTICITY_ROWS,
+                    nz: int = None) -> RowsApplyPlan:
     """The product pass's plan at grid size ``n`` on a card with ``sms``
     multiprocessors, for ``rows`` output rows per cell (the elasticity
-    apply's 81 or the projection's 48): at most one resident wave of
-    blocks, each loading the element matrix once and walking tiles."""
+    apply's 81 or the projection's 48) over ``nz`` layers of n x n cells
+    (default n; the apply's slab form passes its slab depth): at most one
+    resident wave of blocks, each loading the element matrix once and
+    walking tiles."""
     t = _TILES[rows][dtype]
     item = torch.tensor([], dtype=dtype).element_size()
     smem = ((t["k"][0] * t["k"][1] + t["x"][0] * t["x"][1]) * item
             + (t["cells"] + 81) * 4)        # + cell bases, node offsets
-    tiles = -(-n ** 3 // t["cells"])
+    tiles = -(-(n if nz is None else nz) * n * n // t["cells"])
     return RowsApplyPlan(
         rows=rows, cells_per_tile=t["cells"], tiles=tiles,
         stride=tiles * t["cells"], grid=min(tiles, sms * t["blocks_per_sm"]),

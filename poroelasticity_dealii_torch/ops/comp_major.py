@@ -12,7 +12,8 @@ Three operators reach a hand-written CUDA kernel (``csrc/comp_major.cu``):
 
 * :func:`elasticity_rows_apply` — the Q2 elasticity apply in three masking
   modes (UNMASKED ``A x``, FREE ``m A x``, CONSTRAINED
-  ``m A(m x) + (1-m) x``);
+  ``m A(m x) + (1-m) x``), and UNMASKED on one z-slab of the sharded
+  production path (``nz``, ``nv``; :mod:`..parallel.rows`);
 * :func:`coupling_rows` — the mechanics RHS ``C p`` from the Q1 pressure;
 * :func:`projection_rows` — the all-Voigt strain-projection RHS from u.
 
@@ -106,11 +107,12 @@ def _slice_params(n: int):
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=16)
-def _u_index(n: int, device: torch.device) -> torch.Tensor:
-    """(81, n^3): flat row-layout index of local (node, comp) a*3+c of
-    every cell."""
+def _u_index(n: int, device: torch.device, nz: int) -> torch.Tensor:
+    """(81, nz*n^2): flat row-layout index of local (node, comp) a*3+c of
+    every cell of ``nz`` layers of n x n cells (nz = n: the grid)."""
     W = _width(n)
-    iz, iy, ix = np.meshgrid(*(np.arange(n),) * 3, indexing="ij")
+    iz, iy, ix = np.meshgrid(np.arange(nz), np.arange(n), np.arange(n),
+                             indexing="ij")
     cell = (iz * 24 * W + iy * (n + 1) + ix).reshape(-1)
     off = [(dz * 24 + base + c) * W + shift
            for (dz, base, shift) in _slice_params(n) for c in range(3)]
@@ -130,17 +132,38 @@ def _p_index(n: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(idx, dtype=torch.int64, device=device)
 
 
-def _rows_shape(n: int):
-    return ((n + 1) * 24, _width(n))
+def _rows_shape(n: int, nz: int = None):
+    return (((n if nz is None else nz) + 1) * 24, _width(n))
+
+
+def _slab_depth(n: int, mode: int, nz, nv) -> tuple:
+    """(nz, nv) of an apply: the cell layers swept and the real ones among
+    them.  The whole grid (nz = nv = n) unless the slab form is asked for,
+    which is UNMASKED only (nz default n, nv default nz)."""
+    if nz is None and nv is None:
+        return n, n
+    if mode != UNMASKED:
+        raise ValueError("the slab form (nz, nv) takes UNMASKED mode only")
+    nz = n if nz is None else int(nz)
+    nv = nz if nv is None else int(nv)
+    if nz < 1 or not 0 <= nv <= nz:
+        raise ValueError(f"slab form needs nz >= 1 and 0 <= nv <= nz, got "
+                         f"nz={nz}, nv={nv}")
+    return nz, nv
 
 
 # ---------------------------------------------------------------------------
 # plain twins
 # ---------------------------------------------------------------------------
 
-def elasticity_rows_apply_plain(x, mask, ke, n: int, mode: int):
-    """Plain twin of :func:`elasticity_rows_apply`."""
-    G = _u_index(n, x.device)
+def elasticity_rows_apply_plain(x, mask, ke, n: int, mode: int,
+                                nz: int = None, nv: int = None):
+    """Plain twin of :func:`elasticity_rows_apply`: the first ``nv`` of
+    ``nz`` cell layers (both n on the whole grid)."""
+    nz, nv = _slab_depth(n, mode, nz, nv)
+    G = _u_index(n, x.device, nz)
+    if nv < nz:
+        G = G[:, :nv * n * n]
     xf = x.reshape(-1)
     xin = xf * mask.reshape(-1) if mode == CONSTRAINED else xf
     Ye = ke @ xin[G]                                    # (81, n^3)
@@ -157,7 +180,7 @@ def coupling_rows_plain(p, ce, n: int):
     """Plain twin of :func:`coupling_rows`."""
     Ye = ce @ p[_p_index(n, p.device)]                 # (81, n^3)
     y = torch.zeros(_rows_shape(n), dtype=p.dtype, device=p.device)
-    y.view(-1).index_add_(0, _u_index(n, p.device).reshape(-1),
+    y.view(-1).index_add_(0, _u_index(n, p.device, n).reshape(-1),
                           Ye.reshape(-1))
     return y
 
@@ -166,7 +189,7 @@ def projection_rows_plain(x, pe, n: int):
     """Plain twin of :func:`projection_rows`."""
     C = pe.shape[0] // 8
     g3 = (n + 1) ** 3
-    Ye = pe @ x.reshape(-1)[_u_index(n, x.device)]     # (8*C, n^3)
+    Ye = pe @ x.reshape(-1)[_u_index(n, x.device, n)]  # (8*C, n^3)
     Gp = _p_index(n, x.device)                          # (8, n^3)
     tgt = Gp[:, None, :] + g3 * torch.arange(C, device=x.device)[None, :,
                                                                   None]
@@ -179,28 +202,40 @@ def projection_rows_plain(x, pe, n: int):
 # kernel wrappers: plain twin on CPU tensors, CUDA kernel on CUDA tensors
 # ---------------------------------------------------------------------------
 
-def elasticity_rows_apply(x, mask, ke, n: int, mode: int):
+def elasticity_rows_apply(x, mask, ke, n: int, mode: int, nz: int = None,
+                          nv: int = None):
     """Q2 elasticity apply in the row layout: UNMASKED ``A x``, FREE
     ``m * A x`` (x zero at constrained rows and padding) or CONSTRAINED
     ``m * A(m x) + (1 - m) x``.  ``ke``: (81, 81) element matrix, rows and
-    columns (local node * 3 + comp), x-fastest local nodes."""
+    columns (local node * 3 + comp), x-fastest local nodes.
+
+    The slab form (counterpart of ``make_pallas_apply_rows(nz=...)`` with a
+    run-time ``nv``; UNMASKED only): ``x`` and the result are
+    ``((nz+1)*24, W)``, ``nz`` layers of n x n cells are swept and those at
+    ``iz >= nv`` contribute nothing, whatever their input rows hold; ``n``
+    keeps fixing the lane geometry.  Counted in ``slab_launches``."""
     if x.device.type == "cpu":
-        return elasticity_rows_apply_plain(x, mask, ke, n, mode)
+        return elasticity_rows_apply_plain(x, mask, ke, n, mode, nz, nv)
+    slab = nz is not None or nv is not None
+    nz, nv = _slab_depth(n, mode, nz, nv)
     _cuda.require_cuda(x)
-    rows = _rows_shape(n)
+    rows = _rows_shape(n, nz)
     _cuda.check("x", x, rows, x.dtype, x.device)
     _cuda.check("ke", ke, (81, 81), x.dtype, x.device)
     if mode != UNMASKED:
         _cuda.check("mask", mask, rows, x.dtype, x.device)
     elif mask is not None:
         raise ValueError("UNMASKED mode takes no mask")
-    plan = rows_apply_plan(n, x.dtype, sm_count(x.device))
+    plan = rows_apply_plan(n, x.dtype, sm_count(x.device), nz=nz)
     y = torch.empty_like(x)
     ye = torch.empty(plan.scratch_numel, dtype=x.dtype, device=x.device)
-    _cuda.launch("elasticity_rows_apply", x, x, mask, ke, y, ye, n, rows[1],
-                 plan.stride, plan.grid, plan.smem_bytes, mode)
+    _cuda.launch("elasticity_rows_apply", x, x, mask, ke, y, ye, n, nz, nv,
+                 rows[1], plan.stride, plan.grid, plan.smem_bytes, mode)
     elasticity_rows_apply.launches += 1
-    elasticity_rows_apply.mode_launches[mode] += 1
+    if slab:
+        elasticity_rows_apply.slab_launches += 1
+    else:
+        elasticity_rows_apply.mode_launches[mode] += 1
     return y
 
 
@@ -242,8 +277,10 @@ def projection_rows(x, pe, n: int):
 
 
 elasticity_rows_apply.launches = 0
-# launches by mode (UNMASKED = K5, FREE = K1, CONSTRAINED = K2)
+# launches by mode (UNMASKED = K5, FREE = K1, CONSTRAINED = K2) on the whole
+# grid, and of K5's slab form
 elasticity_rows_apply.mode_launches = {UNMASKED: 0, FREE: 0, CONSTRAINED: 0}
+elasticity_rows_apply.slab_launches = 0
 coupling_rows.launches = 0
 projection_rows.launches = 0
 # every kernel wrapper of the port, with its ``launches`` count
@@ -256,6 +293,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     elasticity_rows_apply.mode_launches = dict.fromkeys(
         elasticity_rows_apply.mode_launches, 0)
+    elasticity_rows_apply.slab_launches = 0
 
 
 def make_flat_apply(element_matrix: np.ndarray, n: int, dtype: torch.dtype,
@@ -323,6 +361,12 @@ class ElasticityRowOps:
     def projection_rows(self, x):
         fn = projection_rows_plain if self.plain else projection_rows
         return fn(x, self.pe, self.n)
+
+    def local_rows(self, R):
+        """The part of full rows ``R`` this kit holds: all of it (the
+        sharded kit, :class:`..parallel.rows.ShardedRowOps`, holds a
+        slab)."""
+        return R
 
 
 def make_row_ops(element_matrix: np.ndarray, n: int, free_mask_u,

@@ -25,14 +25,25 @@ class CGResult:
     converged: object         # bool, or (n_rhs,) bool array
 
 
-def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.dot(a.reshape(-1), b.reshape(-1))
+class LocalReductions:
+    """The reductions of vectors this process holds whole, and
+    :func:`cg_solve`'s defaults.  The sharded mechanics kit
+    (:class:`..parallel.rows.ShardedRowOps`) has the same three, taken
+    across its group."""
+
+    @staticmethod
+    def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return torch.dot(a.reshape(-1), b.reshape(-1))
+
+    norm = staticmethod(torch.linalg.norm)
+    all_equal = staticmethod(torch.equal)
 
 
 def cg_solve(apply_a: Callable, b: torch.Tensor, x0: torch.Tensor,
              diag: torch.Tensor = None, tol=0.0, max_iter: int = 1000,
              precond: Callable = None, apply_iter: Callable = None,
-             flexible: bool = None) -> CGResult:
+             flexible: bool = None, dot: Callable = LocalReductions.dot,
+             norm: Callable = LocalReductions.norm) -> CGResult:
     """Solve ``A x = b`` by preconditioned CG from the start vector ``x0``.
 
     ``tol`` is an absolute residual L2 tolerance (float or 0-d tensor).
@@ -42,7 +53,10 @@ def cg_solve(apply_a: Callable, b: torch.Tensor, x0: torch.Tensor,
     visited, e.g. the free-subspace elasticity apply when b and x0 carry
     the Dirichlet values); ``apply_a`` gives the initial residual.
     ``flexible``: Polak-Ribiere beta clipped at 0 (default: on exactly when
-    an operator preconditioner is given)."""
+    an operator preconditioner is given).  ``dot``, ``norm``: the inner
+    product and the residual norm (0-d tensors); the sharded mechanics kit
+    passes its all-reduced ones, so every rank reads the same norm at every
+    loop test."""
     if flexible is None:
         flexible = precond is not None
     if apply_iter is None:
@@ -56,23 +70,23 @@ def cg_solve(apply_a: Callable, b: torch.Tensor, x0: torch.Tensor,
     r = b - apply_a(x0)
     z = precond(r)
     p = z
-    rz = _dot(r, z)
-    rnorm = torch.linalg.norm(r).item()
+    rz = dot(r, z)
+    rnorm = norm(r).item()
     k = 0
     while k < max_iter and rnorm > tol:
         ap = apply_iter(p)
-        alpha = rz / _dot(p, ap)
+        alpha = rz / dot(p, ap)
         x = x + alpha * p
         r_new = r - alpha * ap
         z = precond(r_new)
-        rz_new = _dot(r_new, z)
+        rz_new = dot(r_new, z)
         if flexible:
-            beta = torch.clamp(_dot(z, r_new - r) / rz, min=0.0)
+            beta = torch.clamp(dot(z, r_new - r) / rz, min=0.0)
         else:
             beta = rz_new / rz
         p = z + beta * p
         r, rz = r_new, rz_new
-        rnorm = torch.linalg.norm(r).item()
+        rnorm = norm(r).item()
         k += 1
     return CGResult(x=x, iterations=k, residual_norm=rnorm,
                     converged=rnorm <= tol)

@@ -10,6 +10,11 @@ run on the host and read one scalar per iteration.
 The mechanics vector is in the comp-major row layout when the
 discretization has a rows kit (``disc.row_ops``) and flat otherwise (the
 conv backend): ``State.u_rows`` is then None and ``State.mech_b`` flat.
+With the z-slab kit of the sharded production path
+(:class:`..parallel.rows.ShardedRowOps`) ``State.u_rows`` and
+``State.mech_b`` are the rank's slabs and ``State.u`` the gathered whole
+vector; the mechanics norms, dots and the bitwise-skip test go through the
+kit's reductions, so every rank takes the same branch.
 The reference's hanging-node maps (``d._hcu``) are the identity on
 structured grids, so the flat branches leave them out.
 
@@ -37,7 +42,8 @@ from ..ops import dense
 from ..ops.operators import SHEAR_ENTRIES, VOIGT_PAIRS, VOLUMETRIC_ENTRIES
 from ..ops.stencil import make_q1_slices_apply
 from . import structured
-from .cg import cg_solve, cg_solve_batched
+from ..parallel.rows import ShardedRowOps
+from .cg import LocalReductions, cg_solve, cg_solve_batched
 from .multigrid import build_gmg_pressure
 from .structured import GridDiscretization, _single_cell_spaces
 
@@ -89,6 +95,10 @@ class FixedStressSolver:
         self.disc, self.data = disc, data
         ro = disc.row_ops
         self._rows = ro is not None
+        # the mechanics vector's reductions: across the group on a slab
+        # kit, else local
+        self._reduce = ro if isinstance(ro, ShardedRowOps) \
+            else LocalReductions
         # the Dirichlet lift A g uses the UNconstrained operator (the
         # reference's d._hcu.constrained(d.elasticity) is the identity
         # hanging-node wrap on structured grids); by linearity the
@@ -194,14 +204,15 @@ class FixedStressSolver:
         x0 = m * u_warm + (1.0 - m) * g
         tol = torch.tensor(data.mech_cg_tol, dtype=d.dtype)
         if data.mech_cg_relative:
-            tol = tol * torch.linalg.norm(b).cpu()
+            tol = tol * self._reduce.norm(b).cpu()
         tol = float(tol)
-        if b_prev is not None and torch.equal(b, b_prev):
+        if b_prev is not None and self._reduce.all_equal(b, b_prev):
             tol = float("inf")
         if self._rows:
             res = cg_solve(ro.constrained_apply, b, x0, ro.diag_rows,
                            tol=tol, max_iter=data.cg_max_iterations,
-                           apply_iter=ro.free_apply, flexible=False)
+                           apply_iter=ro.free_apply, flexible=False,
+                           dot=self._reduce.dot, norm=self._reduce.norm)
         else:
             # Jacobi CG only: elasticity GMG and mixed-precision
             # refinement are not ported (ROADMAP items 6, 7)
@@ -226,7 +237,8 @@ class FixedStressSolver:
             else:
                 apply, diag = d.elasticity_constrained, d.diag_elasticity
             res = cg_solve(apply, b, torch.zeros_like(b), diag,
-                           tol=rel * torch.linalg.norm(b), max_iter=5000)
+                           tol=rel * self._reduce.norm(b), max_iter=5000,
+                           dot=self._reduce.dot, norm=self._reduce.norm)
             self._bc_response_cache = res.x
         return self._bc_response_cache
 

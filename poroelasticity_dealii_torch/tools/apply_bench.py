@@ -116,23 +116,32 @@ def _cell_entries(R, C, V, rscale=None, cscale=None):
             v.expand(a, b, cells).reshape(-1))
 
 
-def library_csr(name: str, n: int, ke, ce, pe, mask_rows) -> torch.Tensor:
+def library_csr(name: str, n: int, ke, ce, pe, mask_rows, nz: int = None,
+                nv: int = None) -> torch.Tensor:
     """The function of kernel case ``name`` (:data:`LIBRARY_CASES`) at grid
     size ``n`` as one sparse CSR matrix ``M``: ``M @ input.view(-1)`` equals
     the case's output, flattened (input: x in the row layout, p, or flat u).
     Assembled on ``ke``'s device from every cell's element-matrix entries at
     their flat indices, the masks of the FREE and CONSTRAINED modes folded
     in (CONSTRAINED adds the identity on the constrained rows), zero entries
-    left out, duplicates summed (COO coalesce)."""
+    left out, duplicates summed (COO coalesce).  ``nz``, ``nv``: the slab
+    form of the UNMASKED apply (``((nz+1)*24, W)`` rows, the first ``nv``
+    of ``nz`` cell layers)."""
     from ..ops import comp_major as cm
     dev = ke.device
-    N = int(np.prod(cm._rows_shape(n)))
+    if nz is not None or nv is not None:
+        if name != "elasticity_rows_apply[unmasked]":
+            raise ValueError("the slab form is the UNMASKED apply's")
+        nz, nv = cm._slab_depth(n, cm.UNMASKED, nz, nv)
+    else:
+        nz = nv = n
+    N = int(np.prod(cm._rows_shape(n, nz)))
     g3 = (n + 1) ** 3
-    G = cm._u_index(n, dev)                            # (81, n^3)
+    G = cm._u_index(n, dev, nz)[:, :nv * n * n]        # (81, nv*n^2)
     diag = None
     if name.startswith("elasticity_rows_apply"):
-        mG = mask_rows.reshape(-1)[G]
         mode = name[len("elasticity_rows_apply["):-1]
+        mG = None if mode == "unmasked" else mask_rows.reshape(-1)[G]
         rows, cols, vals = _cell_entries(
             G, G, ke, rscale=None if mode == "unmasked" else mG,
             cscale=mG if mode == "constrained" else None)

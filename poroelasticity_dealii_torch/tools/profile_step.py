@@ -3,15 +3,18 @@
     python -m poroelasticity_dealii_torch.tools.profile_step [n] [backend]
 
 runs the bench configuration (:func:`bench_data`) at ``n`` cells per axis
-(default 40) on the card, on the rows backend (default) or the conv backend
-(``backend`` ``conv``): ``initial_state``, evolving steps with the
-Dirichlet load ramp, then steady steps at the last load.  It profiles the
-last evolving and the last steady step and prints one JSON line for each:
-the step's counts, its wall time unprofiled (the step before, of the same
-kind) and profiled, the device busy time (union of the device activity
-intervals) over the profiled wall span, and device time and launches per
-kernel name, with each kernel wrapper's CUDA kernels also summed under its
-name (:data:`WRAPPERS`) beside its calls.
+(default 40) on the card, on the rows backend (default), the conv backend
+(``backend`` ``conv``) or the sharded production path on a world-size-1
+NCCL process group (``sharded``: the rows kit replaced by the z-slab kit,
+every mechanics apply the slab kernel): ``initial_state``, evolving steps
+with the Dirichlet load ramp, then steady steps at the last load.  It
+profiles the last evolving and the last steady step and prints one JSON
+line for each: the step's counts, its wall time unprofiled (the step
+before, of the same kind) and profiled, the device busy time (union of the
+device activity intervals) over the profiled wall span, device time and
+launches per kernel name, with each kernel wrapper's CUDA kernels also
+summed under its name (:data:`WRAPPERS`) beside its calls, and the host
+operators with the most self time.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import dataclasses
 import json
 import re
 import sys
+import tempfile
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -104,6 +108,9 @@ def device_summary(prof) -> dict:
     out["kernels"] = {k: {"ms": v[0], "launches": v[1]}
                       for k, v in sorted(per.items(),
                                          key=lambda kv: -kv[1][0])}
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    out["host_top_ops"] = {e.key: {"self_ms": e.self_cpu_time_total / 1e3,
+                                   "calls": e.count} for e in host[:10]}
     return out
 
 
@@ -116,13 +123,33 @@ def _step(solver, state, bc, bc_prev):
     return state, stats, (time.perf_counter() - t0) * 1e3
 
 
+BACKENDS = ("rows", "conv", "sharded")
+
+
 def run(n: int = 40, n_evolving: int = 5, n_steady: int = 3,
         device="cuda", backend: str = "rows") -> list:
-    """Profile the last evolving and the last steady step on the rows or
-    the conv backend; returns their records."""
+    """Profile the last evolving and the last steady step on ``backend``
+    (:data:`BACKENDS`); returns their records.  ``sharded`` initialises a
+    world-size-1 process group here (NCCL on CUDA, gloo on the CPU) and
+    destroys it at the end."""
+    if backend != "sharded":
+        return _run(n, n_evolving, n_steady, device, backend)
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl" if torch.device(device).type == "cuda" else "gloo",
+            init_method=f"file://{tmp}/pg", rank=0, world_size=1)
+        try:
+            return _run(n, n_evolving, n_steady, device, backend)
+        finally:
+            dist.destroy_process_group()
+
+
+def _run(n, n_evolving, n_steady, device, backend) -> list:
     from torch.profiler import ProfilerActivity, profile
 
     from ..ops import comp_major as cm
+    from ..parallel import make_slab_group, shard_production_discretization
     from ..solvers.fss import FixedStressSolver
     from ..solvers.structured import build_grid_discretization
 
@@ -130,6 +157,9 @@ def run(n: int = 40, n_evolving: int = 5, n_steady: int = 3,
     disc = build_grid_discretization(
         data, cells_per_axis=n, multigrid="off", device=device,
         elasticity_backend="conv" if backend == "conv" else "auto")
+    if backend == "sharded":
+        disc = shard_production_discretization(disc,
+                                               make_slab_group(disc.device))
     solver = FixedStressSolver(disc, data)
     state = solver.initial_state()
     records, bc_prev, last_ms = [], 1.0, None
@@ -169,9 +199,9 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     n = int(argv[0]) if argv else 40
     backend = argv[1] if len(argv) > 1 else "rows"
-    if backend not in ("rows", "conv"):
-        raise SystemExit(f"profile_step: backend must be rows or conv, got "
-                         f"{backend!r}")
+    if backend not in BACKENDS:
+        raise SystemExit(f"profile_step: backend must be one of {BACKENDS}, "
+                         f"got {backend!r}")
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device "
                          "(torch.cuda.is_available() is False)")

@@ -114,7 +114,7 @@ def test_rows_apply_plan(n, dtype):
     # the flat vector (the flat apply runs the same plan)
     rows, W = cm._rows_shape(n)
     assert plan.scratch_numel < 2 ** 31 and rows * W < 2 ** 31
-    assert int(cm._u_index(n, torch.device("cpu")).max()) < rows * W
+    assert int(cm._u_index(n, torch.device("cpu"), n).max()) < rows * W
     assert 3 * (2 * n + 1) ** 3 < 2 ** 31
 
 
