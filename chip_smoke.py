@@ -13,8 +13,14 @@ paths through their entry points, each with the kernel launch counts reset
 just before and read just after:
 
 * the main path: 3D Q2/Q1 fixed-stress steps at 40^3, float32, the bench
-  configuration, on the rows backend, cross-checked against a run on the
-  plain twins;
+  configuration, on the rows backend, every CG chunk a captured CUDA graph
+  (the launch counts include the replays), cross-checked against a run on
+  the plain twins;
+* the captured loop against the eager one: 2 evolving + 1 steady steps of
+  the main path with the chunks run eagerly (``cuda_graphs=False``), equal
+  counts and p, u bit for bit, on the rows and the conv backend;
+* ``multi_step``: one block of 4 steps against the same 4 ``time_step``
+  calls, bit for bit;
 * the sharded production path: the same configuration through
   ``shard_production_discretization`` on a world-size-1 NCCL process group
   (one card), every mechanics apply the slab form of the row-layout kernel,
@@ -25,8 +31,9 @@ just before and read just after:
 * the conv backend: fixed-stress steps at 40^3 float32 on flat vectors,
   its elasticity apply the flat kernel, step 1 compared with a conv run on
   the plain stencil and with the rows path;
-* the CLI on the 3D deck, on the rows backend and on a copy of the deck
-  with ``Elasticity backend = conv``.
+* the CLI on the 3D deck, on the rows backend, on a copy of the deck with
+  ``Elasticity backend = conv``, and on a copy with ``Steps per dispatch =
+  4``, ``Sync every = 2`` and no VTK output (blocks of 4 and 2 steps).
 
 Before the paths, the slab form of the row-layout apply (K5's z-slab form,
 ``nz``/``nv``) is held against its plain twin on every slab of 2-, 4- and
@@ -276,7 +283,8 @@ def check_state(state, n_pdofs, n_udofs):
 
 def main_path(dev):
     """The bench configuration through the port's entry points, kernels
-    counted; returns (launch counts, states, stats)."""
+    counted (replays included); returns (launch counts, states, stats, step
+    ms, solver)."""
     data = bench_data()
     t0 = time.perf_counter()
     disc = build_grid_discretization(data, cells_per_axis=N_MAIN,
@@ -296,15 +304,22 @@ def main_path(dev):
           f"{launches}, elasticity_rows_apply by mode: unmasked "
           f"{modes[cm.UNMASKED]}, free {modes[cm.FREE]}, constrained "
           f"{modes[cm.CONSTRAINED]}", flush=True)
+    graphs = solver.graphs
+    if graphs is None or not graphs.replays:
+        raise AssertionError("main path: the CG chunks were not captured")
+    print(json.dumps({"main_path_graphs": {
+        "captures": dict(graphs.captures), "replays": dict(graphs.replays)}}),
+        flush=True)
     check_steps(states, stats, disc, N_EVOLVING)
     for name in MAIN_PATH_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the main "
                                  "path")
-    return launches, states, stats, ms
+    return launches, states, stats, ms, solver
 
 
 def launch_counts() -> dict:
+    """Each kernel wrapper's launches (graph replays included)."""
     return {fn.__name__: fn.launches for fn in cm.KERNEL_WRAPPERS}
 
 
@@ -318,6 +333,85 @@ def check_steps(states, stats, disc, n_evolving):
     for k, s in enumerate(stats[:n_evolving], 1):
         if s.mech_cg_iterations <= 0:
             raise AssertionError(f"evolving step {k}: no mechanics CG work")
+
+
+COUNT_FIELDS = ("fss_iterations", "pressure_iterations",
+                "pressure_cg_iterations", "mech_cg_iterations",
+                "projection_cg_iterations")
+N_GRAPH_EVOLVING, N_GRAPH_STEADY = 2, 1
+MULTI_STEP_SCALES = [1.0 + BC_RATE * k for k in (1, 2, 3, 3)]
+
+
+def _counts(stats) -> list:
+    return [getattr(stats, f) for f in COUNT_FIELDS]
+
+
+def captured_vs_eager(name, captured, disc, data):
+    """2 evolving + 1 steady steps with the captured solver ``captured``
+    and with an eager one on the same discretization: equal counts, and p
+    and u bit for bit; prints both runs' ms per step."""
+    runs = {}
+    for loop, solver in (("captured", captured),
+                         ("eager", FixedStressSolver(disc, data,
+                                                     cuda_graphs=False))):
+        if (solver.graphs is not None) != (loop == "captured"):
+            raise AssertionError(f"{name}: the {loop} solver has graphs "
+                                 f"{solver.graphs}")
+        runs[loop] = run_steps(solver, N_GRAPH_EVOLVING, N_GRAPH_STEADY,
+                               log=False)
+    (st_c, ss_c, ms_c), (st_e, ss_e, ms_e) = runs["captured"], runs["eager"]
+    for k in range(N_GRAPH_EVOLVING + N_GRAPH_STEADY):
+        rec = {f"{name}_captured_vs_eager_step": k + 1,
+               "counts": [_counts(ss_c[k]), _counts(ss_e[k])],
+               "ms": [ms_c[k], ms_e[k]],
+               "p_bitwise": torch.equal(st_c[k].p, st_e[k].p),
+               "u_bitwise": torch.equal(st_c[k].u, st_e[k].u)}
+        print(json.dumps(rec), flush=True)
+        if rec["counts"][0] != rec["counts"][1] or not (
+                rec["p_bitwise"] and rec["u_bitwise"]):
+            raise AssertionError(f"{name} step {k + 1}: captured and eager "
+                                 f"runs differ: {rec}")
+
+
+def multi_step_phase(solver):
+    """One block of 4 steps (3 evolving with the 0.05 ramp, 1 steady)
+    against the same 4 ``time_step`` calls on the main path's solver: the
+    stacked counts equal the per-step counts and every field is equal bit
+    for bit."""
+    dt = solver.data.time_step
+    st0 = solver.initial_state()
+    st, prev, seq = st0, 1.0, []
+    t0 = time.perf_counter()
+    for bc in MULTI_STEP_SCALES:
+        st, stats = solver.time_step(st, dt, bc, bc_scale_prev=prev)
+        seq.append(stats)
+        prev = bc
+    torch.cuda.synchronize()
+    t_seq = time.perf_counter() - t0
+    st0 = solver.initial_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blk, stacked = solver.multi_step(st0, dt, bc_scales=MULTI_STEP_SCALES,
+                                     bc_scale_prev=1.0, want_u=True)
+    torch.cuda.synchronize()
+    t_blk = time.perf_counter() - t0
+    rec = {"multi_step_block": len(MULTI_STEP_SCALES),
+           "bc_scales": MULTI_STEP_SCALES,
+           "stacked_counts": [getattr(stacked, f).tolist()
+                              for f in COUNT_FIELDS],
+           "time_step_counts": [[getattr(x, f) for x in seq]
+                                for f in COUNT_FIELDS],
+           "ms_per_step": [t_blk * 1e3 / len(seq), t_seq * 1e3 / len(seq)]}
+    rec["fields_bitwise"] = {k: torch.equal(getattr(blk, k), getattr(st, k))
+                             for k in ("p", "u", "eps_v", "strains",
+                                       "u_rows", "mech_b")}
+    rec["pressure_error_equal"] = stacked.pressure_error.tolist() == [
+        x.pressure_error for x in seq]
+    print(json.dumps(rec), flush=True)
+    if rec["stacked_counts"] != rec["time_step_counts"] or not all(
+            rec["fields_bitwise"].values()) or not rec["pressure_error_equal"]:
+        raise AssertionError(f"multi_step block differs from time_step "
+                             f"calls: {rec}")
 
 
 def cross_check(dev, states, stats):
@@ -585,8 +679,11 @@ def conv_phase(dev, rows_states) -> int:
     launches = launch_counts()
     print(f"conv backend: initial_state + {N_CONV_EVOLVING} evolving + "
           f"{N_CONV_STEADY} steady steps in {time.perf_counter() - t0:.2f} "
-          f"s, launches {launches}", flush=True)
+          f"s, launches {launches}, graphs captured "
+          f"{dict(solver.graphs.captures)} replayed "
+          f"{dict(solver.graphs.replays)}", flush=True)
     check_steps(states, stats, disc, N_CONV_EVOLVING)
+    captured_vs_eager("conv", solver, disc, data)
     mech = sum(s.mech_cg_iterations for s in stats)
     if launches["elasticity_grid_apply"] < mech:
         raise AssertionError(f"conv backend: the flat kernel launched "
@@ -628,10 +725,17 @@ def _run_log(path: Path) -> list:
     return [json.loads(line) for line in path.read_text().splitlines()]
 
 
+CLI_BLOCKS = ("  set Steps per dispatch = 4\n  set Sync every = 2\n"
+              "  set Output VTK = false\n")
+
+
 def cli_phase():
-    """The CLI on the 3D deck as written (8^3, float64, 6 steps) and on a
-    copy with ``Elasticity backend = conv``, both at once; their run logs
-    must agree in FSS counts and pressure_error."""
+    """The CLI on the 3D deck as written (8^3, float64, 6 steps), on a copy
+    with ``Elasticity backend = conv`` and on a copy with blocks of 4 steps
+    and a sync every 2 (:data:`CLI_BLOCKS`; no VTK output, which would
+    read every step's state and so cut every block to one step), all at
+    once; the conv run log must agree with the rows one in FSS counts and
+    pressure_error, the blocks run log in its steps, times and counts."""
     deck = REPO / "configs" / "consolidation_3d.data"
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -640,9 +744,13 @@ def cli_phase():
         conv_deck = Path(tmp) / "consolidation_3d_conv.data"
         conv_deck.write_text(deck.read_text() + "\nsubsection TPU\n"
                              "  set Elasticity backend = conv\nend\n")
+        blocks_deck = Path(tmp) / "consolidation_3d_blocks.data"
+        blocks_deck.write_text(deck.read_text() + "\nsubsection TPU\n"
+                               + CLI_BLOCKS + "end\n")
         t0 = time.perf_counter()
         runs = {}
-        for name, path in (("rows", deck), ("conv", conv_deck)):
+        for name, path in (("rows", deck), ("conv", conv_deck),
+                           ("blocks", blocks_deck)):
             cwd = Path(tmp) / name
             cwd.mkdir()
             runs[name] = (cwd, subprocess.Popen(
@@ -661,7 +769,8 @@ def cli_phase():
                 sol = cwd / "solution"
                 vtks = sorted(sol.glob("solution-*.vtk"))
                 log = sol / "run_log.jsonl"
-                if len(vtks) != 7 or not log.exists():
+                if len(vtks) != (0 if name == "blocks" else 7) or \
+                        not log.exists():
                     raise AssertionError(f"CLI output ({name}) incomplete: "
                                          f"{len(vtks)} VTK files, run log "
                                          f"{log.exists()}")
@@ -673,9 +782,23 @@ def cli_phase():
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
-        print(f"cli: both runs in {time.perf_counter() - t0:.1f} s",
+        print(f"cli: the three runs in {time.perf_counter() - t0:.1f} s",
               flush=True)
-    rows, conv = logs["rows"], logs["conv"]
+    rows, conv, blocks = logs["rows"], logs["conv"], logs["blocks"]
+    key = lambda r: (r["step"], r["time"], r["fss_iterations"],  # noqa: E731
+                     r["pressure_iterations"], r["cg_iterations"])
+    for a, b in zip(rows, blocks):
+        pa, pb = a["pressure_error"], b["pressure_error"]
+        print(json.dumps({"cli_blocks_step": b["step"],
+                          "counts_equal": key(a) == key(b),
+                          "pressure_error": [pa, pb],
+                          "wall_s": [a["wall_s"], b["wall_s"]]}), flush=True)
+        if key(a) != key(b) or not abs(pa - pb) <= CLI_PRESSURE_RTOL * abs(pa):
+            raise AssertionError(f"CLI blocks run differs at step "
+                                 f"{a['step']}: {a} vs {b}")
+    if len(blocks) != len(rows):
+        raise AssertionError(f"CLI blocks run logged {len(blocks)} steps, "
+                             f"the default run {len(rows)}")
     if [r["fss_iterations"] for r in rows] != \
             [r["fss_iterations"] for r in conv]:
         raise AssertionError("CLI conv vs rows: FSS counts differ")
@@ -808,7 +931,10 @@ def main() -> int:
             # the shape the sharded path launches on one card: a 1-way split
             slab_rec = slab_kernel_phase(dev, d)[(1, "float32")]
 
-    launches, states, stats, ms = main_path(dev)
+    launches, states, stats, ms, solver = main_path(dev)
+    captured_vs_eager("rows", solver, solver.disc, solver.data)
+    multi_step_phase(solver)
+    del solver
     cross_check(dev, states, stats)
     slab_launches = sharded_path_phase(dev, states, stats, ms,
                                        (slab_rec["Lz"], slab_rec["nv"]))

@@ -1,8 +1,10 @@
 """Host-side simulation driver for structured decks (port of
 ``poroelasticity_dealii_tpu/models/runner.py:101-126, 129-310``): builds the
 problem, shards it when the deck asks for ``TPU / Sharding = production``,
-steps time, writes the JSONL run log and the VTK files, and stops on a
-diverged FSS residual.
+steps time in blocks of up to ``TPU / Steps per dispatch`` steps
+(:meth:`..solvers.fss.FixedStressSolver.multi_step`), writes the JSONL run
+log and the VTK files at sync points every ``TPU / Sync every`` steps, and
+stops on a diverged FSS residual.
 
 The sharded run is one process per device in a ``torch.distributed``
 process group (``torchrun``, or a group the caller initialised): every
@@ -11,6 +13,7 @@ files."""
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 import warnings
@@ -24,7 +27,7 @@ from ..config import InputData
 from ..parallel.rows import shard_production_discretization
 from ..parallel.sharding import SlabGroup, init_from_env
 from ..utils.logging_utils import RunLogger
-from ..solvers.fss import FixedStressSolver, State
+from ..solvers.fss import FixedStressSolver, State, StepStats
 from ..solvers.structured import build_grid_discretization
 from ..utils.vtk_io import displacement_at_pressure_nodes, write_vtk
 
@@ -41,11 +44,6 @@ def _check_supported(data: InputData) -> None:
          "'Sharding = production' on a 2D deck (the y-slab parity form "
          "needs the 2D parity path, ROADMAP item 5, A9)"),
         (data.checkpoint_every > 0, "checkpoints (ROADMAP A8, runner options)"),
-        (data.steps_per_dispatch > 1,
-         "'Steps per dispatch' > 1 (multi_step, ROADMAP A7)"),
-        (data.sync_every > 1,
-         "'Sync every' > 1 (deferred syncs with multi_step, ROADMAP item 2, "
-         "A7)"),
         (data.debug_nans, "'Debug NaNs = true' (ROADMAP Queue C)"),
         (data.nondimensionalize,
          "nondimensionalisation (ROADMAP A8, runner options)"),
@@ -112,29 +110,73 @@ class SimulationRunner:
                             f"solution-{step:04d}.vtk")
         write_vtk(path, sp, u_p, state.p.cpu().numpy(), strains, stresses)
 
+    def _needed(self, step: int) -> bool:
+        """Whether a host consumer reads step ``step``'s whole state: the
+        VTK output (checkpoints are not ported)."""
+        return self.data.output_vtk
+
     def run(self) -> State:
+        """The JAX runner's time loop (``models/runner.py:186-287``): blocks
+        of ``min(Steps per dispatch, steps left)`` steps, each ended early
+        at a step whose state a host consumer reads; the buffered steps
+        are logged, written and checked at each sync point, every ``Sync
+        every`` steps (and after a block that ends at a read step).  Every
+        rank of a sharded run flushes at the same steps."""
         data = self.data
         state, t, step = self.solver.initial_state(), 0.0, 0
         self.output(state, 0)
         dt = data.time_step
+        sync_every = max(1, data.sync_every)
+        per_dispatch = max(1, data.steps_per_dispatch)
+        pending = []      # (step, t, stats, state or None, wall_s)
+
+        def flush():
+            for s, ts, stats, st, wall in pending:
+                self.logger.log_step(s, ts, stats, wall)
+                if st is not None:
+                    self.output(st, s)
+                if not np.isfinite(float(stats.pressure_error)):
+                    raise FloatingPointError(f"FSS residual diverged at "
+                                             f"step {s}")
+                if not bool(stats.cg_converged):
+                    warnings.warn(f"step {s}: a linear solve hit its "
+                                  "iteration cap before reaching tolerance",
+                                  RuntimeWarning)
+            pending.clear()
+
         while t < data.t_max:
+            remaining = max(1, int(np.ceil((data.t_max - t) / dt - 1e-12)))
+            B = min(per_dispatch, remaining)
+            for j in range(1, B):     # end the block at the first read step
+                if self._needed(step + j):
+                    B = j
+                    break
+            needed = self._needed(step + B)
             t0 = time.perf_counter()
-            state, stats = self.solver.time_step(state, dt,
-                                                 want_u=data.output_vtk)
-            if self.disc.device.type == "cuda":
+            if B == 1:
+                state, stats = self.solver.time_step(state, dt,
+                                                     want_u=needed)
+                block = [stats]
+            else:
+                state, stacked = self.solver.multi_step(state, dt,
+                                                        n_steps=B,
+                                                        want_u=needed)
+                block = [StepStats(**{f.name: getattr(stacked, f.name)[i]
+                                      for f in dataclasses.fields(stacked)})
+                         for i in range(B)]
+            if sync_every == 1 and B == 1 and \
+                    self.disc.device.type == "cuda":
                 torch.cuda.synchronize(self.disc.device)
-            wall = time.perf_counter() - t0
-            t += dt
-            step += 1
-            self.logger.log_step(step, t, stats, wall)
-            self.output(state, step)
-            if not np.isfinite(stats.pressure_error):
-                raise FloatingPointError(f"FSS residual diverged at step "
-                                         f"{step}")
-            if not stats.cg_converged:
-                warnings.warn(f"step {step}: a linear solve hit its "
-                              "iteration cap before reaching tolerance",
-                              RuntimeWarning)
+            wall = (time.perf_counter() - t0) / B
+            for i, stats in enumerate(block):
+                t += dt
+                step += 1
+                pending.append((step, t, stats,
+                                state if (needed and i == B - 1) else None,
+                                wall))
+            if step % sync_every == 0 or (B > 1 and needed):
+                flush()
+        flush()
         self.logger.close()
         state = self.solver.materialize_u(state)
         if self._own_group:

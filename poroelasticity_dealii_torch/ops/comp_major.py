@@ -296,6 +296,28 @@ def reset_launch_counts() -> None:
     elasticity_rows_apply.slab_launches = 0
 
 
+def launch_counts() -> dict:
+    """Every launch counter of the kernel wrappers: each wrapper's
+    ``launches`` by its name, ``elasticity_rows_apply``'s by mode
+    (``("mode", m)``) and its slab form's (``"slab"``)."""
+    out = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    out.update({("mode", m): v
+                for m, v in elasticity_rows_apply.mode_launches.items()})
+    out["slab"] = elasticity_rows_apply.slab_launches
+    return out
+
+
+def add_launch_counts(delta: dict) -> None:
+    """Add ``delta`` (keyed as :func:`launch_counts`) to the counters: a
+    CUDA graph replay runs no wrapper, so the graph's owner adds the
+    launches its capture recorded."""
+    for fn in KERNEL_WRAPPERS:
+        fn.launches += delta[fn.__name__]
+    for m in elasticity_rows_apply.mode_launches:
+        elasticity_rows_apply.mode_launches[m] += delta[("mode", m)]
+    elasticity_rows_apply.slab_launches += delta["slab"]
+
+
 def make_flat_apply(element_matrix: np.ndarray, n: int, dtype: torch.dtype,
                     device) -> callable:
     """``apply(u_flat) -> y_flat``: the Q2 elasticity apply on flat

@@ -180,10 +180,12 @@ class ShardedRowOps:
     def norm(self, x):
         return torch.sqrt(self.dot(x, x))
 
-    def all_equal(self, a, b) -> bool:
-        """``torch.equal`` on every rank's slab (the same answer on all)."""
-        flag = torch.tensor(int(torch.equal(a, b)), device=a.device)
-        return bool(self._all_reduce(flag, dist.ReduceOp.MIN).item())
+    def all_equal(self, a, b) -> torch.Tensor:
+        """Whether every rank's slabs are equal, as a 0-d bool device
+        tensor (the same on all ranks): the all-reduced MIN of each rank's
+        ``(a == b).all()``, with no host read."""
+        flag = (a == b).all().to(torch.int32)
+        return self._all_reduce(flag, dist.ReduceOp.MIN).bool()
 
 
 def make_row_ops_sharded(element_matrix: np.ndarray, n: int, free_mask_u,

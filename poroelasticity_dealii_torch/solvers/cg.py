@@ -1,12 +1,18 @@
 """Preconditioned conjugate gradients (port of
 ``poroelasticity_dealii_tpu/solvers/cg.py:61-148, 193-204``).
 
-The loop runs on the host and reads the residual norm back once per
-iteration; the iteration count is the number of A-applies and the loop runs
-while ``k < max_iter and rnorm > tol``, exactly the reference's
-``lax.while_loop`` condition.  The batched form gives each right-hand side
-the ``vmap`` lane semantics of the reference: every lane stops at its own
-tolerance and keeps its own count, converged lanes stay frozen.
+The loop state lives on the device: the iterate, residual, direction, the
+scalars ``rz`` and ``rnorm``, the count ``k`` and the tolerance.  The
+iteration count is the number of A-applies, and an iteration runs while
+``k < max_iter and rnorm > tol``, the reference's ``lax.while_loop``
+condition, compared in float64 on the dtype-rounded norm.  Iterations run in
+chunks of at most ``chunk``: one iteration body freezes a solve whose
+condition fails (``torch.where``, as the reference's ``vmap`` of the
+``while_loop`` freezes finished lanes), so the iterations a chunk runs past
+convergence change nothing, and the host reads one flag per chunk
+(:func:`.cuda_graphs.run_chunks`).  With a :class:`.cuda_graphs.ChunkGraphs`
+each chunk is the replay of a captured CUDA graph.  The batched form gives
+each right-hand side its own tolerance and count.
 """
 
 from __future__ import annotations
@@ -14,39 +20,59 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
+
+from .cuda_graphs import run_chunks
 
 
 @dataclasses.dataclass
 class CGResult:
     x: torch.Tensor
-    iterations: object        # int, or (n_rhs,) int array when batched
-    residual_norm: object     # float, or (n_rhs,) array
-    converged: object         # bool, or (n_rhs,) bool array
+    iterations: torch.Tensor      # int64, 0-d or (n_rhs,)
+    residual_norm: torch.Tensor   # x's dtype, 0-d or (n_rhs,)
+    converged: torch.Tensor       # bool, 0-d or (n_rhs,)
 
 
 class LocalReductions:
     """The reductions of vectors this process holds whole, and
     :func:`cg_solve`'s defaults.  The sharded mechanics kit
     (:class:`..parallel.rows.ShardedRowOps`) has the same three, taken
-    across its group."""
+    across its group.  Each returns a device tensor."""
 
     @staticmethod
     def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return torch.dot(a.reshape(-1), b.reshape(-1))
 
     norm = staticmethod(torch.linalg.norm)
-    all_equal = staticmethod(torch.equal)
+
+    @staticmethod
+    def all_equal(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return (a == b).all()
+
+
+def _tol64(tol, like: torch.Tensor) -> torch.Tensor:
+    """``tol`` (number, array or tensor) as a float64 tensor on ``like``'s
+    device: the exact value of a dtype-rounded tolerance.  A number is
+    filled in on the device (no host-to-device copy, which would wait for
+    the stream)."""
+    if isinstance(tol, torch.Tensor):
+        return tol.to(device=like.device, dtype=torch.float64)
+    if np.ndim(tol) == 0:
+        return torch.full((), float(tol), dtype=torch.float64,
+                          device=like.device)
+    return torch.as_tensor(np.asarray(tol, np.float64), device=like.device)
 
 
 def cg_solve(apply_a: Callable, b: torch.Tensor, x0: torch.Tensor,
              diag: torch.Tensor = None, tol=0.0, max_iter: int = 1000,
              precond: Callable = None, apply_iter: Callable = None,
              flexible: bool = None, dot: Callable = LocalReductions.dot,
-             norm: Callable = LocalReductions.norm) -> CGResult:
+             norm: Callable = LocalReductions.norm, chunk: int = 8,
+             graphs=None, graph_key=None) -> CGResult:
     """Solve ``A x = b`` by preconditioned CG from the start vector ``x0``.
 
-    ``tol`` is an absolute residual L2 tolerance (float or 0-d tensor).
+    ``tol`` is an absolute residual L2 tolerance (number or 0-d tensor).
     ``diag``: Jacobi preconditioner, used when ``precond`` is None.
     ``apply_iter``: a cheaper operator for the per-iteration applies on
     search directions (it must equal ``apply_a`` on the Krylov subspace
@@ -55,75 +81,103 @@ def cg_solve(apply_a: Callable, b: torch.Tensor, x0: torch.Tensor,
     ``flexible``: Polak-Ribiere beta clipped at 0 (default: on exactly when
     an operator preconditioner is given).  ``dot``, ``norm``: the inner
     product and the residual norm (0-d tensors); the sharded mechanics kit
-    passes its all-reduced ones, so every rank reads the same norm at every
-    loop test."""
+    passes its all-reduced ones, so every rank reads the same flag at every
+    chunk boundary.  ``chunk``: iterations per host read.  ``graphs``,
+    ``graph_key``: run each chunk as a captured graph of ``graphs``
+    (:class:`.cuda_graphs.ChunkGraphs`) keyed on ``graph_key``, a tuple
+    that starts with the call site's name, and on the shapes (the
+    operators must be the same on every call with that key)."""
     if flexible is None:
         flexible = precond is not None
     if apply_iter is None:
         apply_iter = apply_a
+    consts = (_tol64(tol, b),)
     if precond is None:
-        inv_diag = 1.0 / diag
-        precond = lambda r: r * inv_diag  # noqa: E731
-    tol = float(tol)
+        consts += (1.0 / diag,)    # a per-solve input of a captured chunk
 
-    x = x0
-    r = b - apply_a(x0)
-    z = precond(r)
-    p = z
-    rz = dot(r, z)
-    rnorm = norm(r).item()
-    k = 0
-    while k < max_iter and rnorm > tol:
+    def pre(r, consts):
+        return precond(r) if precond is not None else r * consts[1]
+
+    def init(inputs, consts):
+        b, x0 = inputs
+        r = b - apply_a(x0)
+        z = pre(r, consts)
+        k = torch.zeros((), dtype=torch.int64, device=b.device)
+        return (k, x0, r, z, dot(r, z), norm(r))
+
+    def cond(state, consts):
+        k, rnorm = state[0], state[-1]
+        return (k < max_iter) & (rnorm.double() > consts[0])
+
+    def step(state, consts):
+        k, x, r, p, rz, rnorm = state
+        active = cond(state, consts)
         ap = apply_iter(p)
         alpha = rz / dot(p, ap)
-        x = x + alpha * p
+        x_new = x + alpha * p
         r_new = r - alpha * ap
-        z = precond(r_new)
+        z = pre(r_new, consts)
         rz_new = dot(r_new, z)
         if flexible:
             beta = torch.clamp(dot(z, r_new - r) / rz, min=0.0)
         else:
             beta = rz_new / rz
-        p = z + beta * p
-        r, rz = r_new, rz_new
-        rnorm = norm(r).item()
-        k += 1
+        p_new = z + beta * p
+        return (k + active.long(), torch.where(active, x_new, x),
+                torch.where(active, r_new, r), torch.where(active, p_new, p),
+                torch.where(active, rz_new, rz),
+                torch.where(active, norm(r_new), rnorm))
+
+    key = None if graphs is None else (
+        *graph_key, "cg", b.dtype, tuple(b.shape), max_iter, flexible,
+        precond is None)
+    k, x, _, _, _, rnorm = run_chunks(init, step, cond, (b, x0), consts,
+                                      max_iter, chunk, graphs, key)
     return CGResult(x=x, iterations=k, residual_norm=rnorm,
-                    converged=rnorm <= tol)
+                    converged=rnorm.double() <= consts[0])
 
 
 def cg_solve_batched(apply_a: Callable, b: torch.Tensor, x0: torch.Tensor,
-                     diag: torch.Tensor, tol, max_iter: int) -> CGResult:
+                     diag: torch.Tensor, tol, max_iter: int, chunk: int = 8,
+                     graphs=None, graph_key=None) -> CGResult:
     """Multi-RHS Jacobi-CG sharing one operator: ``b``, ``x0`` (n_rhs, n),
     ``tol`` (n_rhs,) absolute tolerances.  ``apply_a`` acts on the last
-    axis and broadcasts over the first."""
-    tol = torch.as_tensor(tol, device=b.device).to(torch.float64)
-    inv_diag = 1.0 / diag
-    x = x0
-    r = b - apply_a(x0)
-    z = r * inv_diag
-    p = z
-    rz = (r * z).sum(-1)
-    rnorm = torch.linalg.norm(r, dim=-1)
-    k = torch.zeros(b.shape[0], dtype=torch.int64, device=b.device)
-    while True:
-        active = (k < max_iter) & (rnorm.double() > tol)
-        if not bool(active.any()):
-            break
+    axis and broadcasts over the first.  ``chunk``, ``graphs``,
+    ``graph_key``: as in :func:`cg_solve`; a chunk runs while any lane is
+    active."""
+    consts = (_tol64(tol, b), 1.0 / diag)
+
+    def init(inputs, consts):
+        b, x0 = inputs
+        r = b - apply_a(x0)
+        z = r * consts[1]
+        k = torch.zeros(b.shape[0], dtype=torch.int64, device=b.device)
+        return (k, x0, r, z, (r * z).sum(-1), torch.linalg.norm(r, dim=-1))
+
+    def lanes(state, consts):
+        k, rnorm = state[0], state[-1]
+        return (k < max_iter) & (rnorm.double() > consts[0])
+
+    def step(state, consts):
+        k, x, r, p, rz, rnorm = state
+        active = lanes(state, consts)
         ap = apply_a(p)
         alpha = rz / (p * ap).sum(-1)
         x_new = x + alpha[:, None] * p
         r_new = r - alpha[:, None] * ap
-        z = r_new * inv_diag
+        z = r_new * consts[1]
         rz_new = (r_new * z).sum(-1)
         p_new = z + (rz_new / rz)[:, None] * p
         a = active[:, None]
-        x = torch.where(a, x_new, x)
-        r = torch.where(a, r_new, r)
-        p = torch.where(a, p_new, p)
-        rz = torch.where(active, rz_new, rz)
-        rnorm = torch.where(active, torch.linalg.norm(r_new, dim=-1), rnorm)
-        k = k + active.long()
-    rn = rnorm.double().cpu().numpy()
-    return CGResult(x=x, iterations=k.cpu().numpy(), residual_norm=rn,
-                    converged=rn <= tol.cpu().numpy())
+        return (k + active.long(), torch.where(a, x_new, x),
+                torch.where(a, r_new, r), torch.where(a, p_new, p),
+                torch.where(active, rz_new, rz),
+                torch.where(active, torch.linalg.norm(r_new, dim=-1), rnorm))
+
+    key = None if graphs is None else (
+        *graph_key, "cg_batched", b.dtype, tuple(b.shape), max_iter)
+    k, x, _, _, _, rnorm = run_chunks(
+        init, step, lambda s, c: lanes(s, c).any(), (b, x0), consts,
+        max_iter, chunk, graphs, key)
+    return CGResult(x=x, iterations=k, residual_norm=rnorm,
+                    converged=rnorm.double() <= consts[0])

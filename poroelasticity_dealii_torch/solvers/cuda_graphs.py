@@ -1,0 +1,151 @@
+"""Chunked solver loops, and their chunks as captured CUDA graphs.
+
+A solver loop here is a start (``init``: the solve's inputs to its first
+state, a tuple of tensors), an iteration ``step`` that maps state to state
+and freezes it once the loop's condition fails, and that condition,
+``cond``, as a device flag.  :func:`run_chunks` runs up to ``size`` steps
+per chunk and reads the flag on the host once per chunk: the only host read
+of the loop.  Because a frozen step changes nothing, the result equals the
+one-step-per-read loop bit for bit.
+
+:class:`ChunkGraphs` (the card only) stands in for the reference's ``jit``:
+each call site and shape (its key) gets static input and state buffers, a
+graph of its start and, per chunk length, a graph of a chunk, each
+captured with ``torch.cuda.graph`` after one eager warm-up on a side
+stream, all graphs in one memory pool.  A solve copies its inputs into the
+buffers, replays the start, then a chunk while the flag says so, and
+clones the result out, because the next solve with that key reuses the
+buffers.  Capture raises on a host read inside a graph, which is the proof
+that a chunk holds none.  Every tensor a graph reads is a buffer, a
+per-solve constant copied into a buffer (``consts``), or a constant of the
+operators that outlives the solver; the caller keeps the operators of one
+key the same.
+
+The kernel wrappers count a launch in Python, which a replay does not run:
+the counts a capture adds are recorded and taken back, and each replay adds
+them again (:func:`..ops.comp_major.add_launch_counts`), so the counts
+include the applies of frozen iterations.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Callable
+
+import torch
+
+from ..ops import comp_major as cm
+
+
+def run_chunks(init: Callable, step: Callable, cond: Callable,
+               inputs: tuple, consts: tuple, budget: int, size: int,
+               graphs: "ChunkGraphs" = None, key=None) -> tuple:
+    """From ``state = init(inputs, consts)``, apply ``step(state, consts)``
+    in chunks of at most ``size`` while the host reads ``cond(state,
+    consts)`` true at the chunk's start, at most ``budget`` times in all;
+    return the final state.
+
+    A chunk is cut to the budget left: a true flag means every step so far
+    was live, so the host knows the count.  With ``graphs``, the start and
+    each chunk are replays under ``key`` (:meth:`ChunkGraphs.run`)."""
+    if graphs is not None:
+        return graphs.run(key, init, step, cond, inputs, consts, budget,
+                          size)
+    state = init(inputs, consts)
+    done = 0
+    while done < budget and bool(cond(state, consts)):
+        n = min(size, budget - done)
+        for _ in range(n):
+            state = step(state, consts)
+        done += n
+    return state
+
+
+@dataclasses.dataclass
+class _Site:
+    """The static buffers of one key, and its graphs: the start under
+    ``"init"``, a chunk under its length."""
+    inputs: tuple
+    consts: tuple
+    flag: torch.Tensor
+    state: tuple = None
+    graphs: dict = dataclasses.field(default_factory=dict)
+    deltas: dict = dataclasses.field(default_factory=dict)
+
+    def load(self, inputs, consts) -> None:
+        for buf, t in zip(self.inputs + self.consts, inputs + consts):
+            buf.copy_(t)
+
+
+class ChunkGraphs:
+    """The captured chunks of one solver: a graph per key and chunk length,
+    in one memory pool.  ``captures`` and ``replays`` count them by the
+    key's first item (the call site)."""
+
+    def __init__(self):
+        self._pool = torch.cuda.graph_pool_handle()
+        self._sites = {}
+        self.captures = collections.Counter()
+        self.replays = collections.Counter()
+
+    def run(self, key, init, step, cond, inputs, consts, budget,
+            size) -> tuple:
+        """:func:`run_chunks` with the start and each chunk a graph
+        replay."""
+        site = self._sites.get(key)
+        if site is None:
+            site = self._sites[key] = _Site(
+                inputs=tuple(t.clone() for t in inputs),
+                consts=tuple(t.clone() for t in consts),
+                flag=torch.ones((), dtype=torch.bool,
+                                device=inputs[0].device))
+        else:
+            site.load(inputs, consts)
+        self._replay(site, key, "init", init, cond)
+        done = 0
+        while done < budget and bool(site.flag):
+            n = min(size, budget - done)
+            self._replay(site, key, n, step, cond)
+            done += n
+        return tuple(t.clone() for t in site.state)
+
+    def _replay(self, site, key, which, fn, cond) -> None:
+        """Replay graph ``which`` of ``site`` (capture it first if need
+        be) and add its launch counts."""
+        if which not in site.graphs:
+            self._capture(site, key, which, fn, cond)
+        site.graphs[which].replay()
+        cm.add_launch_counts(site.deltas[which])
+        self.replays[key[0]] += 1
+
+    def _capture(self, site, key, which, fn, cond) -> None:
+        """Capture the start (``which == "init"``, ``fn = init``: inputs
+        to state) or a chunk of ``which`` steps (``fn = step``); both end
+        by writing the state buffers and the flag."""
+        start = which == "init"
+        src = site.inputs if start else site.state
+        # one eager call on a side stream first (lazy initialisation, the
+        # kernel library's load, cuBLAS workspaces); the start's result
+        # gives the state buffers their shapes
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            out = fn(src, site.consts)
+            cond(out, site.consts)
+        torch.cuda.current_stream().wait_stream(side)
+        if start:
+            site.state = tuple(torch.empty_like(t) for t in out)
+        before = cm.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool):
+            out = src
+            for _ in range(1 if start else which):
+                out = fn(out, site.consts)
+            site.flag.copy_(cond(out, site.consts))
+            for buf, t in zip(site.state, out):
+                buf.copy_(t)
+        delta = {k: v - before[k] for k, v in cm.launch_counts().items()}
+        cm.add_launch_counts({k: -v for k, v in delta.items()})
+        site.graphs[which], site.deltas[which] = graph, delta
+        self.captures[key[0]] += 1

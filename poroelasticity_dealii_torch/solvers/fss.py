@@ -4,8 +4,15 @@
 One time step alternates a pressure inner loop (GMG- or Jacobi-CG on the
 fixed-stress-stabilised flow system) with a mechanics CG and a batched
 strain-projection CG, until the flow residual falls below the FSS
-tolerance; the shear strains are projected once after the loop.  The loops
-run on the host and read one scalar per iteration.
+tolerance; the shear strains are projected once after the loop.  The
+pressure and FSS loops run on the host and read their residual norm once
+per iteration (the reference's ``while`` conditions); every CG keeps its
+loop state on the device and reads one flag per chunk of iterations
+(:mod:`.cg`), and on the card each chunk is a captured CUDA graph
+(:class:`.cuda_graphs.ChunkGraphs`, one per solver; ``cuda_graphs=False``
+runs the same chunks eagerly).  The step's CG counts stay on the device
+until the step, or a block of steps (:meth:`FixedStressSolver.multi_step`),
+ends.
 
 The mechanics vector is in the comp-major row layout when the
 discretization has a rows kit (``disc.row_ops``) and flat otherwise (the
@@ -44,13 +51,28 @@ from ..ops.stencil import make_q1_slices_apply
 from . import structured
 from ..parallel.rows import ShardedRowOps
 from .cg import LocalReductions, cg_solve, cg_solve_batched
+from .cuda_graphs import ChunkGraphs
 from .multigrid import build_gmg_pressure
 from .structured import GridDiscretization, _single_cell_spaces
 
 
+# CG iterations per host read at each call site.  A chunk runs up to
+# size - 1 frozen iterations past convergence, each a full apply, against
+# one host read (a pipeline drain) per chunk:
+# * mechanics: 37-112 iterations a solve on the bench path; 8 wastes at most
+#   7 applies of ~0.1 ms (the K1 kernel and the vector ops) per solve;
+# * pressure: 1-4 GMG-preconditioned iterations a solve, each a V-cycle of
+#   a few hundred small kernels, so a wasted iteration costs more than a
+#   host read: 2;
+# * projection: 20-45 batched mass-matrix iterations a solve, cheap ones: 8;
+# * bc response: one solve of about a hundred iterations, once: 16.
+CHUNK = {"mechanics": 8, "pressure": 2, "projection": 8, "bc_response": 16}
+
+
 @dataclasses.dataclass
 class StepStats:
-    """Per-time-step convergence record, as host values."""
+    """Per-time-step convergence record, as host values (stacked along a
+    leading (K,) axis by :meth:`FixedStressSolver.multi_step`)."""
     fss_iterations: int
     pressure_error: float             # final FSS residual norm
     pressure_iterations: int          # total inner pressure solves
@@ -84,10 +106,31 @@ def _as_dtype(x: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(x, dtype=dtype))
 
 
-class FixedStressSolver:
-    """The fixed-stress time step for one discretization and deck."""
+def _read_stats(steps: list) -> list:
+    """Host :class:`StepStats` of steps whose CG counts and converged flag
+    are device tensors: one device-to-host read for all of them."""
+    if not steps:
+        return []
+    dev = torch.stack([torch.stack([
+        s.pressure_cg_iterations, s.mech_cg_iterations,
+        s.projection_cg_iterations, s.cg_converged.long()])
+        for s in steps]).tolist()
+    return [dataclasses.replace(
+        s, pressure_cg_iterations=cp, mech_cg_iterations=cu,
+        projection_cg_iterations=cr, cg_converged=bool(ok))
+        for s, (cp, cu, cr, ok) in zip(steps, dev)]
 
-    def __init__(self, disc: GridDiscretization, data: InputData):
+
+class FixedStressSolver:
+    """The fixed-stress time step for one discretization and deck.
+
+    ``cuda_graphs``: on the card, run each CG chunk as a captured CUDA
+    graph (the default); False runs the same chunks eagerly, for
+    comparisons.  The z-slab sharded kit always runs them eagerly: its
+    chunks hold NCCL collectives."""
+
+    def __init__(self, disc: GridDiscretization, data: InputData,
+                 cuda_graphs: bool = True):
         if data.mixed_precision_refinement == "on":
             raise NotImplementedError(
                 "mixed-precision refinement is ROADMAP A11 (the H100 runs "
@@ -99,6 +142,9 @@ class FixedStressSolver:
         # kit, else local
         self._reduce = ro if isinstance(ro, ShardedRowOps) \
             else LocalReductions
+        self.graphs = ChunkGraphs() if (
+            cuda_graphs and disc.device.type == "cuda"
+            and not isinstance(ro, ShardedRowOps)) else None
         # the Dirichlet lift A g uses the UNconstrained operator (the
         # reference's d._hcu.constrained(d.elasticity) is the identity
         # hanging-node wrap on structured grids); by linearity the
@@ -119,6 +165,13 @@ class FixedStressSolver:
 
     def _cast(self, x: float) -> float:
         return _as_dtype(x, self.disc.dtype)
+
+    def _cg(self, site, *args, graph_key=(), batched=False, **kw):
+        """``cg_solve`` (or ``cg_solve_batched``) at call site ``site``: its
+        chunk size, and its graphs keyed on ``(site, *graph_key)``."""
+        solve = cg_solve_batched if batched else cg_solve
+        return solve(*args, chunk=CHUNK[site], graphs=self.graphs,
+                     graph_key=(site, *graph_key), **kw)
 
     # ---------------- pressure system pieces -------------------------------
 
@@ -189,7 +242,8 @@ class FixedStressSolver:
         the warm start already solves the system: the tolerance becomes
         inf, so CG stops after its initial residual.
 
-        Returns ``(u, iters, converged, b)``."""
+        Returns ``(u, iters, converged, b)``, the count and the flag as
+        device tensors."""
         d, data = self.disc, self.data
         ro = d.row_ops
         m = self._free_mask
@@ -202,21 +256,26 @@ class FixedStressSolver:
         # b and x0 carry the Dirichlet values, so every CG direction is
         # zero at constrained rows and the free-subspace apply is exact
         x0 = m * u_warm + (1.0 - m) * g
-        tol = torch.tensor(data.mech_cg_tol, dtype=d.dtype)
+        # the tolerance on the device, in the working type (the reference
+        # casts it there); a bitwise-equal RHS lifts it to inf
         if data.mech_cg_relative:
-            tol = tol * self._reduce.norm(b).cpu()
-        tol = float(tol)
-        if b_prev is not None and self._reduce.all_equal(b, b_prev):
-            tol = float("inf")
+            tol = self._reduce.norm(b) * data.mech_cg_tol
+        else:
+            tol = torch.full((), data.mech_cg_tol, dtype=d.dtype,
+                             device=d.device)
+        if b_prev is not None:
+            tol = tol.masked_fill(self._reduce.all_equal(b, b_prev),
+                                  float("inf"))
         if self._rows:
-            res = cg_solve(ro.constrained_apply, b, x0, ro.diag_rows,
-                           tol=tol, max_iter=data.cg_max_iterations,
+            res = self._cg("mechanics", ro.constrained_apply, b, x0,
+                           ro.diag_rows, tol=tol,
+                           max_iter=data.cg_max_iterations,
                            apply_iter=ro.free_apply, flexible=False,
                            dot=self._reduce.dot, norm=self._reduce.norm)
         else:
             # Jacobi CG only: elasticity GMG and mixed-precision
             # refinement are not ported (ROADMAP items 6, 7)
-            res = cg_solve(d.elasticity_constrained, b, x0,
+            res = self._cg("mechanics", d.elasticity_constrained, b, x0,
                            d.diag_elasticity, tol=tol,
                            max_iter=data.cg_max_iterations)
         return res.x, res.iterations, res.converged, b
@@ -236,9 +295,10 @@ class FixedStressSolver:
                 apply, diag = d.row_ops.constrained_apply, d.row_ops.diag_rows
             else:
                 apply, diag = d.elasticity_constrained, d.diag_elasticity
-            res = cg_solve(apply, b, torch.zeros_like(b), diag,
-                           tol=rel * self._reduce.norm(b), max_iter=5000,
-                           dot=self._reduce.dot, norm=self._reduce.norm)
+            res = self._cg("bc_response", apply, b, torch.zeros_like(b),
+                           diag, tol=rel * self._reduce.norm(b),
+                           max_iter=5000, dot=self._reduce.dot,
+                           norm=self._reduce.norm)
             self._bc_response_cache = res.x
         return self._bc_response_cache
 
@@ -254,13 +314,14 @@ class FixedStressSolver:
     def _project(self, entries, warm, rhs_all):
         """L2-project the Voigt components ``entries`` onto the pressure
         space: one batched mass-matrix CG.  Returns
-        ``(strains, total iterations, converged)``."""
+        ``(strains, total iterations, converged)``, the last two as device
+        tensors."""
         d = self.disc
         rhs = rhs_all[entries]
         tol = self.data.projection_cg_tol * torch.linalg.norm(rhs, dim=1)
-        res = cg_solve_batched(d.mass, rhs, warm, d.diag_mass, tol,
-                               self.data.cg_max_iterations)
-        return res.x, int(res.iterations.sum()), bool(res.converged.all())
+        res = self._cg("projection", d.mass, rhs, warm, d.diag_mass, tol,
+                       self.data.cg_max_iterations, batched=True)
+        return res.x, res.iterations.sum(), res.converged.all()
 
     # ---------------- initialization ----------------------------------------
 
@@ -301,7 +362,50 @@ class FixedStressSolver:
         step's ``bc_scale_prev`` superposes the linear response to the
         change onto the mechanics warm start.  ``want_u=False`` leaves
         ``State.u`` None on the rows backend (u stays in rows; see
-        :meth:`materialize_u`); on the flat backend it is a no-op."""
+        :meth:`materialize_u`); on the flat backend it is a no-op.  The
+        stats are read from the device once, at the end of the step."""
+        state, stats = self._step(state, dt, bc_scale, bc_scale_prev, want_u)
+        return state, _read_stats([stats])[0]
+
+    def multi_step(self, state: State, dt: float, n_steps: int = None,
+                   bc_scales=None, bc_scale_prev: Optional[float] = None,
+                   want_u: bool = False):
+        """K time steps as one block (the reference's ``multi_step``,
+        ``fss.py:717-805``): ``bc_scales`` (K,) per-step Dirichlet scales
+        (default K = ``n_steps`` ones); each step superposes the response
+        to its change of scale onto the mechanics warm start, the first
+        step's change taken from ``bc_scale_prev`` (default: none).  u
+        stays in rows across the block and is filled at its end when
+        ``want_u``.  Returns ``(state, stats)``, every :class:`StepStats`
+        field stacked along a leading (K,) axis, read from the device once
+        for the block; the result equals K :meth:`time_step` calls bit for
+        bit.
+
+        Unlike the reference's one ``lax.scan`` dispatch, the block is K
+        device-resident steps in a Python loop: every chunk boundary of a
+        CG, and every pressure and FSS iteration, still reads one value on
+        the host."""
+        if bc_scales is None:
+            if n_steps is None:
+                raise ValueError("pass n_steps or bc_scales")
+            bc_scales = np.ones((n_steps,), float)
+        bc_scales = [float(bc) for bc in np.asarray(bc_scales, float)]
+        prev = bc_scales[0] if bc_scale_prev is None else float(bc_scale_prev)
+        steps = []
+        for bc in bc_scales:
+            state, stats = self._step(state, dt, bc, prev, want_u=False)
+            steps.append(stats)
+            prev = bc
+        if want_u and self._rows:
+            state = self.materialize_u(state)
+        host = _read_stats(steps)
+        return state, StepStats(**{
+            f.name: np.stack([getattr(s, f.name) for s in host])
+            for f in dataclasses.fields(StepStats)})
+
+    def _step(self, state: State, dt, bc_scale, bc_scale_prev, want_u):
+        """:meth:`time_step` with the stats' CG counts and converged flag
+        left on the device."""
         ds = 0.0 if bc_scale_prev is None else bc_scale - bc_scale_prev
         if self._rows:
             if state.u_rows is None:
@@ -343,19 +447,24 @@ class FixedStressSolver:
         def jac(x):
             return self._pressure_jacobian_apply(x, dt)
 
-        def pressure_inner(p, eps_v):
+        # the step's CG counts and converged flag, on the device
+        zero = torch.zeros((), dtype=torch.int64, device=d.device)
+        cg_p = cg_u = cg_proj = zero
+        cg_ok = torch.ones((), dtype=torch.bool, device=d.device)
+
+        def pressure_inner(p, eps_v, cg_p, cg_ok):
             """Stationary iteration on the fixed-stress-stabilised flow
-            system; the predictor moves eps_v before each residual."""
+            system; the predictor moves eps_v before each residual.  One
+            host read of the residual norm per iteration."""
             delta_p = torch.zeros_like(p)     # reset per FSS iteration
             r = self._pressure_residual(p, p_old, eps_v, eps_v0, dt)
             err = torch.linalg.norm(r).item()
-            k = cg_tot = 0
-            ok = True
+            k = 0
             while k < data.max_pressure_iterations and err > pressure_tol:
                 ptol = data.pressure_cg_tol * torch.linalg.norm(r)
-                res = cg_solve(jac, r, delta_p, jac_diag, tol=ptol,
-                               max_iter=data.cg_max_iterations,
-                               precond=p_precond)
+                res = self._cg("pressure", jac, r, delta_p, jac_diag,
+                               tol=ptol, max_iter=data.cg_max_iterations,
+                               precond=p_precond, graph_key=(dt,))
                 delta_p = res.x
                 p = p + delta_p
                 eps_v = eps_v + (data.biot_coef / data.bulk_modulus) \
@@ -363,9 +472,9 @@ class FixedStressSolver:
                 r = self._pressure_residual(p, p_old, eps_v, eps_v0, dt)
                 err = torch.linalg.norm(r).item()
                 k += 1
-                cg_tot += res.iterations
-                ok = ok and res.converged
-            return p, eps_v, k, cg_tot, ok
+                cg_p = cg_p + res.iterations
+                cg_ok = cg_ok & res.converged
+            return p, eps_v, k, cg_p, cg_ok
 
         n_voigt = len(VOIGT_PAIRS[dim])
         # err starts at exactly 2 * pressure_tol, so with fss_tol below it
@@ -383,10 +492,10 @@ class FixedStressSolver:
             else torch.zeros_like(self._free_mask)
         err = self._cast(2.0 * data.pressure_tol)
         err_hist = np.full((data.max_fss_iterations,), -1.0)
-        it = press_total = cg_p = cg_u = cg_proj = 0
-        cg_ok = True
+        it = press_total = 0
         while it < data.max_fss_iterations and err > fss_tol:
-            p, eps_v, n_press, it_p, ok_p = pressure_inner(p, eps_v)
+            p, eps_v, n_press, cg_p, cg_ok = pressure_inner(p, eps_v, cg_p,
+                                                            cg_ok)
             u, it_u, ok_u, mech_b = self._mechanics_solve(
                 p, u, bc_scale, b_prev=mech_b)
             proj_rhs = self._projection_rhs(u)
@@ -399,8 +508,8 @@ class FixedStressSolver:
             err_hist[it] = err
             it += 1
             press_total += n_press
-            cg_p, cg_u, cg_proj = cg_p + it_p, cg_u + it_u, cg_proj + it_pr
-            cg_ok = cg_ok and ok_p and ok_u and ok_pr
+            cg_u, cg_proj = cg_u + it_u, cg_proj + it_pr
+            cg_ok = cg_ok & ok_u & ok_pr
 
         strains = state.strains.clone()
         strains[vol] = vol_strains
@@ -409,8 +518,8 @@ class FixedStressSolver:
             shear_strains, it_sh, ok_sh = self._project(
                 shear, state.strains[shear], proj_rhs)
             strains[shear] = shear_strains
-            cg_proj += it_sh
-            cg_ok = cg_ok and ok_sh
+            cg_proj = cg_proj + it_sh
+            cg_ok = cg_ok & ok_sh
         if self._rows:
             u_flat, u_rows = (d.row_ops.from_rows(u) if want_u else None), u
         else:

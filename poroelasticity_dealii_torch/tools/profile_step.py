@@ -1,20 +1,24 @@
 """Device time of fixed-stress steps by kernel, from ``torch.profiler``:
 
-    python -m poroelasticity_dealii_torch.tools.profile_step [n] [backend]
+    python -m poroelasticity_dealii_torch.tools.profile_step [n] [backend] [loop]
 
 runs the bench configuration (:func:`bench_data`) at ``n`` cells per axis
 (default 40) on the card, on the rows backend (default), the conv backend
 (``backend`` ``conv``) or the sharded production path on a world-size-1
 NCCL process group (``sharded``: the rows kit replaced by the z-slab kit,
-every mechanics apply the slab kernel): ``initial_state``, evolving steps
-with the Dirichlet load ramp, then steady steps at the last load.  It
-profiles the last evolving and the last steady step and prints one JSON
-line for each: the step's counts, its wall time unprofiled (the step
-before, of the same kind) and profiled, the device busy time (union of the
-device activity intervals) over the profiled wall span, device time and
+every mechanics apply the slab kernel), with the solver's CG chunks
+captured as CUDA graphs (``loop`` ``captured``, the default; the sharded
+path always runs them eagerly) or run eagerly (``eager``):
+``initial_state``, evolving steps with the Dirichlet load ramp, then steady
+steps at the last load.  It profiles the last evolving and the last steady
+step and prints one JSON line for each: the step's counts, its wall time
+unprofiled (the step before, of the same kind) and profiled, the device
+busy time (union of the device activity intervals) over the profiled wall
+span, the host's ``cudaGraphLaunch`` and ``cudaLaunchKernel`` calls, the
+graphs captured and replayed in the step by call site, device time and
 launches per kernel name, with each kernel wrapper's CUDA kernels also
-summed under its name (:data:`WRAPPERS`) beside its calls, and the host
-operators with the most self time.
+summed under its name (:data:`WRAPPERS`) beside its calls (replays
+included), and the host operators with the most self time.
 """
 
 from __future__ import annotations
@@ -85,19 +89,26 @@ def _wrapper(name: str):
     return None
 
 
+RUNTIME_CALLS = ("cudaGraphLaunch", "cudaLaunchKernel", "cudaLaunchKernelExC")
+
+
 def device_summary(prof) -> dict:
-    """Busy ms, and per-kernel (ms, launches) of the device events, with
-    each kernel wrapper's CUDA kernels also summed under its name."""
+    """Busy ms, the host's CUDA launch calls (:data:`RUNTIME_CALLS`), and
+    per-kernel (ms, launches) of the device events, with each kernel
+    wrapper's CUDA kernels also summed under its name."""
     per = defaultdict(lambda: [0.0, 0])
     intervals = []
+    calls = dict.fromkeys(RUNTIME_CALLS, 0)
     for e in prof.events():
+        if e.name in calls:
+            calls[e.name] += 1
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         a, b = e.time_range.start, e.time_range.end
         intervals.append((a, b))
         per[e.name][0] += (b - a) / 1e3
         per[e.name][1] += 1
-    out = {"busy_ms": _busy_ms(intervals)}
+    out = {"busy_ms": _busy_ms(intervals), "runtime_calls": calls}
     for wrapper in WRAPPERS:
         rows = {_short(k): {"ms": v[0], "launches": v[1]}
                 for k, v in per.items() if _wrapper(k) == wrapper}
@@ -115,6 +126,7 @@ def device_summary(prof) -> dict:
 
 
 def _step(solver, state, bc, bc_prev):
+    """One synced time step; returns (state, stats, wall ms)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, stats = solver.time_step(state, solver.data.time_step, bc,
@@ -124,28 +136,30 @@ def _step(solver, state, bc, bc_prev):
 
 
 BACKENDS = ("rows", "conv", "sharded")
+LOOPS = ("captured", "eager")
 
 
 def run(n: int = 40, n_evolving: int = 5, n_steady: int = 3,
-        device="cuda", backend: str = "rows") -> list:
+        device="cuda", backend: str = "rows", loop: str = "captured") -> list:
     """Profile the last evolving and the last steady step on ``backend``
-    (:data:`BACKENDS`); returns their records.  ``sharded`` initialises a
-    world-size-1 process group here (NCCL on CUDA, gloo on the CPU) and
-    destroys it at the end."""
+    (:data:`BACKENDS`) with the CG chunks ``loop`` (:data:`LOOPS`);
+    returns their records.  ``sharded`` initialises a world-size-1 process
+    group here (NCCL on CUDA, gloo on the CPU) and destroys it at the
+    end."""
     if backend != "sharded":
-        return _run(n, n_evolving, n_steady, device, backend)
+        return _run(n, n_evolving, n_steady, device, backend, loop)
     import torch.distributed as dist
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group(
             "nccl" if torch.device(device).type == "cuda" else "gloo",
             init_method=f"file://{tmp}/pg", rank=0, world_size=1)
         try:
-            return _run(n, n_evolving, n_steady, device, backend)
+            return _run(n, n_evolving, n_steady, device, backend, loop)
         finally:
             dist.destroy_process_group()
 
 
-def _run(n, n_evolving, n_steady, device, backend) -> list:
+def _run(n, n_evolving, n_steady, device, backend, loop) -> list:
     from torch.profiler import ProfilerActivity, profile
 
     from ..ops import comp_major as cm
@@ -160,7 +174,9 @@ def _run(n, n_evolving, n_steady, device, backend) -> list:
     if backend == "sharded":
         disc = shard_production_discretization(disc,
                                                make_slab_group(disc.device))
-    solver = FixedStressSolver(disc, data)
+    solver = FixedStressSolver(disc, data,
+                               cuda_graphs=loop == "captured")
+    graphs = solver.graphs
     state = solver.initial_state()
     records, bc_prev, last_ms = [], 1.0, None
     steps = n_evolving + n_steady
@@ -172,15 +188,23 @@ def _run(n, n_evolving, n_steady, device, backend) -> list:
             bc_prev = bc
             continue
         cm.reset_launch_counts()
+        before = (dict(graphs.captures), dict(graphs.replays)) if graphs \
+            else ({}, {})
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             state, stats, ms = _step(solver, state, bc, bc_prev)
         bc_prev = bc
         dev = device_summary(prof)
+        dev["graphs"] = {
+            kind: {k: v - old.get(k, 0) for k, v in now.items()}
+            for kind, now, old in (
+                ("captures", graphs.captures if graphs else {}, before[0]),
+                ("replays", graphs.replays if graphs else {}, before[1]))}
         for wrapper in WRAPPERS:
             dev[wrapper]["calls"] = getattr(cm, wrapper).launches
         records.append({
             "step": k, "kind": kind, "n": n, "backend": backend,
+            "loop": "captured" if graphs else "eager",
             "gpu": torch.cuda.get_device_name(),
             "wall_ms_unprofiled_previous_step": last_ms,
             "wall_ms_profiled": ms,
@@ -199,13 +223,15 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     n = int(argv[0]) if argv else 40
     backend = argv[1] if len(argv) > 1 else "rows"
-    if backend not in BACKENDS:
-        raise SystemExit(f"profile_step: backend must be one of {BACKENDS}, "
-                         f"got {backend!r}")
+    loop = argv[2] if len(argv) > 2 else "captured"
+    if backend not in BACKENDS or loop not in LOOPS:
+        raise SystemExit(f"profile_step: backend must be one of {BACKENDS} "
+                         f"and loop one of {LOOPS}, got {backend!r}, "
+                         f"{loop!r}")
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device "
                          "(torch.cuda.is_available() is False)")
-    for rec in run(n, backend=backend):
+    for rec in run(n, backend=backend, loop=loop):
         top = dict(list(rec.pop("kernels").items())[:12])
         print(json.dumps({**rec, "top_kernels": top}), flush=True)
     return 0

@@ -95,7 +95,6 @@ def test_runner_writes_vtk_and_run_log(tmp_path):
 @pytest.mark.parametrize("field,value", [("amr", True),
                                          ("sharding", "psum"),
                                          ("checkpoint_every", 2),
-                                         ("steps_per_dispatch", 4),
                                          ("nondimensionalize", True)])
 def test_runner_rejects_unported_features(field, value):
     data = dataclasses.replace(read_input_file(DECK), **{field: value})

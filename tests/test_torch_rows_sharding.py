@@ -476,6 +476,42 @@ def test_runner_runs_production_deck_on_two_ranks(tmp_path):
         assert _rel(o["u"], ref_state.u) <= 1e-8
 
 
+BLOCKS = {"steps_per_dispatch": 2, "sync_every": 2, "output_vtk": False}
+
+
+def _runner_blocks_worker(rank, world, out_root):
+    """The production deck with two-step blocks and deferred syncs."""
+    state = run_from_data(_runner_data(f"{out_root}/rank{rank}",
+                                       "production", **BLOCKS), device="cpu")
+    return {"p": state.p, "u": state.u}
+
+
+def test_runner_blocks_and_deferred_syncs_on_two_ranks(tmp_path):
+    """``Steps per dispatch = 2`` and ``Sync every = 2`` on two ranks: one
+    block of both steps (``multi_step``), both ranks flush at the same
+    step, and the run log is the unsharded default run's in step, time and
+    counts (mechanics CG within 2: another order of the dots)."""
+    outs = _spawn(_runner_blocks_worker, 2, tmp_path / "spawn", str(tmp_path))
+    run_from_data(_runner_data(tmp_path / "unsharded", "none",
+                               output_vtk=False), device="cpu")
+    log = _run_log(tmp_path / "rank0" / "run_log.jsonl")
+    ref = _run_log(tmp_path / "unsharded" / "run_log.jsonl")
+    assert [(r["step"], r["time"]) for r in log] == \
+        [(r["step"], r["time"]) for r in ref] == [(1, 60.0), (2, 120.0)]
+    for a, b in zip(log, ref):
+        assert a["fss_iterations"] == b["fss_iterations"]
+        assert a["pressure_iterations"] == b["pressure_iterations"]
+        assert a["cg_iterations"]["pressure"] == b["cg_iterations"]["pressure"]
+        assert abs(a["cg_iterations"]["mechanics"]
+                   - b["cg_iterations"]["mechanics"]) <= 2
+        np.testing.assert_allclose(a["pressure_error"], b["pressure_error"],
+                                   rtol=1e-6)
+    assert not list((tmp_path / "rank0").glob("solution-*.vtk"))
+    assert not (tmp_path / "rank1").exists()
+    assert torch.equal(outs[0]["p"], outs[1]["p"])
+    assert torch.equal(outs[0]["u"], outs[1]["u"])
+
+
 def test_runner_warns_and_runs_unsharded_on_one_process(tmp_path):
     data = dataclasses.replace(_runner_data(tmp_path, "production"),
                                initial_refinement_level=1,
@@ -508,8 +544,7 @@ def test_runner_refuses_devices_other_than_world_size(tmp_path):
                          device="cpu")
 
 
-@pytest.mark.parametrize("option,item", [({"sync_every": 2}, "item 2"),
-                                         ({"debug_nans": True}, "Queue C")])
+@pytest.mark.parametrize("option,item", [({"debug_nans": True}, "Queue C")])
 def test_runner_refuses_unported_options(option, item, tmp_path):
     with pytest.raises(NotImplementedError, match=item):
         SimulationRunner(_runner_data(tmp_path, "none", **option),
