@@ -31,9 +31,20 @@ just before and read just after:
 * the conv backend: fixed-stress steps at 40^3 float32 on flat vectors,
   its elasticity apply the flat kernel, step 1 compared with a conv run on
   the plain stencil and with the rows path;
+* the 2D path at ``bench.py::build_2d``'s 512^2 float32 point: the
+  parity kit with the parity-resident elasticity GMG (asserted selected),
+  GMG-Richardson mechanics, 2 evolving + 1 steady captured steps with
+  every solve checked (pressure, projection and bc-response solves
+  converged; each mechanics solve converged or stopped on Richardson's
+  stagnation exit at the float32 floor of its true residual, as in the
+  reference, never at the cap), captured against eager bit for bit, the
+  parity apply timed against its bound, and the flat GMG-Richardson path
+  (``elasticity_backend="conv"``) on the evolving steps against it;
 * the CLI on the 3D deck, on the rows backend, on a copy of the deck with
   ``Elasticity backend = conv``, and on a copy with ``Steps per dispatch =
-  4``, ``Sync every = 2`` and no VTK output (blocks of 4 and 2 steps).
+  4``, ``Sync every = 2`` and no VTK output (blocks of 4 and 2 steps), and
+  on the golden 2D deck (float64, 17 steps) against
+  ``tests/data/golden_history.json``.
 
 Before the paths, the slab form of the row-layout apply (K5's z-slab form,
 ``nz``/``nv``) is held against its plain twin on every slab of 2-, 4- and
@@ -41,12 +52,17 @@ Before the paths, the slab form of the row-layout apply (K5's z-slab form,
 apply; the 4-way split at 40^3 float32 is timed beside its bound and its
 library yardstick.
 
+The 2D path reaches no hand-written kernel (the JAX package computes it
+with XLA einsums, outside any Pallas kernel): its products are
+``torch.matmul`` at full float32, checked with TF32 off.
+
 It prints the kernel summary and, as its last line,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -65,6 +81,7 @@ from poroelasticity_dealii_torch.ops import _cuda
 from poroelasticity_dealii_torch.ops import cell_products as cp
 from poroelasticity_dealii_torch.ops import comp_major as cm
 from poroelasticity_dealii_torch.ops import elasticity as eg
+from poroelasticity_dealii_torch.ops.parity2d import ElasticityParityOps
 from poroelasticity_dealii_torch.parallel import rows as pr
 from poroelasticity_dealii_torch.parallel.sharding import make_slab_group
 from poroelasticity_dealii_torch.solvers.fss import FixedStressSolver
@@ -74,7 +91,7 @@ from poroelasticity_dealii_torch.tools import apply_bench
 from poroelasticity_dealii_torch.tools.apply_bench import cuda_time_ms, \
     device_and_host_ms, nonzeros
 from poroelasticity_dealii_torch.tools.profile_step import BC_RATE, \
-    bench_data
+    bench_data, data_2d
 
 REPO = Path(__file__).resolve().parent
 
@@ -270,11 +287,11 @@ def run_steps(solver, n_evolving, n_steady, log):
     return states, stats_all, ms_all
 
 
-def check_state(state, n_pdofs, n_udofs):
+def check_state(state, n_pdofs, n_udofs, n_voigt=6):
     for name, t, shape in (("p", state.p, (n_pdofs,)),
                            ("u", state.u, (n_udofs,)),
                            ("eps_v", state.eps_v, (n_pdofs,)),
-                           ("strains", state.strains, (6, n_pdofs))):
+                           ("strains", state.strains, (n_voigt, n_pdofs))):
         if tuple(t.shape) != shape:
             raise AssertionError(f"{name} shape {tuple(t.shape)} != {shape}")
         if not bool(torch.isfinite(t).all()):
@@ -327,7 +344,8 @@ def check_steps(states, stats, disc, n_evolving):
     """Every field finite with its shape, every solve converged, and
     mechanics work in every evolving step."""
     for k, (st, s) in enumerate(zip(states, stats), 1):
-        check_state(st, disc.n_pdofs, disc.n_udofs)
+        check_state(st, disc.n_pdofs, disc.n_udofs,
+                    3 if disc.dim == 2 else 6)
         if not s.cg_converged:
             raise AssertionError(f"step {k}: a linear solve did not converge")
     for k, s in enumerate(stats[:n_evolving], 1):
@@ -346,10 +364,11 @@ def _counts(stats) -> list:
     return [getattr(stats, f) for f in COUNT_FIELDS]
 
 
-def captured_vs_eager(name, captured, disc, data):
+def captured_vs_eager(name, captured, disc, data, captured_run=None):
     """2 evolving + 1 steady steps with the captured solver ``captured``
-    and with an eager one on the same discretization: equal counts, and p
-    and u bit for bit; prints both runs' ms per step."""
+    (or its run ``captured_run`` of those steps, from ``run_steps``) and
+    with an eager one on the same discretization: equal counts, and p and u
+    bit for bit; prints both runs' ms per step."""
     runs = {}
     for loop, solver in (("captured", captured),
                          ("eager", FixedStressSolver(disc, data,
@@ -357,6 +376,9 @@ def captured_vs_eager(name, captured, disc, data):
         if (solver.graphs is not None) != (loop == "captured"):
             raise AssertionError(f"{name}: the {loop} solver has graphs "
                                  f"{solver.graphs}")
+        if loop == "captured" and captured_run is not None:
+            runs[loop] = captured_run
+            continue
         runs[loop] = run_steps(solver, N_GRAPH_EVOLVING, N_GRAPH_STEADY,
                                log=False)
     (st_c, ss_c, ms_c), (st_e, ss_e, ms_e) = runs["captured"], runs["eager"]
@@ -733,9 +755,10 @@ def cli_phase():
     """The CLI on the 3D deck as written (8^3, float64, 6 steps), on a copy
     with ``Elasticity backend = conv`` and on a copy with blocks of 4 steps
     and a sync every 2 (:data:`CLI_BLOCKS`; no VTK output, which would
-    read every step's state and so cut every block to one step), all at
-    once; the conv run log must agree with the rows one in FSS counts and
-    pressure_error, the blocks run log in its steps, times and counts."""
+    read every step's state and so cut every block to one step), and on the
+    golden 2D deck (:func:`golden_check`), all at once; the conv run log
+    must agree with the rows one in FSS counts and pressure_error, the
+    blocks run log in its steps, times and counts."""
     deck = REPO / "configs" / "consolidation_3d.data"
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -750,7 +773,8 @@ def cli_phase():
         t0 = time.perf_counter()
         runs = {}
         for name, path in (("rows", deck), ("conv", conv_deck),
-                           ("blocks", blocks_deck)):
+                           ("blocks", blocks_deck),
+                           ("golden_2d", GOLDEN_DECK)):
             cwd = Path(tmp) / name
             cwd.mkdir()
             runs[name] = (cwd, subprocess.Popen(
@@ -769,8 +793,8 @@ def cli_phase():
                 sol = cwd / "solution"
                 vtks = sorted(sol.glob("solution-*.vtk"))
                 log = sol / "run_log.jsonl"
-                if len(vtks) != (0 if name == "blocks" else 7) or \
-                        not log.exists():
+                want = {"blocks": 0, "golden_2d": 18}.get(name, 7)
+                if len(vtks) != want or not log.exists():
                     raise AssertionError(f"CLI output ({name}) incomplete: "
                                          f"{len(vtks)} VTK files, run log "
                                          f"{log.exists()}")
@@ -782,8 +806,9 @@ def cli_phase():
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
-        print(f"cli: the three runs in {time.perf_counter() - t0:.1f} s",
+        print(f"cli: the four runs in {time.perf_counter() - t0:.1f} s",
               flush=True)
+        golden_check(Path(tmp) / "golden_2d")
     rows, conv, blocks = logs["rows"], logs["conv"], logs["blocks"]
     key = lambda r: (r["step"], r["time"], r["fss_iterations"],  # noqa: E731
                      r["pressure_iterations"], r["cg_iterations"])
@@ -812,6 +837,288 @@ def cli_phase():
         if not abs(pa - pb) <= CLI_PRESSURE_RTOL * abs(pa):
             raise AssertionError(f"CLI step {a['step']}: pressure_error "
                                  f"rows {pa} vs conv {pb}")
+
+
+# ---------------------------------------------------------------------------
+# the 2D structured path: the golden deck, and the 512^2 at-scale point
+# ---------------------------------------------------------------------------
+
+N_2D = 512               # 512^2 cells: 1025^2*2 + 513^2 = 2,365,955 DOF
+N_2D_EVOLVING, N_2D_STEADY = 2, 1
+N_FLAT_EVOLVING = 2
+PARITY_VS_FLAT_TOL = 1e-4   # parity vs flat GMG path: p, u rel to max |field|
+GOLDEN_RTOL = 1e-6          # the pinned golden history's residuals
+GOLDEN_DECK = REPO / "configs" / "golden_2d.data"
+GOLDEN_HISTORY = REPO / "tests" / "data" / "golden_history.json"
+
+
+def vtk_scalars(path: Path) -> tuple:
+    """(number of points, {scalar name: values}) of a legacy ASCII VTK
+    file written by the port."""
+    lines = path.read_text().splitlines()
+    n_pts = next(int(ln.split()[1]) for ln in lines
+                 if ln.startswith("POINTS"))
+    out = {}
+    for i, ln in enumerate(lines):
+        if ln.startswith("SCALARS"):
+            out[ln.split()[1]] = np.array(
+                [float(v) for v in lines[i + 2:i + 2 + n_pts]])
+    return n_pts, out
+
+
+def golden_check(cwd: Path) -> None:
+    """The CLI's run of the golden 2D deck (16^2 cells, float64, 17 steps
+    on the flat Jacobi-CG path) against ``tests/data/golden_history.json``:
+    FSS and pressure counts exactly, ``pressure_error`` and the FSS error
+    history to :data:`GOLDEN_RTOL`; 18 VTK files, the last with 289 points
+    and ``sigma_yy`` != ``sigma_xx``."""
+    log = _run_log(cwd / "solution" / "run_log.jsonl")
+    ref = json.loads(GOLDEN_HISTORY.read_text())
+    if len(log) != len(ref):
+        raise AssertionError(f"golden run logged {len(log)} steps, the pin "
+                             f"has {len(ref)}")
+    worst = 0.0
+    for a, b in zip(log, ref):
+        hist = [x for x in a["fss_error_history"] if x >= 0]
+        errs = [abs(a["pressure_error"] / b["pressure_error"] - 1.0)] + [
+            abs(x / y - 1.0) for x, y in zip(hist, b["fss_error_history"])]
+        worst = max(worst, *errs)
+        if (a["fss_iterations"], a["pressure_iterations"], len(hist)) != (
+                b["fss_iterations"], b["pressure_iterations"],
+                len(b["fss_error_history"])) or not max(errs) <= GOLDEN_RTOL:
+            raise AssertionError(f"golden step {a['step']}: {a} vs pin {b}")
+    vtks = sorted((cwd / "solution").glob("solution-*.vtk"))
+    n_pts, sc = vtk_scalars(vtks[-1])
+    rec = {"golden_2d_cli": {
+        "steps": len(log), "fss": [r["fss_iterations"] for r in log],
+        "pressure": [r["pressure_iterations"] for r in log],
+        "max_rel_err_vs_pin": worst, "rtol": GOLDEN_RTOL,
+        "vtk_files": len(vtks), "points": n_pts,
+        "sigma_yy_ne_sigma_xx": bool(np.any(sc["sigma_yy"]
+                                            != sc["sigma_xx"]))}}
+    print(json.dumps(rec), flush=True)
+    if len(vtks) != len(ref) + 1 or n_pts != 289 or \
+            not rec["golden_2d_cli"]["sigma_yy_ne_sigma_xx"]:
+        raise AssertionError(f"golden run VTK output: {rec}")
+
+
+def _graph_replays(solver) -> int:
+    return sum(solver.graphs.replays.values()) if solver.graphs else 0
+
+
+class SolveLog:
+    """Every linear solve a solver runs, by call site: wraps the solver's
+    ``_cg`` and ``_richardson`` and keeps each result (device tensors,
+    read by :meth:`take`), and each Richardson solve's tolerance."""
+
+    def __init__(self, solver):
+        self.entries = []
+        cg, rich = solver._cg, solver._richardson
+
+        def cg_logged(site, *args, **kw):
+            res = cg(site, *args, **kw)
+            self.entries.append((site, res, None))
+            return res
+
+        def rich_logged(site, apply, b, x0, precond, tol, *args, **kw):
+            res = rich(site, apply, b, x0, precond, tol, *args, **kw)
+            self.entries.append((site, res, tol))
+            return res
+
+        solver._cg, solver._richardson = cg_logged, rich_logged
+
+    def take(self) -> list:
+        """[(site, iterations, all converged, any stalled, final residual
+        over tolerance or None)] of the solves since the last call."""
+        out = []
+        for site, res, tol in self.entries:
+            ratio = None if tol is None else (
+                res.residual_norm.double() / tol.double()).item()
+            out.append((site, int(res.iterations.max()),
+                        bool(res.converged.all()),
+                        bool(res.stalled.any()), ratio))
+        self.entries.clear()
+        return out
+
+
+def check_solves_2d(k, solves, stats, data) -> dict:
+    """Step ``k``'s solves: every pressure, projection and bc-response
+    solve converged; every mechanics solve converged or stopped on
+    Richardson's stagnation exit (the float32 attainable floor of the true
+    residual, as in the reference), none at the ``cap``; the FSS loop
+    converged.  Returns the mechanics solves' record."""
+    cap, mech_tol = data.cg_max_iterations, data.mech_cg_tol
+    mech = [x for x in solves if x[0].startswith("mechanics")]
+    for site, it, ok, stalled, _ in solves:
+        if site.startswith("mechanics"):
+            if it >= cap or not (ok or stalled):
+                raise AssertionError(f"2D step {k}: mechanics solve "
+                                     f"{it} iterations, converged {ok}, "
+                                     f"stalled {stalled}")
+        elif not ok:
+            raise AssertionError(f"2D step {k}: a {site} solve did not "
+                                 "converge")
+    if not stats.pressure_error <= float(np.float32(data.fss_tol)):
+        raise AssertionError(f"2D step {k}: FSS residual "
+                             f"{stats.pressure_error} above its tolerance")
+    return {"iterations": [x[1] for x in mech],
+            "converged": [x[2] for x in mech],
+            "stalled": [x[3] for x in mech],
+            # final true residual relative to |b| (tol = mech_tol * |b|)
+            "rel_residual": [None if x[4] is None else x[4] * mech_tol
+                             for x in mech]}
+
+
+def run_steps_2d(solver, log, n_evolving, n_steady):
+    """:func:`run_steps` with every linear solve checked
+    (:func:`check_solves_2d`), and the graph replays, the port's kernel
+    launches and the mechanics solves of each step printed beside its
+    counts; ``log``: the solver's :class:`SolveLog`."""
+    data = solver.data
+    dt = data.time_step
+    state = solver.initial_state()
+    log.take()
+    states, stats_all, ms_all = [], [], []
+    bc_prev = 1.0
+    for k in range(1, n_evolving + n_steady + 1):
+        bc = 1.0 + BC_RATE * min(k, n_evolving)
+        replays0 = _graph_replays(solver)
+        cm.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, stats = solver.time_step(state, dt, bc, bc_scale_prev=bc_prev,
+                                        want_u=True)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        bc_prev = bc
+        mech = check_solves_2d(k, log.take(), stats, data)
+        print(json.dumps({
+            "2d_step": k, "kind": "evolving" if k <= n_evolving else "steady",
+            "loop": "captured" if solver.graphs else "eager", "ms": ms,
+            "fss": stats.fss_iterations,
+            "pressure": stats.pressure_iterations,
+            "cg_pressure": stats.pressure_cg_iterations,
+            "cg_mechanics": stats.mech_cg_iterations,
+            "cg_projection": stats.projection_cg_iterations,
+            "pressure_error": stats.pressure_error,
+            "cg_converged": stats.cg_converged,
+            "cg_stalled": stats.cg_stalled, "mechanics_solves": mech,
+            "graph_replays": _graph_replays(solver) - replays0,
+            "kernel_launches": launch_counts()}), flush=True)
+        if k <= n_evolving and stats.mech_cg_iterations <= 0:
+            raise AssertionError(f"2D evolving step {k}: no mechanics work")
+        check_state(state, solver.disc.n_pdofs, solver.disc.n_udofs, 3)
+        states.append(state)
+        stats_all.append(stats)
+        ms_all.append(ms)
+    return states, stats_all, ms_all
+
+
+def build_2d(dev, elasticity_backend=None):
+    """``bench.py::build_2d``'s configuration at 512^2 float32 through the
+    port's entry point, ``multigrid="auto"``, and the bc-response solve
+    (run once, at set-up); returns (data, disc, solver, its
+    :class:`SolveLog`, set-up record)."""
+    data = data_2d()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    disc = build_grid_discretization(data, cells_per_axis=N_2D,
+                                     multigrid="auto", device=dev,
+                                     elasticity_backend=elasticity_backend)
+    solver = FixedStressSolver(disc, data)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    log = SolveLog(solver)
+    t0 = time.perf_counter()
+    solver._bc_response()
+    torch.cuda.synchronize()
+    bc_s = time.perf_counter() - t0
+    (_, bc_it, bc_ok, _, _), = log.take()
+    rec = {"n": N_2D, "dofs": disc.n_pdofs + disc.n_udofs,
+           "mechanics": type(disc.row_ops).__name__ if disc.row_ops
+           is not None else "flat",
+           "setup_s": setup_s, "elasticity_gmg_build_s": disc.gmg_setup_s,
+           "bc_response_s": bc_s, "bc_response_iterations": bc_it,
+           "bc_response_converged": bc_ok}
+    print(json.dumps({"2d_setup": rec}), flush=True)
+    if not bc_ok:
+        raise AssertionError(f"2D bc response did not converge: {rec}")
+    return data, disc, solver, log, rec
+
+
+def parity_apply_timing(disc, dev) -> dict:
+    """Device ms of one unconstrained parity apply at 512^2 float32 beside
+    its bound: read and write one parity vector, and 2*18*18 flop per
+    cell (the (18, 18) element matrix times each cell's 18 values)."""
+    ro = disc.row_ops
+    rng = np.random.default_rng(2)
+    x = ro.to_rows(torch.as_tensor(rng.standard_normal(disc.n_udofs),
+                                   dtype=torch.float32, device=dev))
+    fn = lambda: ro.apply_rows(x)  # noqa: E731
+    ms, host_ms = device_and_host_ms(fn)
+    nbytes = 2 * x.numel() * x.element_size()
+    flop = 2 * 18 * 18 * N_2D * N_2D
+    t_bytes, t_flop = nbytes / PEAK_BYTES, flop / PEAK_FLOPS[torch.float32]
+    rec = {"parity_apply": {
+        "n": N_2D, "dtype": "float32", "ms": ms, "host_ms": host_ms,
+        "bytes": nbytes, "flop": flop,
+        "bound_ms": max(t_bytes, t_flop) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_flop else "operations"}}
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def phase_2d(dev) -> None:
+    """The 2D path at the at-scale point on the card: the parity kit with
+    the parity-resident GMG (asserted selected), 2 evolving + 1 steady
+    captured steps (every solve converged, no mechanics solve at the cap,
+    mechanics work on the evolving steps, fields finite), the same steps
+    eager (counts, p and u bit for bit), and the flat GMG-Richardson path
+    (``elasticity_backend="conv"``) on the evolving steps against them
+    (FSS and pressure counts equal, p and u within
+    :data:`PARITY_VS_FLAT_TOL`); products at full float32 (TF32 off)."""
+    if torch.backends.cuda.matmul.allow_tf32 is not False or \
+            torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("TF32 is on for float32 matmuls")
+    data, disc, solver, log, _ = build_2d(dev)
+    if not isinstance(disc.row_ops, ElasticityParityOps) or \
+            disc.gmg_precond_rows is None:
+        raise AssertionError(f"512^2 'auto' did not select the parity kit "
+                             f"with gmg_precond_rows: {type(disc.row_ops)}")
+    run = run_steps_2d(solver, log, N_2D_EVOLVING, N_2D_STEADY)
+    states, stats, ms = run
+    captured_vs_eager("2d", solver, disc, data, captured_run=run)
+    parity_apply_timing(disc, dev)
+    # SolveLog's wrappers hold the solver in a reference cycle: free its
+    # graphs and buffers now
+    del solver, disc, log
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, flat, fsolver, flog, flat_setup = build_2d(dev, "conv")
+    if flat.row_ops is not None or flat.gmg_precond is None:
+        raise AssertionError("the flat 512^2 path has no flat elasticity GMG")
+    f_states, f_stats, f_ms = run_steps_2d(fsolver, flog, N_FLAT_EVOLVING, 0)
+    for k in range(N_FLAT_EVOLVING):
+        a, b = stats[k], f_stats[k]
+        rec = {"2d_parity_vs_flat_step": k + 1,
+               "fss": [a.fss_iterations, b.fss_iterations],
+               "pressure": [a.pressure_iterations, b.pressure_iterations],
+               "cg_mechanics": [a.mech_cg_iterations, b.mech_cg_iterations],
+               "ms": [ms[k], f_ms[k]], "flat_setup_s": flat_setup["setup_s"],
+               "tol": PARITY_VS_FLAT_TOL}
+        for name in ("p", "u"):
+            rec[f"{name}_max_rel_err"] = _rel_err(
+                getattr(states[k], name), getattr(f_states[k], name))
+        print(json.dumps(rec), flush=True)
+        if (rec["fss"][0], rec["pressure"][0]) != (rec["fss"][1],
+                                                   rec["pressure"][1]):
+            raise AssertionError(f"2D step {k + 1}: parity vs flat counts "
+                                 f"{rec}")
+        for name in ("p", "u"):
+            if not rec[f"{name}_max_rel_err"] <= PARITY_VS_FLAT_TOL:
+                raise AssertionError(f"2D step {k + 1} {name}: parity vs "
+                                     f"flat rel err "
+                                     f"{rec[f'{name}_max_rel_err']:.3e}")
 
 
 TENSOR_CORE_OP = re.compile(r"\b([DHIBQ]G?MMA)\b")
@@ -901,6 +1208,7 @@ def library_phase(dev, d, records):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     dev = torch.device("cuda")
@@ -941,6 +1249,7 @@ def main() -> int:
     flat_apply_phase(dev)
     launches["elasticity_grid_apply"] = conv_phase(dev, states)
     del states
+    phase_2d(dev)
     cli_phase()
 
     summary = []
@@ -963,6 +1272,8 @@ def main() -> int:
         "ms": slab_rec["ms"], "plain_ms": slab_rec["plain_ms"],
         "bound_ms": slab_rec["bound_ms"], "bound_by": slab_rec["bound_by"],
         "library_ms": slab_rec["library_ms"]})
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
+          flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Command-line interface of the port.
 
 ``python -m poroelasticity_dealii_torch run DECK [--device cuda|cpu] [--x64]``
-runs a structured deck; ``check DECK`` parses and prints it; ``devices``
+runs a structured 2D or 3D deck (e.g. ``configs/golden_2d.data``,
+``configs/consolidation_3d.data``); ``check DECK`` parses and prints it; ``devices``
 lists the visible CUDA devices.
 
 A deck with ``TPU / Sharding = production`` runs sharded under ``torchrun``

@@ -4,7 +4,8 @@ The discretization is rebuilt by each package from the same parsed deck,
 so a :class:`~.solvers.fss.State` is all that crosses: as numpy arrays in
 the JAX ``State`` field names (``p``, ``u``, ``eps_v``, ``eps_v0``,
 ``strains``, and optionally the derived caches ``u_rows`` and ``mech_b``,
-which both packages keep in the same comp-major row layout).  For a sharded
+which both packages keep in the same layout: the comp-major row layout of
+the 3D rows kit, the parity layout of the 2D parity kit).  For a sharded
 discretization the caller passes its rows kit, and the caches become the
 rank's slabs (the other fields stay whole, as the solver replicates them).
 """
@@ -29,7 +30,8 @@ def state_from_numpy(fields: Mapping[str, np.ndarray], device="cuda",
     from numpy arrays keyed by field name (a missing or None cache is left
     None).
 
-    ``row_ops``: the discretization's rows kit.  With the z-slab kit of a
+    ``row_ops``: the discretization's rows kit (3D rows or 2D parity):
+    ``u_rows`` is built from ``u`` in its layout.  With the z-slab kit of a
     sharded discretization (:class:`..parallel.rows.ShardedRowOps`),
     ``u_rows`` is the rank's slab of the whole ``u`` (the kit's
     ``to_rows``) and ``mech_b`` the rank's slab of the whole rows."""

@@ -41,8 +41,8 @@ def _check_supported(data: InputData) -> None:
          f"'Sharding = {data.sharding}' (ROADMAP item 9, A13: only "
          "production is ported)"),
         (data.sharding == "production" and data.dim != 3,
-         "'Sharding = production' on a 2D deck (the y-slab parity form "
-         "needs the 2D parity path, ROADMAP item 5, A9)"),
+         "'Sharding = production' on a 2D deck (the y-slab parity form, "
+         "ROADMAP item 9.2, A13)"),
         (data.checkpoint_every > 0, "checkpoints (ROADMAP A8, runner options)"),
         (data.debug_nans, "'Debug NaNs = true' (ROADMAP Queue C)"),
         (data.nondimensionalize,
@@ -139,8 +139,13 @@ class SimulationRunner:
                     raise FloatingPointError(f"FSS residual diverged at "
                                              f"step {s}")
                 if not bool(stats.cg_converged):
-                    warnings.warn(f"step {s}: a linear solve hit its "
-                                  "iteration cap before reaching tolerance",
+                    if bool(stats.cg_stalled):
+                        reason = ("stagnated (residual reduction < 2%/iter "
+                                  "— often the benign f32 attainable floor)")
+                    else:
+                        reason = "hit its iteration cap"
+                    warnings.warn(f"step {s}: a linear solve {reason} "
+                                  "before reaching tolerance",
                                   RuntimeWarning)
             pending.clear()
 

@@ -81,10 +81,6 @@ def make_stencil_apply(element_matrix: np.ndarray, k_in: int, k_out: int,
     ns = (n_cells,) * dim if np.ndim(n_cells) == 0 else tuple(n_cells)
     if k_in == k_out == 1 and n_comp_in == n_comp_out == 1:
         return make_q1_slices_apply(element_matrix, dim, ns, dtype, device)
-    if dim != 3:
-        raise NotImplementedError(
-            "the 2D parity-matmul stencils (_make_parity_matmul_apply) are "
-            "ROADMAP item 5")
     KT = torch.as_tensor(np.asarray(element_matrix, np.float64).T,
                          dtype=dtype, device=device)
 

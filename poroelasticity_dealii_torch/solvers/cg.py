@@ -1,5 +1,5 @@
-"""Preconditioned conjugate gradients (port of
-``poroelasticity_dealii_tpu/solvers/cg.py:61-148, 193-204``).
+"""Preconditioned conjugate gradients and preconditioned Richardson (port
+of ``poroelasticity_dealii_tpu/solvers/cg.py:61-204``).
 
 The loop state lives on the device: the iterate, residual, direction, the
 scalars ``rz`` and ``rnorm``, the count ``k`` and the tolerance.  The
@@ -12,7 +12,8 @@ condition fails (``torch.where``, as the reference's ``vmap`` of the
 convergence change nothing, and the host reads one flag per chunk
 (:func:`.cuda_graphs.run_chunks`).  With a :class:`.cuda_graphs.ChunkGraphs`
 each chunk is the replay of a captured CUDA graph.  The batched form gives
-each right-hand side its own tolerance and count.
+each right-hand side its own tolerance and count.  :func:`richardson_solve`
+keeps the same device-resident state and chunks.
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ class CGResult:
     iterations: torch.Tensor      # int64, 0-d or (n_rhs,)
     residual_norm: torch.Tensor   # x's dtype, 0-d or (n_rhs,)
     converged: torch.Tensor       # bool, 0-d or (n_rhs,)
+    stalled: torch.Tensor = None  # bool: ended on the stagnation exit
+    #                               (richardson_solve) rather than the cap
 
 
 class LocalReductions:
@@ -133,8 +136,60 @@ def cg_solve(apply_a: Callable, b: torch.Tensor, x0: torch.Tensor,
         precond is None)
     k, x, _, _, _, rnorm = run_chunks(init, step, cond, (b, x0), consts,
                                       max_iter, chunk, graphs, key)
+    converged = rnorm.double() <= consts[0]
     return CGResult(x=x, iterations=k, residual_norm=rnorm,
-                    converged=rnorm.double() <= consts[0])
+                    converged=converged, stalled=torch.zeros_like(converged))
+
+
+def richardson_solve(apply_a: Callable, b: torch.Tensor, x0: torch.Tensor,
+                     precond: Callable, tol, max_iter: int,
+                     norm: Callable = LocalReductions.norm, chunk: int = 1,
+                     graphs=None, graph_key=None) -> CGResult:
+    """Preconditioned Richardson iteration ``x += M^{-1}(b - A x)``, the f32
+    companion of :func:`cg_solve` for strong operator preconditioners (a
+    GMG V-cycle), whose CG quadratic forms fall below the f32 apply's own
+    rounding noise: no dot product enters the update.
+
+    An iteration runs while ``k < max_iter``, ``rnorm > tol`` and
+    ``rnorm < 0.98 * rprev`` (the residual fell by 2% or more in the last
+    iteration); ``stalled`` marks a solve that ended on that stagnation
+    exit short of its tolerance.  The residual is carried in the state, so
+    an iteration costs one preconditioner call and one apply.  ``tol``,
+    ``norm``, ``chunk``, ``graphs`` and ``graph_key`` as in
+    :func:`cg_solve`; a frozen iteration still runs its V-cycle, so chunks
+    are short."""
+    consts = (_tol64(tol, b), b)
+
+    def init(inputs, consts):
+        (x0,) = inputs
+        r = consts[1] - apply_a(x0)
+        rnorm = norm(r)
+        k = torch.zeros((), dtype=torch.int64, device=x0.device)
+        return (k, x0, r, rnorm, torch.full_like(rnorm, float("inf")))
+
+    def cond(state, consts):
+        k, _, _, rnorm, rprev = state
+        return (k < max_iter) & (rnorm.double() > consts[0]) \
+            & (rnorm < 0.98 * rprev)
+
+    def step(state, consts):
+        k, x, r, rnorm, rprev = state
+        active = cond(state, consts)
+        x_new = x + precond(r)
+        r_new = consts[1] - apply_a(x_new)
+        return (k + active.long(), torch.where(active, x_new, x),
+                torch.where(active, r_new, r),
+                torch.where(active, norm(r_new), rnorm),
+                torch.where(active, rnorm, rprev))
+
+    key = None if graphs is None else (
+        *graph_key, "richardson", b.dtype, tuple(b.shape), max_iter)
+    k, x, _, rnorm, rprev = run_chunks(init, step, cond, (x0,), consts,
+                                       max_iter, chunk, graphs, key)
+    converged = rnorm.double() <= consts[0]
+    return CGResult(x=x, iterations=k, residual_norm=rnorm,
+                    converged=converged,
+                    stalled=~converged & (rnorm >= 0.98 * rprev))
 
 
 def cg_solve_batched(apply_a: Callable, b: torch.Tensor, x0: torch.Tensor,
@@ -179,5 +234,6 @@ def cg_solve_batched(apply_a: Callable, b: torch.Tensor, x0: torch.Tensor,
     k, x, _, _, _, rnorm = run_chunks(
         init, step, lambda s, c: lanes(s, c).any(), (b, x0), consts,
         max_iter, chunk, graphs, key)
+    converged = rnorm.double() <= consts[0]
     return CGResult(x=x, iterations=k, residual_norm=rnorm,
-                    converged=rnorm.double() <= consts[0])
+                    converged=converged, stalled=torch.zeros_like(converged))

@@ -15,11 +15,16 @@ captured with ``torch.cuda.graph`` after one eager warm-up on a side
 stream, all graphs in one memory pool.  A solve copies its inputs into the
 buffers, replays the start, then a chunk while the flag says so, and
 clones the result out, because the next solve with that key reuses the
-buffers.  Capture raises on a host read inside a graph, which is the proof
+buffers.  A key holds the solver (``"cg"``, ``"cg_batched"``,
+``"richardson"``) and the right-hand side's type and shape, so a flat, a
+row-layout and a parity-layout solve at one call site get graphs of their
+own.  Capture raises on a host read inside a graph, which is the proof
 that a chunk holds none.  Every tensor a graph reads is a buffer, a
 per-solve constant copied into a buffer (``consts``), or a constant of the
-operators that outlives the solver; the caller keeps the operators of one
-key the same.
+operators that outlives the solver (the element matrices, masks and, for a
+V-cycle preconditioner, every level's tensors and the coarse inverse,
+which the discretization holds); the caller keeps the operators of one key
+the same.
 
 The kernel wrappers count a launch in Python, which a replay does not run:
 the counts a capture adds are recorded and taken back, and each replay adds
@@ -31,6 +36,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 from typing import Callable
 
 import torch
@@ -138,13 +144,21 @@ class ChunkGraphs:
             site.state = tuple(torch.empty_like(t) for t in out)
         before = cm.launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool):
-            out = src
-            for _ in range(1 if start else which):
-                out = fn(out, site.consts)
-            site.flag.copy_(cond(out, site.consts))
-            for buf, t in zip(site.state, out):
-                buf.copy_(t)
+        # no garbage collection while capturing: collecting another
+        # solver's graphs (a graph reset) would invalidate this capture
+        gc_enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool):
+                out = src
+                for _ in range(1 if start else which):
+                    out = fn(out, site.consts)
+                site.flag.copy_(cond(out, site.consts))
+                for buf, t in zip(site.state, out):
+                    buf.copy_(t)
+        finally:
+            if gc_enabled:
+                gc.enable()
         delta = {k: v - before[k] for k, v in cm.launch_counts().items()}
         cm.add_launch_counts({k: -v for k, v in delta.items()})
         site.graphs[which], site.deltas[which] = graph, delta

@@ -14,9 +14,13 @@ runs the same chunks eagerly).  The step's CG counts stay on the device
 until the step, or a block of steps (:meth:`FixedStressSolver.multi_step`),
 ends.
 
-The mechanics vector is in the comp-major row layout when the
-discretization has a rows kit (``disc.row_ops``) and flat otherwise (the
-conv backend): ``State.u_rows`` is then None and ``State.mech_b`` flat.
+The mechanics vector is in the kit's layout when the discretization has a
+rows kit (``disc.row_ops``: the comp-major row layout in 3D, the parity
+layout in 2D) and flat otherwise (the conv backend): ``State.u_rows`` is
+then None and ``State.mech_b`` flat.  With an elasticity V-cycle
+(``disc.gmg_precond_rows`` on the parity kit, ``disc.gmg_precond`` on flat
+vectors) the mechanics solve is GMG-Richardson in float32 and GMG-CG in
+float64, as in the reference; otherwise Jacobi-CG.
 With the z-slab kit of the sharded production path
 (:class:`..parallel.rows.ShardedRowOps`) ``State.u_rows`` and
 ``State.mech_b`` are the rank's slabs and ``State.u`` the gathered whole
@@ -50,7 +54,7 @@ from ..ops.operators import SHEAR_ENTRIES, VOIGT_PAIRS, VOLUMETRIC_ENTRIES
 from ..ops.stencil import make_q1_slices_apply
 from . import structured
 from ..parallel.rows import ShardedRowOps
-from .cg import LocalReductions, cg_solve, cg_solve_batched
+from .cg import LocalReductions, cg_solve, cg_solve_batched, richardson_solve
 from .cuda_graphs import ChunkGraphs
 from .multigrid import build_gmg_pressure
 from .structured import GridDiscretization, _single_cell_spaces
@@ -65,8 +69,13 @@ from .structured import GridDiscretization, _single_cell_spaces
 #   a few hundred small kernels, so a wasted iteration costs more than a
 #   host read: 2;
 # * projection: 20-45 batched mass-matrix iterations a solve, cheap ones: 8;
-# * bc response: one solve of about a hundred iterations, once: 16.
-CHUNK = {"mechanics": 8, "pressure": 2, "projection": 8, "bc_response": 16}
+# * bc response: one solve of about a hundred iterations, once: 16;
+# * mechanics with an elasticity V-cycle (GMG-Richardson in f32, GMG-CG in
+#   f64, the 2D path): 1-5 iterations a solve, and a frozen iteration costs
+#   a whole V-cycle (~3 ms of device time at 512^2 on the H100, more than a
+#   host read): 1.
+CHUNK = {"mechanics": 8, "pressure": 2, "projection": 8, "bc_response": 16,
+         "mechanics_gmg": 1}
 
 
 @dataclasses.dataclass
@@ -82,6 +91,9 @@ class StepStats:
     fss_error_history: np.ndarray     # (max_fss,) padded with -1
     cg_converged: bool = True         # False if any linear solve ended
     #                                   before its tolerance
+    cg_stalled: bool = False          # True if a mechanics solve that did
+    #                                   not converge ended on Richardson's
+    #                                   stagnation exit, not the cap
 
 
 @dataclasses.dataclass
@@ -113,12 +125,14 @@ def _read_stats(steps: list) -> list:
         return []
     dev = torch.stack([torch.stack([
         s.pressure_cg_iterations, s.mech_cg_iterations,
-        s.projection_cg_iterations, s.cg_converged.long()])
+        s.projection_cg_iterations, s.cg_converged.long(),
+        s.cg_stalled.long()])
         for s in steps]).tolist()
     return [dataclasses.replace(
         s, pressure_cg_iterations=cp, mech_cg_iterations=cu,
-        projection_cg_iterations=cr, cg_converged=bool(ok))
-        for s, (cp, cu, cr, ok) in zip(steps, dev)]
+        projection_cg_iterations=cr, cg_converged=bool(ok),
+        cg_stalled=bool(st))
+        for s, (cp, cu, cr, ok, st) in zip(steps, dev)]
 
 
 class FixedStressSolver:
@@ -172,6 +186,11 @@ class FixedStressSolver:
         solve = cg_solve_batched if batched else cg_solve
         return solve(*args, chunk=CHUNK[site], graphs=self.graphs,
                      graph_key=(site, *graph_key), **kw)
+
+    def _richardson(self, site, *args, **kw):
+        """``richardson_solve`` at call site ``site``, as :meth:`_cg`."""
+        return richardson_solve(*args, chunk=CHUNK[site], graphs=self.graphs,
+                                graph_key=(site,), **kw)
 
     # ---------------- pressure system pieces -------------------------------
 
@@ -242,8 +261,8 @@ class FixedStressSolver:
         the warm start already solves the system: the tolerance becomes
         inf, so CG stops after its initial residual.
 
-        Returns ``(u, iters, converged, b)``, the count and the flag as
-        device tensors."""
+        Returns ``(u, iters, converged, stalled, b)``, the count and the
+        flags as device tensors."""
         d, data = self.disc, self.data
         ro = d.row_ops
         m = self._free_mask
@@ -267,18 +286,32 @@ class FixedStressSolver:
             tol = tol.masked_fill(self._reduce.all_equal(b, b_prev),
                                   float("inf"))
         if self._rows:
-            res = self._cg("mechanics", ro.constrained_apply, b, x0,
-                           ro.diag_rows, tol=tol,
+            apply, diag, gmg = ro.constrained_apply, ro.diag_rows, \
+                d.gmg_precond_rows
+        else:
+            apply, diag, gmg = d.elasticity_constrained, \
+                d.diag_elasticity, d.gmg_precond
+        if gmg is not None and d.dtype == torch.float32:
+            # a strong preconditioner in f32: CG's p.Ap sinks into the
+            # apply's rounding noise, Richardson has no quadratic forms
+            res = self._richardson("mechanics_gmg", apply, b, x0, gmg, tol,
+                                   data.cg_max_iterations)
+        elif gmg is not None:
+            # f64: GMG-CG (the reference's tolerances lie below the true
+            # residual's roundoff floor, which only the recurred CG
+            # residual passes)
+            res = self._cg("mechanics_gmg", apply, b, x0, diag, tol=tol,
+                           max_iter=data.cg_max_iterations, precond=gmg)
+        elif self._rows:
+            res = self._cg("mechanics", apply, b, x0, diag, tol=tol,
                            max_iter=data.cg_max_iterations,
                            apply_iter=ro.free_apply, flexible=False,
                            dot=self._reduce.dot, norm=self._reduce.norm)
         else:
-            # Jacobi CG only: elasticity GMG and mixed-precision
-            # refinement are not ported (ROADMAP items 6, 7)
-            res = self._cg("mechanics", d.elasticity_constrained, b, x0,
-                           d.diag_elasticity, tol=tol,
+            # mixed-precision refinement is not ported (ROADMAP item 7)
+            res = self._cg("mechanics", apply, b, x0, diag, tol=tol,
                            max_iter=data.cg_max_iterations)
-        return res.x, res.iterations, res.converged, b
+        return res.x, res.iterations, res.converged, res.stalled, b
 
     def _bc_response(self):
         """du/d(bc_scale) on the mechanics vector: the constrained solve
@@ -335,7 +368,7 @@ class FixedStressSolver:
         u0 = torch.zeros(d.n_udofs, dtype=d.dtype, device=d.device)
         if self._rows:
             u0 = d.row_ops.to_rows(u0)
-        u, _, _, b0 = self._mechanics_solve(p, u0, bc_scale)
+        u, _, _, _, b0 = self._mechanics_solve(p, u0, bc_scale)
         vol = VOLUMETRIC_ENTRIES[dim]
         warm = torch.zeros((len(vol), d.n_pdofs), dtype=d.dtype,
                            device=d.device)
@@ -451,6 +484,7 @@ class FixedStressSolver:
         zero = torch.zeros((), dtype=torch.int64, device=d.device)
         cg_p = cg_u = cg_proj = zero
         cg_ok = torch.ones((), dtype=torch.bool, device=d.device)
+        cg_stall = torch.zeros_like(cg_ok)
 
         def pressure_inner(p, eps_v, cg_p, cg_ok):
             """Stationary iteration on the fixed-stress-stabilised flow
@@ -496,7 +530,7 @@ class FixedStressSolver:
         while it < data.max_fss_iterations and err > fss_tol:
             p, eps_v, n_press, cg_p, cg_ok = pressure_inner(p, eps_v, cg_p,
                                                             cg_ok)
-            u, it_u, ok_u, mech_b = self._mechanics_solve(
+            u, it_u, ok_u, st_u, mech_b = self._mechanics_solve(
                 p, u, bc_scale, b_prev=mech_b)
             proj_rhs = self._projection_rhs(u)
             vol_strains, it_pr, ok_pr = self._project(vol, vol_strains,
@@ -510,6 +544,7 @@ class FixedStressSolver:
             press_total += n_press
             cg_u, cg_proj = cg_u + it_u, cg_proj + it_pr
             cg_ok = cg_ok & ok_u & ok_pr
+            cg_stall = cg_stall | st_u
 
         strains = state.strains.clone()
         strains[vol] = vol_strains
@@ -531,7 +566,8 @@ class FixedStressSolver:
             fss_iterations=it, pressure_error=err,
             pressure_iterations=press_total, pressure_cg_iterations=cg_p,
             mech_cg_iterations=cg_u, projection_cg_iterations=cg_proj,
-            fss_error_history=err_hist, cg_converged=cg_ok)
+            fss_error_history=err_hist, cg_converged=cg_ok,
+            cg_stalled=cg_stall)
         return new_state, stats
 
     # ---------------- nodal effective stresses ------------------------------

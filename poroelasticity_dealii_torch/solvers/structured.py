@@ -1,35 +1,42 @@
-"""Structured-grid discretization of the 3D Q2/Q1 problem (port of
-``poroelasticity_dealii_tpu/solvers/structured.py:77-120, 123-184,
+"""Structured-grid discretization of the Q2/Q1 problem in 2D and 3D (port
+of ``poroelasticity_dealii_tpu/solvers/structured.py:77-120, 123-184,
 186-455``).
 
 On a uniform grid every cell has the same element matrices, built once on
 the host in float64.  The pressure operators are Q1 slice stencils
-(:mod:`..ops.stencil`).  Two mechanics backends, chosen by
+(:mod:`..ops.stencil`).  The mechanics backend is chosen by
 ``elasticity_backend`` (or the deck's ``TPU / Elasticity backend``):
 
-* ``auto``/``pallas`` (rows): the mechanics runs in the comp-major row
+* 3D ``auto``/``pallas`` (rows): the mechanics runs in the comp-major row
   layout through :class:`..ops.comp_major.ElasticityRowOps`, whose
   elasticity, coupling and projection operators are the hand-written CUDA
   kernels on a CUDA device;
-* ``conv`` (flat): the mechanics runs on flat dof vectors, JAX's
-  ``ConvGridDiscretization``: the elasticity apply is the hand-written
-  flat CUDA kernel (``make_grid_elasticity``) on a CUDA device and the
-  plain-torch stencil (gather, one matmul, strided slice-add scatter;
-  ``make_stencil_apply``) on the CPU; coupling and projection are the
-  stencils.  ``auto`` resolves to it in the JAX package on every device but
-  a TPU; in the port it must be asked for.
+* 2D ``parity``, and 2D ``auto`` from :data:`PARITY_AUTO_MIN_UDOFS`
+  displacement dofs: the mechanics runs in the parity layout through
+  :class:`..ops.parity2d.ElasticityParityOps` (plain torch products, as
+  the JAX package's XLA einsums);
+* ``conv`` (flat), and 2D ``auto`` below that size: the mechanics runs on
+  flat dof vectors, JAX's ``ConvGridDiscretization``: in 3D the elasticity
+  apply is the hand-written flat CUDA kernel (``make_grid_elasticity``) on
+  a CUDA device, and otherwise the plain-torch stencil (gather, one
+  matmul, strided slice-add scatter; ``make_stencil_apply``); coupling and
+  projection are the stencils.  In 3D ``auto`` resolves to it in the JAX
+  package on every device but a TPU; in the port it must be asked for.
 
-Both backends keep the stencils (``elasticity``, ``coupling_rhs``,
+Every backend keeps the stencils (``elasticity``, ``coupling_rhs``,
 ``strain_projection_rhs``), as JAX's conv discretization does under its
-rows kit.  Other dimensions, degrees, anisotropic grids, elasticity
-multigrid and the 2D parity backend raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+rows kit.  Elasticity multigrid (:func:`..solvers.multigrid.
+build_gmg_elasticity`) is built in 2D where JAX builds it (``gmg_precond``,
+and ``gmg_precond_rows`` on the parity kit).  Other degrees, anisotropic
+grids and 3D elasticity multigrid raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+import time
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -48,8 +55,10 @@ from ..ops import operators as ops
 from ..ops.comp_major import ElasticityRowOps, make_row_ops
 from ..ops.elasticity import make_grid_elasticity
 from ..ops.geometry import geometry_factors
+from ..ops.parity2d import ElasticityParityOps, make_parity_ops
 from ..ops.stencil import make_q1_slices_apply, make_stencil_apply
 from ..ops.structured import uniform_geometry_factors
+from .multigrid import build_gmg_elasticity
 from .discretization import (_body_force_vector, _dirichlet_constraints,
                              _neumann_vector, _pressure_dirichlet,
                              _well_vector)
@@ -83,10 +92,16 @@ class GridDiscretization:
                                     # a CUDA device unless kernels="plain")
     stencil_coupling: Callable      # flat Q1 p -> Q2 RHS, Biot folded in
     stencil_projection: Callable    # flat u -> (C, n_pdofs) strain RHS
-    row_ops: Optional[ElasticityRowOps]   # None on the conv backend
-    element_ke: np.ndarray          # (81, 81) elasticity, float64
-    element_ce: np.ndarray          # (81, 8) coupling, Biot folded in
-    element_pe: np.ndarray          # (48, 81) strain projection
+    # the mechanics kit: rows (3D), parity (2D), None on flat vectors
+    row_ops: Optional[Union[ElasticityRowOps, ElasticityParityOps]]
+    element_ke: np.ndarray          # (81, 81) elasticity, float64 (18 x 18
+    element_ce: np.ndarray          # in 2D); (81, 8) coupling, Biot folded
+    element_pe: np.ndarray          # in; (48, 81) strain projection
+    # elasticity GMG V-cycle on flat vectors, and from/to the parity
+    # layout on the parity kit (None where none is built)
+    gmg_precond: Optional[Callable] = None
+    gmg_precond_rows: Optional[Callable] = None
+    gmg_setup_s: float = 0.0        # host seconds of the elasticity GMG build
 
     @property
     def n_pdofs(self) -> int:
@@ -179,40 +194,46 @@ def build_grid_discretization(data: InputData,
                               elasticity_backend: Optional[str] = None,
                               device="cuda",
                               kernels: str = "auto") -> GridDiscretization:
-    """The 3D Q2/Q1 isotropic discretization on ``device`` (default the
-    card; raises without one, pass ``device="cpu"`` for the CPU).
+    """The Q2/Q1 isotropic discretization (2D or 3D) on ``device``
+    (default the card; raises without one, pass ``device="cpu"`` for the
+    CPU).
 
-    ``elasticity_backend`` (default: the deck's): ``auto``/``pallas`` for
-    the rows kit, ``conv`` for flat vectors and no ``row_ops``.
+    ``elasticity_backend`` (default: the deck's): ``auto``, ``pallas``,
+    ``parity`` or ``conv``, resolved as the module docstring says.
     ``kernels="auto"`` sends each row-layout operator, and on a CUDA device
-    the flat elasticity apply (``stencil_elasticity``, the conv backend's
-    mechanics operator), through its kernel wrapper (CUDA kernel on a CUDA
-    device, plain twin on the CPU); ``kernels="plain"`` forces the plain
-    twins and the plain stencil on any device, for comparing a run against
-    the kernels.  ``multigrid``: elasticity GMG,
-    which the port does not have; ``auto`` builds none on the rows backend
-    (as the JAX package) and raises on the conv backend where JAX would
-    build it (from 150,000 displacement dofs)."""
+    the 3D flat elasticity apply (``stencil_elasticity``, the conv
+    backend's mechanics operator), through its kernel wrapper (CUDA kernel
+    on a CUDA device, plain twin on the CPU); ``kernels="plain"`` forces the
+    plain twins and the plain stencil on any device, for comparing a run
+    against the kernels.  ``multigrid``: elasticity GMG, ``auto`` (from
+    150,000 displacement dofs, and never on the 3D rows backend), ``on``
+    or ``off``, JAX's rule; the port builds it in 2D and raises where JAX
+    would build it in 3D."""
     dim = data.dim
     if cells_per_axis is None:
         cells_per_axis = getattr(data, "cells_per_axis", None) \
             or 2 ** data.initial_refinement_level
     cells_per_axis = normalize_cells_per_axis(cells_per_axis, dim)
-    if (dim != 3 or (pressure_degree, displacement_degree) != (1, 2)
+    if (dim not in (2, 3) or (pressure_degree, displacement_degree) != (1, 2)
             or len(set(cells_per_axis)) != 1):
         raise NotImplementedError(
-            "the torch port runs 3D Q2/Q1 grids with equal cells per axis; "
-            f"got dim={dim}, degrees={pressure_degree}/{displacement_degree},"
-            f" cells={cells_per_axis} (2D: ROADMAP A9; anisotropic grids and "
-            "other degrees: ROADMAP A10)")
+            "the torch port runs 2D and 3D Q2/Q1 grids with equal cells per "
+            f"axis; got dim={dim}, degrees={pressure_degree}/"
+            f"{displacement_degree}, cells={cells_per_axis} (anisotropic "
+            "grids and other degrees: ROADMAP A10)")
     eb = elasticity_backend or data.elasticity_backend
-    if eb == "parity":
-        raise NotImplementedError("the 2D parity elasticity backend is "
-                                  "ROADMAP item 5")
-    if eb not in ("auto", "pallas", "conv"):
+    if eb not in ("auto", "pallas", "parity", "conv"):
         raise ValueError(f"unknown elasticity backend {eb!r}")
-    if multigrid not in ("auto", "off", "false", False, None):
-        raise NotImplementedError("elasticity multigrid is ROADMAP item 6")
+    if eb == "parity" and dim != 2:
+        raise NotImplementedError(
+            "the parity elasticity backend needs a 2D Q2/Q1 grid with equal "
+            f"cells per axis; got dim={dim}")
+    if eb == "pallas" and dim != 3:
+        raise NotImplementedError(
+            "the pallas (rows) elasticity backend needs a 3D Q2 grid; got "
+            f"dim={dim}")
+    if multigrid not in ("auto", "on", "off", "false", False, None):
+        raise ValueError(f"unknown multigrid setting {multigrid!r}")
     if data.mech_precond != "jacobi":
         raise NotImplementedError("node-block Jacobi is ROADMAP A10")
     if kernels not in ("auto", "plain"):
@@ -269,11 +290,20 @@ def build_grid_discretization(data: InputData,
     Ce = _coupling_element_matrix(cell_mesh, su1, sp1, data.biot_coef)
     Pe = _projection_element_matrix(cell_mesh, su1, sp1)
     n = cells_per_axis[0]
-    if eb == "conv" and _gmg_levels(n, dim, n_udofs, multigrid) >= 2:
+    if dim == 3:
+        kit = "conv" if eb == "conv" else "rows"
+    else:
+        kit = "parity" if eb == "parity" or (
+            eb == "auto" and n_udofs >= PARITY_AUTO_MIN_UDOFS) else "conv"
+    # elasticity GMG where JAX builds it: never on the 3D rows kit with
+    # 'auto'; otherwise _gmg_levels decides
+    n_levels = 1 if (kit == "rows" and multigrid == "auto") \
+        else _gmg_levels(n, dim, n_udofs, multigrid)
+    if n_levels >= 2 and dim == 3:
         raise NotImplementedError(
-            f"multigrid={multigrid!r} on the conv backend at {n_udofs} "
-            "displacement dofs builds elasticity GMG in the JAX package; "
-            "the port has none yet (ROADMAP item 6): pass multigrid='off'")
+            f"multigrid={multigrid!r} at {n_udofs} displacement dofs builds "
+            "3D elasticity GMG in the JAX package; the port has it in 2D "
+            "only (ROADMAP item 6): pass multigrid='off'")
     C = len(ops.VOIGT_PAIRS[dim])
     mk = lambda M, kin, kout, ci, co: make_stencil_apply(  # noqa: E731
         M, kin, kout, ci, co, dim, cells_per_axis, dtype, device)
@@ -282,10 +312,29 @@ def build_grid_discretization(data: InputData,
     def st_proj(u):
         return proj_raw(u).reshape(-1, C).T         # (C, n_pdofs)
 
-    if device.type == "cuda" and kernels == "auto":
+    if dim == 3 and device.type == "cuda" and kernels == "auto":
         st_el = make_grid_elasticity(Ke, n, dtype, device)
     else:
         st_el = mk(Ke, displacement_degree, displacement_degree, dim, dim)
+
+    if kit == "rows":
+        row_ops = make_row_ops(Ke, n, free_np, diag_el, Ce, Pe, dtype,
+                               device, plain=kernels == "plain")
+    elif kit == "parity":
+        row_ops = make_parity_ops(Ke, n, free_np, diag_el, Ce, Pe, dtype,
+                                  device)
+    else:
+        row_ops = None
+    gmg = gmg_rows = None
+    gmg_setup_s = 0.0
+    if n_levels >= 2:
+        t0 = time.perf_counter()
+        gmg, _ = build_gmg_elasticity(
+            data, n_fine=n, n_levels=n_levels, dtype=dtype, device=device,
+            lower=mesh.vertices.min(axis=0), upper=mesh.vertices.max(axis=0),
+            parity_layout=kit == "parity")
+        gmg_rows = getattr(gmg, "rows", None)
+        gmg_setup_s = time.perf_counter() - t0
 
     dev = lambda a: torch.as_tensor(  # noqa: E731
         np.asarray(a, np.float64), dtype=dtype, device=device)
@@ -303,10 +352,14 @@ def build_grid_discretization(data: InputData,
         stencil_elasticity=st_el,
         stencil_coupling=mk(Ce, pressure_degree, displacement_degree, 1, dim),
         stencil_projection=st_proj,
-        row_ops=None if eb == "conv" else make_row_ops(
-            Ke, n, free_np, diag_el, Ce, Pe, dtype, device,
-            plain=kernels == "plain"),
-        element_ke=Ke, element_ce=Ce, element_pe=Pe)
+        row_ops=row_ops, element_ke=Ke, element_ce=Ce, element_pe=Pe,
+        gmg_precond=gmg, gmg_precond_rows=gmg_rows, gmg_setup_s=gmg_setup_s)
+
+
+# 'auto' switches the 2D mechanics to the parity layout from this many
+# displacement dofs; below it, small decks (the pinned golden history among
+# them) keep the flat path, as in the JAX package
+PARITY_AUTO_MIN_UDOFS = 150_000
 
 
 def _gmg_levels(n: int, dim: int, n_dofs: int, multigrid: str,

@@ -1,14 +1,19 @@
 """Device time of fixed-stress steps by kernel, from ``torch.profiler``:
 
-    python -m poroelasticity_dealii_torch.tools.profile_step [n] [backend] [loop]
+    python -m poroelasticity_dealii_torch.tools.profile_step [n] [backend] [loop] [site=C ...]
 
 runs the bench configuration (:func:`bench_data`) at ``n`` cells per axis
 (default 40) on the card, on the rows backend (default), the conv backend
 (``backend`` ``conv``) or the sharded production path on a world-size-1
 NCCL process group (``sharded``: the rows kit replaced by the z-slab kit,
-every mechanics apply the slab kernel), with the solver's CG chunks
+every mechanics apply the slab kernel), or the 2D configuration
+(:func:`data_2d`, ``backend`` ``2d``, e.g. ``512 2d``: the parity kit
+with the parity-resident elasticity GMG from 150,000 displacement dofs,
+GMG-Richardson in float32), with the solver's CG chunks
 captured as CUDA graphs (``loop`` ``captured``, the default; the sharded
-path always runs them eagerly) or run eagerly (``eager``):
+path always runs them eagerly) or run eagerly (``eager``), each call
+site's chunk size from ``solvers/fss.py::CHUNK`` unless a ``site=C``
+argument sets it (e.g. ``mechanics_gmg=1``):
 ``initial_state``, evolving steps with the Dirichlet load ramp, then steady
 steps at the last load.  It profiles the last evolving and the last steady
 step and prints one JSON line for each: the step's counts, its wall time
@@ -46,6 +51,20 @@ def bench_data(deck=DECK):
     from ..config import read_input_file
     return dataclasses.replace(
         read_input_file(str(deck)), dtype="float32", flow_rate=1e-2,
+        fss_tol=2e-5, pressure_tol=2e-5, mech_cg_tol=1e-5,
+        mech_cg_relative=True, pressure_cg_tol=1e-5, projection_cg_tol=1e-5)
+
+
+DECK_2D = DECK.parent / "golden_2d.data"
+
+
+def data_2d(deck=DECK_2D):
+    """The 2D at-scale configuration (``bench.py::build_2d``): the golden
+    deck's physics in float32, flow rate 1.0 and the bench tolerances, so
+    that every solver works each step at 512^2."""
+    from ..config import read_input_file
+    return dataclasses.replace(
+        read_input_file(str(deck)), dtype="float32", flow_rate=1.0,
         fss_tol=2e-5, pressure_tol=2e-5, mech_cg_tol=1e-5,
         mech_cg_relative=True, pressure_cg_tol=1e-5, projection_cg_tol=1e-5)
 
@@ -135,7 +154,7 @@ def _step(solver, state, bc, bc_prev):
     return state, stats, (time.perf_counter() - t0) * 1e3
 
 
-BACKENDS = ("rows", "conv", "sharded")
+BACKENDS = ("rows", "conv", "sharded", "2d")
 LOOPS = ("captured", "eager")
 
 
@@ -164,13 +183,18 @@ def _run(n, n_evolving, n_steady, device, backend, loop) -> list:
 
     from ..ops import comp_major as cm
     from ..parallel import make_slab_group, shard_production_discretization
-    from ..solvers.fss import FixedStressSolver
+    from ..solvers.fss import CHUNK, FixedStressSolver
     from ..solvers.structured import build_grid_discretization
 
-    data = bench_data()
-    disc = build_grid_discretization(
-        data, cells_per_axis=n, multigrid="off", device=device,
-        elasticity_backend="conv" if backend == "conv" else "auto")
+    if backend == "2d":
+        data = data_2d()
+        disc = build_grid_discretization(data, cells_per_axis=n,
+                                         multigrid="auto", device=device)
+    else:
+        data = bench_data()
+        disc = build_grid_discretization(
+            data, cells_per_axis=n, multigrid="off", device=device,
+            elasticity_backend="conv" if backend == "conv" else "auto")
     if backend == "sharded":
         disc = shard_production_discretization(disc,
                                                make_slab_group(disc.device))
@@ -209,6 +233,10 @@ def _run(n, n_evolving, n_steady, device, backend, loop) -> list:
             "wall_ms_unprofiled_previous_step": last_ms,
             "wall_ms_profiled": ms,
             "idle_share": 1.0 - dev["busy_ms"] / ms,
+            "chunks": dict(CHUNK),
+            "mechanics": type(disc.row_ops).__name__ if disc.row_ops
+            is not None else "flat", "elasticity_gmg": disc.gmg_precond
+            is not None,
             "counts": {"fss": stats.fss_iterations,
                        "pressure": stats.pressure_iterations,
                        "cg_pressure": stats.pressure_cg_iterations,
@@ -224,6 +252,13 @@ def main(argv=None) -> int:
     n = int(argv[0]) if argv else 40
     backend = argv[1] if len(argv) > 1 else "rows"
     loop = argv[2] if len(argv) > 2 else "captured"
+    from ..solvers.fss import CHUNK
+    for arg in argv[3:]:
+        site, size = arg.split("=")
+        if site not in CHUNK:
+            raise SystemExit(f"profile_step: no call site {site!r} in "
+                             f"{sorted(CHUNK)}")
+        CHUNK[site] = int(size)
     if backend not in BACKENDS or loop not in LOOPS:
         raise SystemExit(f"profile_step: backend must be one of {BACKENDS} "
                          f"and loop one of {LOOPS}, got {backend!r}, "

@@ -139,8 +139,8 @@ def test_skip_if_unchanged_is_bitwise(data):
     # (a uniform one only loads the fully constrained boundary normals)
     rng = np.random.default_rng(0)
     p = st.p * torch.as_tensor(1.0 + 0.01 * rng.random(st.p.shape[0]))
-    u1, it1, ok1, b1 = s._mechanics_solve(p, st.u_rows)
+    u1, it1, ok1, _, b1 = s._mechanics_solve(p, st.u_rows)
     assert it1 > 0 and ok1
-    u2, it2, ok2, b2 = s._mechanics_solve(p, u1, b_prev=b1)
+    u2, it2, ok2, _, b2 = s._mechanics_solve(p, u1, b_prev=b1)
     assert torch.equal(b1, b2)
     assert it2 == 0 and ok2 and torch.equal(u2, u1)

@@ -104,15 +104,19 @@ def test_runner_rejects_unported_features(field, value):
 
 def test_unported_discretizations_raise():
     data = read_input_file("configs/golden_2d.data")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tst.build_grid_discretization(data, device="cpu")
+    # 2D is ported (flat path below 150,000 displacement dofs); anisotropic
+    # 2D grids are not
+    assert tst.build_grid_discretization(data, device="cpu").dim == 2
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        tst.build_grid_discretization(data, cells_per_axis=(4, 8),
+                                      device="cpu")
     data3 = read_input_file(DECK)
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         tst.build_grid_discretization(data3, cells_per_axis=(2, 2, 3),
                                       device="cpu")
-    # the conv backend is ported; the 2D parity backend is not
+    # the conv backend is ported; the parity backend is 2D only
     assert tst.build_grid_discretization(
         data3, elasticity_backend="conv", device="cpu").row_ops is None
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
+    with pytest.raises(NotImplementedError, match="needs a 2D"):
         tst.build_grid_discretization(data3, elasticity_backend="parity",
                                       device="cpu")

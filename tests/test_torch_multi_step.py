@@ -10,7 +10,9 @@
   ``interop.py``, with pressure multigrid on (the low-threshold patch of
   ``tests/test_torch_fss.py``).
 * the runner with blocks and deferred syncs against its default run.
-* on the card: the captured CUDA-graph chunks against the eager chunks.
+* on the card: the captured CUDA-graph chunks against the eager chunks,
+  on the 3D deck and on the 2D golden deck's parity and flat paths with
+  the elasticity GMG (GMG-CG in float64, GMG-Richardson in float32).
 """
 
 import dataclasses
@@ -234,3 +236,36 @@ def test_captured_chunks_equal_eager_on_card(cuda_dev, data, backend):
                                "bc_response"}
     assert all(g.replays[k] > g.captures[k] for k in ("mechanics",
                                                       "projection"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("backend", ["parity", "conv"])
+def test_captured_chunks_equal_eager_on_card_2d(cuda_dev, backend, dtype):
+    """The golden 2D deck at n = 16 with the elasticity GMG on (the
+    parity-resident V-cycle on the parity kit, the flat one on flat
+    vectors): two evolving steps and a steady one, captured against eager,
+    equal counts and p, u bitwise; the mechanics solves run under their
+    own graphs."""
+    data = dataclasses.replace(read_input_file("configs/golden_2d.data"),
+                               dtype=dtype, mech_cg_relative=True,
+                               mech_cg_tol=1e-10 if dtype == "float64"
+                               else 1e-5)
+    disc = tst.build_grid_discretization(data, cells_per_axis=16,
+                                         multigrid="on",
+                                         elasticity_backend=backend,
+                                         device=cuda_dev)
+    assert disc.gmg_precond is not None
+    runs = {}
+    for graphs in (True, False):
+        s = FixedStressSolver(disc, data, cuda_graphs=graphs)
+        st, prev, stats = s.initial_state(), 1.0, []
+        for bc in RAMP:
+            st, ss = s.time_step(st, data.time_step, bc, bc_scale_prev=prev)
+            stats.append([getattr(ss, f) for f in COUNTS])
+            prev = bc
+        runs[graphs] = (st, stats, s.graphs)
+    (st_g, stats_g, g), (st_e, stats_e, _) = runs[True], runs[False]
+    assert stats_g == stats_e
+    assert torch.equal(st_g.p, st_e.p) and torch.equal(st_g.u, st_e.u)
+    assert g.replays["mechanics_gmg"] > 0

@@ -1,7 +1,8 @@
 """The torch port loads nothing of JAX and nothing of the JAX package: a
 fresh interpreter imports every module of the port (and chip_smoke.py),
-runs one n = 4 step on the CPU on each mechanics backend (rows and conv)
-and the CLI ``check``, and finds no module of ``jax``, ``jaxlib`` or
+runs one n = 4 step on the CPU on each 3D mechanics backend (rows and
+conv) and one 2D step on the parity kit with the elasticity GMG and on
+flat vectors, and the CLI ``check``, and finds no module of ``jax``, ``jaxlib`` or
 ``poroelasticity_dealii_tpu`` loaded (the port keeps its own copies of the
 host modules it needs; ``tests/test_torch_vendored.py`` holds them equal to
 the originals)."""
@@ -31,6 +32,14 @@ for backend in ("auto", "conv"):
     assert (d.row_ops is None) == (backend == "conv")
     s = FixedStressSolver(d, data)
     state, stats = s.time_step(s.initial_state(), data.time_step)
+    assert stats.cg_converged and stats.fss_iterations >= 1, stats
+data2 = pkg.read_input_file("configs/golden_2d.data")
+for backend in ("parity", "conv"):
+    d = build_grid_discretization(data2, cells_per_axis=8, multigrid="on",
+                                  elasticity_backend=backend, device="cpu")
+    assert (d.gmg_precond_rows is None) == (backend == "conv")
+    s = FixedStressSolver(d, data2)
+    state, stats = s.time_step(s.initial_state(), data2.time_step)
     assert stats.cg_converged and stats.fss_iterations >= 1, stats
 assert main(["check", "configs/consolidation_3d.data"]) == 0
 bad = sorted(m for m in sys.modules

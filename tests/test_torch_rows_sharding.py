@@ -534,7 +534,7 @@ def test_runner_refuses_production_on_2d_deck(tmp_path):
     data = dataclasses.replace(read_input_file("configs/golden_2d.data"),
                                sharding="production",
                                output_directory=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 9.2"):
         SimulationRunner(data, device="cpu")
 
 

@@ -1,6 +1,7 @@
 """The port keeps its own copies of the JAX package's host modules
 (``config``, ``mesh/``, ``ops/shape.py``, ``ops/quadrature.py``,
-``utils/logging_utils.py``) and imports nothing of the JAX package.
+``utils/logging_utils.py``, ``models/terzaghi.py``, ``models/mandel.py``)
+and imports nothing of the JAX package.
 
 * No import line of the port or ``chip_smoke.py`` names the JAX package
   (``tests/test_torch_nojax.py`` checks in a fresh interpreter that none
@@ -8,7 +9,8 @@
 * The copies agree with the originals exactly: every deck in ``configs/``
   parses to equal fields, and the shape, quadrature, lattice, mesh and
   structured-space arrays are bitwise equal, for dims 2 and 3 and degrees
-  1 and 2.
+  1 and 2; the analytic models' sources equal the originals but for their
+  relative imports, and their configurations and series are equal.
 """
 
 import dataclasses
@@ -120,3 +122,49 @@ def test_host_arrays_bitwise_equal_jax(dim, degree):
         jqk.build_fe_space(mesh_j, degree)
     for name in ("node_coords", "cell_nodes"):
         _eq(getattr(fe_t, name), getattr(fe_j, name))
+
+
+MODELS = ("terzaghi", "mandel")
+
+
+def _code_lines(path: Path) -> list:
+    """The source's lines, its relative import lines left out."""
+    return [ln for ln in path.read_text().splitlines()
+            if not ln.startswith("from .")]
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_model_copies_equal_jax_source(name):
+    got = REPO / "poroelasticity_dealii_torch" / "models" / f"{name}.py"
+    want = REPO / "poroelasticity_dealii_tpu" / "models" / f"{name}.py"
+    assert _code_lines(got) == _code_lines(want)
+
+
+def test_model_copies_compute_what_jax_computes():
+    from poroelasticity_dealii_torch.models import mandel as tm
+    from poroelasticity_dealii_torch.models import terzaghi as tt
+    from poroelasticity_dealii_tpu.models import mandel as jm
+    from poroelasticity_dealii_tpu.models import terzaghi as jt
+    for level, dt, resync in ((3, 25.0, True), (4, 12.5, False)):
+        got = tt.terzaghi_config(level=level, dt=dt, resync=resync)
+        want = jt.terzaghi_config(level=level, dt=dt, resync=resync)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        cv = tt.consolidation_coefficient(got)
+        assert cv == jt.consolidation_coefficient(want)
+        z = np.linspace(0.0, 10.0, 17)
+        _eq(tt.terzaghi_pressure(z, 250.0, cv, 10.0, 1e5),
+            jt.terzaghi_pressure(z, 250.0, cv, 10.0, 1e5))
+        _eq(tt.quirk_mode_1d_reference(1e5, 17, 10.0, got, dt, 3),
+            jt.quirk_mode_1d_reference(1e5, 17, 10.0, want, dt, 3))
+    got = tm.mandel_config(a=10.0, level=4, dt=5.0)
+    want = jm.mandel_config(a=10.0, level=4, dt=5.0)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    mp_t = tm.mandel_params(got, a=10.0, b=10.0, force=7.2e6)
+    mp_j = jm.mandel_params(want, a=10.0, b=10.0, force=7.2e6)
+    for a, b in zip(mp_t, mp_j):
+        _eq(a, b)
+    x = np.linspace(0.0, 10.0, 33)
+    for t in (1.0, 50.0, 400.0):
+        _eq(tm.mandel_pressure(x, t, mp_t), jm.mandel_pressure(x, t, mp_j))
+        assert tm.mandel_plate_displacement(t, mp_t) == \
+            jm.mandel_plate_displacement(t, mp_j)
