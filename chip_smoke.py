@@ -40,11 +40,21 @@ just before and read just after:
   reference, never at the cap), captured against eager bit for bit, the
   parity apply timed against its bound, and the flat GMG-Richardson path
   (``elasticity_backend="conv"``) on the evolving steps against it;
+* the generic path (``build_discretization``: gather, shape-table
+  products and plan scatter in plain torch, flat Jacobi-CG): the bench
+  configuration on the distorted 40^3 hex mesh (1,663,244 DOF, float32),
+  2 evolving + 1 steady captured steps, every solve converged, captured
+  against eager bit for bit; its five applies at 40^3 in float32 and
+  float64 (two applies bitwise equal, timed beside their bounds, the
+  scatter's share and the flat kernel); the generic build on the
+  undistorted 20^3 grid against the rows path;
 * the CLI on the 3D deck, on the rows backend, on a copy of the deck with
   ``Elasticity backend = conv``, and on a copy with ``Steps per dispatch =
-  4``, ``Sync every = 2`` and no VTK output (blocks of 4 and 2 steps), and
-  on the golden 2D deck (float64, 17 steps) against
-  ``tests/data/golden_history.json``.
+  4``, ``Sync every = 2`` and no VTK output (blocks of 4 and 2 steps), on
+  the golden 2D deck (float64, 17 steps) against
+  ``tests/data/golden_history.json``, and on the gmsh deck
+  ``configs/irregular_2d.data`` (the generic path, float64, 17 steps)
+  against :data:`IRREGULAR_2D_PIN`, JAX's counts and residuals.
 
 Before the paths, the slab form of the row-layout apply (K5's z-slab form,
 ``nz``/``nv``) is held against its plain twin on every slab of 2-, 4- and
@@ -52,9 +62,10 @@ Before the paths, the slab form of the row-layout apply (K5's z-slab form,
 apply; the 4-way split at 40^3 float32 is timed beside its bound and its
 library yardstick.
 
-The 2D path reaches no hand-written kernel (the JAX package computes it
-with XLA einsums, outside any Pallas kernel): its products are
-``torch.matmul`` at full float32, checked with TF32 off.
+The 2D and the generic paths reach no hand-written kernel (the JAX
+package computes them with XLA einsums, gathers and segment sums, outside
+any Pallas kernel): their products are ``torch.matmul`` / ``torch.einsum``
+at full float32, checked with TF32 off.
 
 It prints the kernel summary and, as its last line,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.
@@ -77,6 +88,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from poroelasticity_dealii_torch.mesh import hyper_rectangle
 from poroelasticity_dealii_torch.ops import _cuda
 from poroelasticity_dealii_torch.ops import cell_products as cp
 from poroelasticity_dealii_torch.ops import comp_major as cm
@@ -84,6 +96,8 @@ from poroelasticity_dealii_torch.ops import elasticity as eg
 from poroelasticity_dealii_torch.ops.parity2d import ElasticityParityOps
 from poroelasticity_dealii_torch.parallel import rows as pr
 from poroelasticity_dealii_torch.parallel.sharding import make_slab_group
+from poroelasticity_dealii_torch.solvers.discretization import \
+    build_discretization
 from poroelasticity_dealii_torch.solvers.fss import FixedStressSolver
 from poroelasticity_dealii_torch.solvers.structured import \
     build_grid_discretization
@@ -91,7 +105,7 @@ from poroelasticity_dealii_torch.tools import apply_bench
 from poroelasticity_dealii_torch.tools.apply_bench import cuda_time_ms, \
     device_and_host_ms, nonzeros
 from poroelasticity_dealii_torch.tools.profile_step import BC_RATE, \
-    bench_data, data_2d
+    bench_data, data_2d, generic_mesh
 
 REPO = Path(__file__).resolve().parent
 
@@ -770,11 +784,17 @@ def cli_phase():
         blocks_deck = Path(tmp) / "consolidation_3d_blocks.data"
         blocks_deck.write_text(deck.read_text() + "\nsubsection TPU\n"
                                + CLI_BLOCKS + "end\n")
+        # the gmsh deck names its mesh relative to the repository's root
+        irregular_deck = Path(tmp) / IRREGULAR_DECK.name
+        irregular_deck.write_text(IRREGULAR_DECK.read_text() + (
+            "\nsubsection Mesh\n  set Mesh file = "
+            f"{REPO / 'configs' / 'irregular_2d.msh'}\nend\n"))
         t0 = time.perf_counter()
         runs = {}
         for name, path in (("rows", deck), ("conv", conv_deck),
                            ("blocks", blocks_deck),
-                           ("golden_2d", GOLDEN_DECK)):
+                           ("golden_2d", GOLDEN_DECK),
+                           ("irregular_2d", irregular_deck)):
             cwd = Path(tmp) / name
             cwd.mkdir()
             runs[name] = (cwd, subprocess.Popen(
@@ -793,7 +813,8 @@ def cli_phase():
                 sol = cwd / "solution"
                 vtks = sorted(sol.glob("solution-*.vtk"))
                 log = sol / "run_log.jsonl"
-                want = {"blocks": 0, "golden_2d": 18}.get(name, 7)
+                want = {"blocks": 0, "golden_2d": 18,
+                        "irregular_2d": 18}.get(name, 7)
                 if len(vtks) != want or not log.exists():
                     raise AssertionError(f"CLI output ({name}) incomplete: "
                                          f"{len(vtks)} VTK files, run log "
@@ -806,9 +827,10 @@ def cli_phase():
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
-        print(f"cli: the four runs in {time.perf_counter() - t0:.1f} s",
-              flush=True)
+        print(f"cli: the {len(runs)} runs in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
         golden_check(Path(tmp) / "golden_2d")
+        irregular_check(Path(tmp) / "irregular_2d")
     rows, conv, blocks = logs["rows"], logs["conv"], logs["blocks"]
     key = lambda r: (r["step"], r["time"], r["fss_iterations"],  # noqa: E731
                      r["pressure_iterations"], r["cg_iterations"])
@@ -1077,9 +1099,7 @@ def phase_2d(dev) -> None:
     (``elasticity_backend="conv"``) on the evolving steps against them
     (FSS and pressure counts equal, p and u within
     :data:`PARITY_VS_FLAT_TOL`); products at full float32 (TF32 off)."""
-    if torch.backends.cuda.matmul.allow_tf32 is not False or \
-            torch.get_float32_matmul_precision() != "highest":
-        raise AssertionError("TF32 is on for float32 matmuls")
+    check_tf32_off()
     data, disc, solver, log, _ = build_2d(dev)
     if not isinstance(disc.row_ops, ElasticityParityOps) or \
             disc.gmg_precond_rows is None:
@@ -1119,6 +1139,170 @@ def phase_2d(dev) -> None:
                 raise AssertionError(f"2D step {k + 1} {name}: parity vs "
                                      f"flat rel err "
                                      f"{rec[f'{name}_max_rel_err']:.3e}")
+
+
+# ---------------------------------------------------------------------------
+# the generic path: gather / plan-scatter applies on distorted hex meshes and
+# gmsh meshes
+# ---------------------------------------------------------------------------
+
+N_GENERIC_EVOLVING, N_GENERIC_STEADY = 2, 1
+GENERIC_DOFS = 1_663_244    # 41^3 Q1 + 81^3 * 3 Q2 at 40^3
+N_GENERIC_VS_ROWS = 20      # the undistorted grid the generic build is held
+#                             against the rows path on
+IRREGULAR_DECK = REPO / "configs" / "irregular_2d.data"
+# JAX's FixedStressSolver on configs/irregular_2d.data (float64, 17 steps;
+# the CPU, x64): (FSS iterations, pressure iterations, pressure_error, FSS
+# error history) per step.  tests/test_torch_generic.py holds this pin
+# against the JAX package.
+IRREGULAR_2D_PIN = [
+    (1, 5, 8.698673482778736e-09, [8.698673482778736e-09]),
+    (1, 5, 6.232936354109095e-09, [6.232936354109095e-09]),
+    (1, 5, 4.471967633366098e-09, [4.471967633366098e-09]),
+    (1, 4, 8.289275858073124e-09, [8.289275858073124e-09]),
+    (1, 4, 6.022660341779668e-09, [6.022660341779668e-09]),
+    (1, 4, 4.377353279796897e-09, [4.377353279796897e-09]),
+    (1, 3, 8.21137323800703e-09, [8.21137323800703e-09]),
+    (1, 3, 5.783706953752702e-09, [5.783706953752702e-09]),
+    (1, 3, 4.0741076127498734e-09, [4.0741076127498734e-09]),
+    (1, 2, 7.405091739297545e-09, [7.405091739297545e-09]),
+    (1, 2, 5.6474487556372756e-09, [5.6474487556372756e-09]),
+    (1, 2, 4.307074565314081e-09, [4.307074565314081e-09]),
+    (1, 1, 8.47539695119151e-09, [8.47539695119151e-09]),
+    (1, 1, 5.190864222154098e-09, [5.190864222154098e-09]),
+    (1, 0, 8.202847163273675e-09, [8.202847163273675e-09]),
+    (1, 0, 8.202847163273675e-09, [8.202847163273675e-09]),
+    (1, 0, 8.202847163273675e-09, [8.202847163273675e-09]),
+]
+
+
+def check_tf32_off() -> None:
+    """Every float32 matmul (the 2D path's products, the generic cores'
+    einsums) runs at full float32."""
+    if torch.backends.cuda.matmul.allow_tf32 is not False or \
+            torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("TF32 is on for float32 matmuls")
+
+
+def generic_phase(dev) -> None:
+    """The generic path at the at-scale point: the bench configuration on
+    the distorted 40^3 hex mesh (``profile_step.generic_mesh``, 1,663,244
+    DOF, float32) through ``build_discretization``, 2 evolving + 1 steady
+    captured steps (every solve converged, fields finite), the same steps
+    eager (counts, p and u bit for bit); the five generic applies at 40^3
+    (``apply_bench.generic_run``, float32 and float64: two applies bitwise
+    equal, timed beside their bounds, the scatter's share and the flat
+    kernel K6); the generic build on the undistorted 20^3 grid against the
+    rows path (:func:`generic_vs_rows`).  TF32 off throughout."""
+    check_tf32_off()
+    data = bench_data()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    disc = build_discretization(generic_mesh(N_MAIN), data, device=dev)
+    solver = FixedStressSolver(disc, data)
+    torch.cuda.synchronize()
+    dofs = disc.n_pdofs + disc.n_udofs
+    print(json.dumps({"generic_setup": {
+        "n": N_MAIN, "cells": disc.n_cells, "dofs": dofs,
+        "setup_s": time.perf_counter() - t0,
+        "scatter_valence": [disc.plan_p.table.shape[1],
+                            disc.plan_u.table.shape[1]]}}), flush=True)
+    if dofs != GENERIC_DOFS or disc.row_ops is not None:
+        raise AssertionError(f"generic 40^3 build: {dofs} DOF, row_ops "
+                             f"{disc.row_ops}")
+    run = run_steps(solver, N_GENERIC_EVOLVING, N_GENERIC_STEADY, log=True)
+    print(json.dumps({"generic_graphs": {
+        "captures": dict(solver.graphs.captures),
+        "replays": dict(solver.graphs.replays)}}), flush=True)
+    check_steps(run[0], run[1], disc, N_GENERIC_EVOLVING)
+    captured_vs_eager("generic", solver, disc, data, captured_run=run)
+    del solver, disc, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    for rec in apply_bench.generic_run(N_MAIN, dev):
+        print(json.dumps({"generic_apply": rec}), flush=True)
+        if not (rec["bitwise_repeat"] and rec["finite"]):
+            raise AssertionError(f"generic apply {rec['apply']} "
+                                 f"({rec['dtype']}): {rec}")
+    check_tf32_off()
+    generic_vs_rows(dev, data)
+
+
+def _grid_order(space, n: int) -> np.ndarray:
+    """Lexicographic (x fastest) grid index of each node of ``space`` on
+    the undistorted n^dim grid of degree-k nodes."""
+    x = space.node_coords
+    lo, hi = x.min(axis=0), x.max(axis=0)
+    m = space.degree * n
+    ijk = np.rint((x - lo) / (hi - lo) * m).astype(np.int64)
+    return sum(ijk[:, a] * (m + 1) ** a for a in range(x.shape[1]))
+
+
+def generic_vs_rows(dev, data) -> None:
+    """The generic build on the undistorted 20^3 grid against the rows
+    path at 20^3, 2 evolving steps each: equal FSS and pressure counts, p
+    and u (the generic nodes mapped onto the grid's order) within
+    :data:`CROSS_TOL` of their max."""
+    n = N_GENERIC_VS_ROWS
+    gen = build_discretization(hyper_rectangle([10.0] * 3, cells_per_axis=n),
+                               data, device=dev)
+    rows = build_grid_discretization(data, cells_per_axis=n,
+                                     multigrid="off", device=dev)
+    g_states, g_stats, _ = run_steps(FixedStressSolver(gen, data), 2, 0,
+                                     log=False)
+    r_states, r_stats, _ = run_steps(FixedStressSolver(rows, data), 2, 0,
+                                     log=False)
+    ip = np.argsort(_grid_order(gen.pressure_space, n))
+    iu = (3 * np.argsort(_grid_order(gen.displacement_space, n))[:, None]
+          + np.arange(3)).reshape(-1)
+    for k in range(2):
+        a, b = g_stats[k], r_stats[k]
+        rec = {"generic_vs_rows_step": k + 1, "n": n,
+               "fss": [a.fss_iterations, b.fss_iterations],
+               "pressure": [a.pressure_iterations, b.pressure_iterations],
+               "cg_mechanics": [a.mech_cg_iterations, b.mech_cg_iterations],
+               "tol": CROSS_TOL}
+        for name, order in (("p", ip), ("u", iu)):
+            got = getattr(g_states[k], name)[torch.as_tensor(order,
+                                                             device=dev)]
+            rec[f"{name}_max_rel_err"] = _rel_err(got,
+                                                  getattr(r_states[k], name))
+        print(json.dumps(rec), flush=True)
+        if rec["fss"][0] != rec["fss"][1] or \
+                rec["pressure"][0] != rec["pressure"][1] or not (
+                rec["p_max_rel_err"] <= CROSS_TOL
+                and rec["u_max_rel_err"] <= CROSS_TOL):
+            raise AssertionError(f"generic vs rows at {n}^3: {rec}")
+
+
+def irregular_check(cwd: Path) -> None:
+    """The CLI's run of ``configs/irregular_2d.data`` (the gmsh mesh,
+    float64, 17 steps, the generic path) against :data:`IRREGULAR_2D_PIN`:
+    FSS and pressure counts exactly, ``pressure_error`` and the FSS error
+    history to :data:`GOLDEN_RTOL`; 18 VTK files."""
+    log = _run_log(cwd / "solution" / "run_log.jsonl")
+    if len(log) != len(IRREGULAR_2D_PIN):
+        raise AssertionError(f"irregular run logged {len(log)} steps, the "
+                             f"pin has {len(IRREGULAR_2D_PIN)}")
+    worst = 0.0
+    for a, (fss, press, perr, hist_pin) in zip(log, IRREGULAR_2D_PIN):
+        hist = a["fss_error_history"]
+        errs = [abs(a["pressure_error"] / perr - 1.0)] + [
+            abs(x / y - 1.0) for x, y in zip(hist, hist_pin)]
+        worst = max(worst, *errs)
+        if (a["fss_iterations"], a["pressure_iterations"], len(hist)) != (
+                fss, press, len(hist_pin)) or not max(errs) <= GOLDEN_RTOL:
+            raise AssertionError(f"irregular step {a['step']}: {a} vs pin "
+                                 f"{(fss, press, perr, hist_pin)}")
+    vtks = sorted((cwd / "solution").glob("solution-*.vtk"))
+    rec = {"irregular_2d_cli": {
+        "steps": len(log), "fss": [r["fss_iterations"] for r in log],
+        "pressure": [r["pressure_iterations"] for r in log],
+        "max_rel_err_vs_pin": worst, "rtol": GOLDEN_RTOL,
+        "vtk_files": len(vtks)}}
+    print(json.dumps(rec), flush=True)
+    if len(vtks) != len(IRREGULAR_2D_PIN) + 1:
+        raise AssertionError(f"irregular run VTK output: {rec}")
 
 
 TENSOR_CORE_OP = re.compile(r"\b([DHIBQ]G?MMA)\b")
@@ -1250,6 +1434,7 @@ def main() -> int:
     launches["elasticity_grid_apply"] = conv_phase(dev, states)
     del states
     phase_2d(dev)
+    generic_phase(dev)
     cli_phase()
 
     summary = []

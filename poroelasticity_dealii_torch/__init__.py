@@ -4,9 +4,10 @@ A port of ``poroelasticity_dealii_tpu`` (JAX/Pallas) to PyTorch with
 hand-written CUDA kernels for NVIDIA Hopper.  The JAX package stays the
 reference; this package imports ``torch`` and never ``jax``, and nothing of
 the JAX package: it keeps its own copies of the host modules it needs (deck
-parser ``config``, ``mesh/``, ``ops/shape.py``, ``ops/quadrature.py``,
-``utils/logging_utils.py``, ``models/terzaghi.py``, ``models/mandel.py``)
-at the same relative paths.
+parser ``config``, ``mesh/`` with the gmsh reader, ``ops/shape.py``,
+``ops/quadrature.py``, ``utils/logging_utils.py``, ``utils/native.py``,
+``models/terzaghi.py``, ``models/mandel.py``, ``models/cryer.py``) at the
+same relative paths.
 
 Precision policy: every float32 product runs in full IEEE float32, as the
 reference computes its products at ``Precision.HIGHEST``.  TF32 is switched

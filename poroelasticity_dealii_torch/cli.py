@@ -1,9 +1,11 @@
 """Command-line interface of the port.
 
 ``python -m poroelasticity_dealii_torch run DECK [--device cuda|cpu] [--x64]``
-runs a structured 2D or 3D deck (e.g. ``configs/golden_2d.data``,
-``configs/consolidation_3d.data``); ``check DECK`` parses and prints it; ``devices``
-lists the visible CUDA devices.
+runs a 2D or 3D deck on its structured grid (e.g. ``configs/golden_2d.data``,
+``configs/consolidation_3d.data``) or on its gmsh mesh (``Mesh / Mesh file``,
+e.g. ``configs/irregular_2d.data``, read relative to the working
+directory); ``check DECK`` parses and prints it; ``devices`` lists the
+visible CUDA devices.
 
 A deck with ``TPU / Sharding = production`` runs sharded under ``torchrun``
 (one process per device; rank 0 writes the output), e.g. on the CPU::

@@ -1,6 +1,6 @@
-"""Immutable SoA mesh data model and generators (gmsh ingestion is not
-ported yet: ROADMAP item 8)."""
+"""Immutable SoA mesh data model + generators + gmsh ingestion."""
 
 from .core import Mesh, FESpace  # noqa: F401
 from .generator import hyper_rectangle  # noqa: F401
 from .qk import build_fe_space  # noqa: F401
+from .gmsh_io import read_msh  # noqa: F401

@@ -1,7 +1,9 @@
-"""Host-side simulation driver for structured decks (port of
+"""Host-side simulation driver (port of
 ``poroelasticity_dealii_tpu/models/runner.py:101-126, 129-310``): builds the
-problem, shards it when the deck asks for ``TPU / Sharding = production``,
-steps time in blocks of up to ``TPU / Steps per dispatch`` steps
+problem (on the deck's gmsh mesh, ``Mesh / Mesh file``, through the generic
+discretization, else on its structured grid), shards it when the deck asks
+for ``TPU / Sharding = production``, steps time in blocks of up to ``TPU /
+Steps per dispatch`` steps
 (:meth:`..solvers.fss.FixedStressSolver.multi_step`), writes the JSONL run
 log and the VTK files at sync points every ``TPU / Sync every`` steps, and
 stops on a diverged FSS residual.
@@ -24,9 +26,11 @@ import torch
 import torch.distributed as dist
 
 from ..config import InputData
+from ..mesh import read_msh
 from ..parallel.rows import shard_production_discretization
 from ..parallel.sharding import SlabGroup, init_from_env
 from ..utils.logging_utils import RunLogger
+from ..solvers.discretization import build_discretization
 from ..solvers.fss import FixedStressSolver, State, StepStats
 from ..solvers.structured import build_grid_discretization
 from ..utils.vtk_io import displacement_at_pressure_nodes, write_vtk
@@ -35,8 +39,7 @@ from ..utils.vtk_io import displacement_at_pressure_nodes, write_vtk
 def _check_supported(data: InputData) -> None:
     """Deck features the port does not run yet, with their ROADMAP item."""
     unsupported = [
-        (bool(data.mesh_file), "gmsh meshes (ROADMAP A12)"),
-        (data.amr, "AMR (ROADMAP A12)"),
+        (data.amr, "AMR (ROADMAP item 8b, A12)"),
         (data.sharding in ("psum", "ghost", "gspmd"),
          f"'Sharding = {data.sharding}' (ROADMAP item 9, A13: only "
          "production is ported)"),
@@ -71,7 +74,9 @@ def _slab_group(data: InputData, device) -> tuple:
 def _apply_sharding(disc, data: InputData, group: SlabGroup):
     """``Sharding = production``: the z-slab kit over ``group``; with one
     process, a warning and the unsharded discretization (as the JAX runner
-    does on one visible device)."""
+    does on one visible device).  A discretization without the rows kit (a
+    2D grid, a gmsh mesh) raises ``ValueError`` on more than one process,
+    as in the JAX runner."""
     if group.size < 2:
         warnings.warn(f"'TPU / Sharding = {data.sharding}' with a single "
                       "process: running unsharded", RuntimeWarning)
@@ -89,7 +94,11 @@ class SimulationRunner:
             self.group, self._own_group = _slab_group(data, device)
             device = self.group.device
         self.is_root = self.group is None or self.group.rank == 0
-        self.disc = build_grid_discretization(data, device=device)
+        if data.mesh_file:
+            self.disc = build_discretization(
+                read_msh(data.mesh_file, dim=data.dim), data, device=device)
+        else:
+            self.disc = build_grid_discretization(data, device=device)
         if self.group is not None:
             self.disc = _apply_sharding(self.disc, data, self.group)
         self.solver = FixedStressSolver(self.disc, data)

@@ -1,2 +1,2 @@
-"""Solvers: CG, pressure multigrid, the structured discretization and the
-fixed-stress-split time step."""
+"""Solvers: CG, multigrid, the structured and the generic discretizations
+and the fixed-stress-split time step."""

@@ -1,17 +1,120 @@
-"""Boundary and source vectors of the discrete problem, host numpy (port of
-``poroelasticity_dealii_tpu/solvers/discretization.py:137-312``): the Neumann
-traction and body-force vectors, the Dirichlet (node, component) pinning of
-the displacement and the drainage pinning of the pressure, and the well
-source."""
+"""The generic (unstructured) discretization of the Q2/Q1 problem on any
+conforming quad or hex mesh, and the boundary and source vectors every
+discretization shares (port of
+``poroelasticity_dealii_tpu/solvers/discretization.py``).
+
+:func:`build_discretization` does its set-up on the host in numpy, as the
+reference does: the FE spaces, the per-cell Jacobian factors at the
+quadrature points, the well source, the Neumann traction and body-force
+vectors, the Dirichlet (node, component) pinning of the displacement and
+the drainage pinning of the pressure, and the Jacobi diagonals.  It then
+moves everything the step reads onto one device, cells-last, with a
+:class:`..ops.operators.ScatterPlan` per connectivity.  The operators are
+the gather, shape-table product and plan-scatter applies of
+:mod:`..ops.operators` (plain torch: the reference computes them with XLA
+gathers, einsums and ``segment_sum``, outside any Pallas kernel).
+
+The reference's hanging-node constraints (``hc_p``, ``hc_u``) belong to
+adaptive meshes and are the identity on the conforming meshes built here;
+they are not ported yet (ROADMAP item 8b).
+"""
 
 from __future__ import annotations
 
-import numpy as np
+import dataclasses
+from typing import Callable, Optional
 
+import numpy as np
+import torch
+
+from .. import resolve_device
 from ..config import InputData
 from ..mesh.core import FESpace, Mesh
+from ..mesh.qk import build_fe_space
+from ..ops import operators as ops
+from ..ops.geometry import geometry_factors
 from ..ops.quadrature import gauss_tensor
 from ..ops.shape import face_lattice_indices, shape_tables
+
+
+@dataclasses.dataclass
+class Discretization:
+    """Everything the fixed-stress step reads on a generic mesh, as tensors
+    on one device (shapes as the reference's; E = cells)."""
+
+    dim: int
+    dtype: torch.dtype
+    device: torch.device
+    pressure_space: FESpace
+    displacement_space: FESpace
+    conn_p: torch.Tensor           # (Np, E) int32
+    conn_u: torch.Tensor           # (Nu*dim, E) int32, interleaved comps
+    plan_p: ops.ScatterPlan        # scatter of conn_p
+    plan_u: ops.ScatterPlan        # scatter of conn_u
+    psi_p_at_pq: torch.Tensor      # (Qp, Np)
+    dref_p_at_pq: torch.Tensor     # (Qp, Np, dim)
+    psi_p_at_uq: torch.Tensor      # (Qu, Np)
+    dref_u_at_uq: torch.Tensor     # (Qu, Nud, dim)
+    dref_u_at_pq: torch.Tensor     # (Qp, Nud, dim)
+    jinv_u: torch.Tensor           # (Qu, dim, dim, E)
+    jxw_u: torch.Tensor            # (Qu, E)
+    jinv_p: torch.Tensor           # (Qp, dim, dim, E)
+    jxw_p: torch.Tensor            # (Qp, E)
+    free_mask_u: torch.Tensor      # (n_udofs,) 1 free / 0 Dirichlet
+    dirichlet_values: torch.Tensor  # (n_udofs,) 0 on free dofs
+    f_neumann: torch.Tensor        # (n_udofs,) traction + body force
+    f_well: torch.Tensor           # (n_pdofs,)
+    free_mask_p: torch.Tensor      # (n_pdofs,) drainage pinning
+    dirichlet_values_p: torch.Tensor
+    diag_mass: torch.Tensor
+    diag_laplace: torch.Tensor
+    diag_elasticity: torch.Tensor  # (n_udofs,) Jacobi, 1 on Dirichlet
+    lam: float
+    mu: float
+    # no mechanics kit and no elasticity V-cycle: the fixed-stress solver
+    # takes its flat Jacobi-CG branches
+    row_ops: None = None
+    gmg_precond: Optional[Callable] = None
+    gmg_precond_rows: Optional[Callable] = None
+
+    @property
+    def n_pdofs(self) -> int:
+        return self.free_mask_p.shape[0]
+
+    @property
+    def n_udofs(self) -> int:
+        return self.free_mask_u.shape[0]
+
+    @property
+    def n_cells(self) -> int:
+        return self.conn_p.shape[-1]
+
+    def mass(self, p):
+        return ops.apply_mass(p, self.conn_p, self.plan_p, self.psi_p_at_pq,
+                              self.jxw_p)
+
+    def laplace(self, p):
+        return ops.apply_laplace(p, self.conn_p, self.plan_p,
+                                 self.dref_p_at_pq, self.jinv_p, self.jxw_p)
+
+    def elasticity(self, u):
+        return ops.apply_elasticity(u, self.conn_u, self.plan_u,
+                                    self.dref_u_at_uq, self.jinv_u,
+                                    self.jxw_u, self.lam, self.mu)
+
+    def elasticity_constrained(self, u):
+        """Dirichlet-constrained elasticity ``m A(m u) + (1 - m) u``."""
+        return ops.constrained_apply(self.elasticity, self.free_mask_u)(u)
+
+    def coupling_rhs(self, p, biot_coef):
+        return ops.coupling_rhs(p, self.conn_p, self.plan_u,
+                                self.psi_p_at_uq, self.dref_u_at_uq,
+                                self.jinv_u, self.jxw_u, biot_coef)
+
+    def strain_projection_rhs(self, u):
+        return ops.strain_projection_rhs(u, self.conn_u, self.plan_p,
+                                         self.psi_p_at_pq, self.dref_u_at_pq,
+                                         self.jinv_p, self.jxw_p)
 
 
 def _embedded_face_points(local_face: int, pts_f: np.ndarray, dim: int):
@@ -165,3 +268,86 @@ def _well_vector(p_space: FESpace, data: InputData,
     f = np.zeros(p_space.n_nodes)
     np.add.at(f, p_space.cell_nodes.reshape(-1), fe.reshape(-1))
     return f
+
+
+def build_discretization(mesh: Mesh, data: InputData,
+                         pressure_degree: int = 1,
+                         displacement_degree: int = 2,
+                         dtype=None, device="cuda") -> Discretization:
+    """The Q2/Q1 problem on ``mesh`` (2D quads or 3D hexes, any
+    straight-edged shape) on ``device`` (default the card; raises without
+    one, pass ``device="cpu"`` for the CPU).  ``dtype`` defaults to the
+    deck's."""
+    dim = mesh.dim
+    if dim not in (2, 3):
+        raise NotImplementedError(f"the torch port runs 2D and 3D meshes; "
+                                  f"got dim={dim}")
+    if dtype is None:
+        dtype = torch.float64 if data.dtype == "float64" else torch.float32
+    device = resolve_device(device)
+
+    p_space = build_fe_space(mesh, pressure_degree)
+    u_space = build_fe_space(mesh, displacement_degree)
+
+    # quadratures: QGauss(fe.degree + 1) per space
+    pq_pts, pq_wts = gauss_tensor(pressure_degree + 1, dim)
+    uq_pts, uq_wts = gauss_tensor(displacement_degree + 1, dim)
+    corner_xyz = mesh.vertices[mesh.cells]
+    jinv_p, jxw_p = geometry_factors(corner_xyz, pq_pts, pq_wts)
+    jinv_u, jxw_u = geometry_factors(corner_xyz, uq_pts, uq_wts)
+
+    psi_p_at_pq, dref_p_at_pq = shape_tables(pressure_degree, dim, pq_pts)
+    psi_p_at_uq, _ = shape_tables(pressure_degree, dim, uq_pts)
+    psi_u_at_uq, dref_u_at_uq = shape_tables(displacement_degree, dim,
+                                             uq_pts)
+    _, dref_u_at_pq = shape_tables(displacement_degree, dim, pq_pts)
+
+    # cells-last layouts
+    conn_p = np.ascontiguousarray(p_space.cell_nodes.T)
+    conn_u = np.ascontiguousarray(u_space.vector_cell_dofs(dim).T)
+    t_jinv = lambda a: np.ascontiguousarray(  # noqa: E731
+        np.transpose(a, (1, 2, 3, 0)))       # (E,Q,m,d) -> (Q,m,d,E)
+    t_jxw = lambda a: np.ascontiguousarray(a.T)  # noqa: E731
+
+    # physical coordinates of the pressure quadrature points (the well)
+    n1_at_pq, _ = shape_tables(1, dim, pq_pts)
+    x_q = np.einsum("qv,evd->eqd", n1_at_pq, corner_xyz)
+
+    f_well = _well_vector(p_space, data, jxw_p, psi_p_at_pq, x_q)
+    f_neumann = _neumann_vector(mesh, u_space, data) \
+        + _body_force_vector(u_space, data, jxw_u, psi_u_at_uq)
+    free_np, dirichlet_np = _dirichlet_constraints(mesh, u_space, data)
+    free_p_np, dirichlet_p_np = _pressure_dirichlet(mesh, p_space, data)
+
+    lam, mu = data.lame_constant, data.shear_modulus
+    n_pdofs = p_space.n_nodes
+    n_udofs = u_space.n_nodes * dim
+    jinv_p_cl, jxw_p_cl = t_jinv(jinv_p), t_jxw(jxw_p)
+    jinv_u_cl, jxw_u_cl = t_jinv(jinv_u), t_jxw(jxw_u)
+    diag_mass = ops.mass_diagonal(conn_p, psi_p_at_pq, jxw_p_cl, n_pdofs)
+    diag_lap = ops.laplace_diagonal(conn_p, dref_p_at_pq, jinv_p_cl,
+                                    jxw_p_cl, n_pdofs)
+    diag_el = ops.elasticity_diagonal(conn_u, dref_u_at_uq, jinv_u_cl,
+                                      jxw_u_cl, lam, mu, n_udofs)
+    diag_el = np.where(free_np, diag_el, 1.0)
+
+    dev = lambda a: torch.as_tensor(  # noqa: E731
+        np.asarray(a, np.float64), dtype=dtype, device=device)
+    idx = lambda a: torch.as_tensor(  # noqa: E731
+        np.asarray(a, np.int32), device=device)
+    return Discretization(
+        dim=dim, dtype=dtype, device=device,
+        pressure_space=p_space, displacement_space=u_space,
+        conn_p=idx(conn_p), conn_u=idx(conn_u),
+        plan_p=ops.scatter_plan(conn_p, n_pdofs, device),
+        plan_u=ops.scatter_plan(conn_u, n_udofs, device),
+        psi_p_at_pq=dev(psi_p_at_pq), dref_p_at_pq=dev(dref_p_at_pq),
+        psi_p_at_uq=dev(psi_p_at_uq), dref_u_at_uq=dev(dref_u_at_uq),
+        dref_u_at_pq=dev(dref_u_at_pq),
+        jinv_u=dev(jinv_u_cl), jxw_u=dev(jxw_u_cl),
+        jinv_p=dev(jinv_p_cl), jxw_p=dev(jxw_p_cl),
+        free_mask_u=dev(free_np), dirichlet_values=dev(dirichlet_np),
+        f_neumann=dev(f_neumann), f_well=dev(f_well),
+        free_mask_p=dev(free_p_np), dirichlet_values_p=dev(dirichlet_p_np),
+        diag_mass=dev(diag_mass), diag_laplace=dev(diag_lap),
+        diag_elasticity=dev(diag_el), lam=lam, mu=mu)

@@ -14,6 +14,13 @@ runs the same chunks eagerly).  The step's CG counts stay on the device
 until the step, or a block of steps (:meth:`FixedStressSolver.multi_step`),
 ends.
 
+The solver takes a structured discretization
+(:class:`.structured.GridDiscretization`) or a generic one
+(:class:`.discretization.Discretization`, any conforming quad or hex mesh).
+On the generic one the pressure Jacobian is the mass and Laplace applies
+(the reference folds them into one stencil on structured grids only) with a
+Jacobi preconditioner, and the mechanics is flat Jacobi-CG.
+
 The mechanics vector is in the kit's layout when the discretization has a
 rows kit (``disc.row_ops``: the comp-major row layout in 3D, the parity
 layout in 2D) and flat otherwise (the conv backend): ``State.u_rows`` is
@@ -43,7 +50,7 @@ Semantics kept from the reference (deliberate quirks):
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -56,6 +63,7 @@ from . import structured
 from ..parallel.rows import ShardedRowOps
 from .cg import LocalReductions, cg_solve, cg_solve_batched, richardson_solve
 from .cuda_graphs import ChunkGraphs
+from .discretization import Discretization
 from .multigrid import build_gmg_pressure
 from .structured import GridDiscretization, _single_cell_spaces
 
@@ -143,8 +151,8 @@ class FixedStressSolver:
     comparisons.  The z-slab sharded kit always runs them eagerly: its
     chunks hold NCCL collectives."""
 
-    def __init__(self, disc: GridDiscretization, data: InputData,
-                 cuda_graphs: bool = True):
+    def __init__(self, disc: Union[GridDiscretization, Discretization],
+                 data: InputData, cuda_graphs: bool = True):
         if data.mixed_precision_refinement == "on":
             raise NotImplementedError(
                 "mixed-precision refinement is ROADMAP A11 (the H100 runs "
@@ -206,7 +214,8 @@ class FixedStressSolver:
         return -res * d.free_mask_p
 
     def _fused_jacobian_stencil(self, dt):
-        """Pressure Jacobian mass/(M dt) + (k/mu) L as one Q1 stencil."""
+        """Pressure Jacobian mass/(M dt) + (k/mu) L as one Q1 stencil (on a
+        structured grid)."""
         if dt not in self._jac_stencils:
             d, data = self.disc, self.data
             verts = d.pressure_space.mesh.vertices
@@ -221,8 +230,14 @@ class FixedStressSolver:
         return self._jac_stencils[dt]
 
     def _pressure_jacobian_apply(self, x, dt):
-        fp = self.disc.free_mask_p
-        y = self._fused_jacobian_stencil(dt)(x * fp)
+        d, data = self.disc, self.data
+        fp = d.free_mask_p
+        if isinstance(d, GridDiscretization):
+            y = self._fused_jacobian_stencil(dt)(x * fp)
+        else:
+            z = x * fp
+            y = (1.0 / data.m_modulus / dt) * d.mass(z) \
+                + (data.perm / data.visc) * d.laplace(z)
         return y * fp + x * (1.0 - fp)
 
     def _pressure_jacobian_diag(self, dt):
@@ -233,8 +248,10 @@ class FixedStressSolver:
 
     def _pressure_precond(self, dt):
         """GMG V-cycle for the pressure Jacobian, or None (Jacobi) when the
-        grid is below the multigrid threshold."""
+        grid is below the multigrid threshold or not structured."""
         d, data = self.disc, self.data
+        if not isinstance(d, GridDiscretization):
+            return None
         n = d.info_p.cells_per_axis[0]
         # module attribute, looked up per call (tests patch the threshold)
         n_levels = structured._gmg_levels(n, d.dim, d.n_pdofs, "auto",

@@ -1,7 +1,7 @@
 """Per-apply times of the flat Q2 elasticity apply at bench size (the
 counterpart of ``scripts/pallas_apply_bench.py``):
 
-    python -m poroelasticity_dealii_torch.tools.apply_bench [n]
+    python -m poroelasticity_dealii_torch.tools.apply_bench [n] [generic]
 
 prints CUDA-event times per apply at ``n`` cells per axis (default 40,
 float32) of the conv backend's plain stencil (``disc.elasticity`` built
@@ -10,8 +10,13 @@ flat kernel through its two entry points (``make_flat_apply``, the K6
 counterpart, and ``make_grid_elasticity``, the K7 counterpart; on the card
 the conv backend's ``disc.elasticity`` is this kernel), its plain twin, and
 the FLOP count (2 per nonzero of the element matrix per cell,
-:func:`nonzeros`).  It needs a CUDA device; :func:`run` also takes the CPU
-for tests, with no times.
+:func:`nonzeros`).  With ``generic`` it times instead the five applies of
+the generic discretization (:func:`generic_run`: mass, Laplace,
+elasticity, coupling and projection on the distorted hex mesh of
+``profile_step.generic_mesh``, float32 and float64), each beside its bound
+and the share of its time spent in the plan scatter, and the flat kernel
+at the same ``n`` beside them.  It needs a CUDA device; :func:`run` and
+:func:`generic_run` also take the CPU for tests, with no times.
 
 :func:`library_csr` and :func:`spmv_ms` give every kernel's library
 yardstick (``library_ms`` in ``chip_smoke.py``): one cuSPARSE CSR
@@ -23,6 +28,7 @@ them.
 from __future__ import annotations
 
 import dataclasses
+import json
 import sys
 import time
 from pathlib import Path
@@ -254,12 +260,181 @@ def run(n: int = 40, dtype=torch.float32, device="cuda", reps: int = 20,
     return rec
 
 
+# the generic discretization's applies (solvers/discretization.py)
+GENERIC_APPLIES = ("mass", "laplace", "elasticity", "coupling", "projection")
+# published H100 SXM peaks at 700 W: HBM3 bytes/s, float32 (outside the
+# tensor cores) and float64 (tensor cores) operations/s
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
+
+
+# per generic apply: its input ("p" or "u"), gather connectivity, scatter
+# plan and the geometry tensors it reads (attributes of the discretization)
+GENERIC_OPERANDS = {
+    "mass": ("p", "conn_p", "plan_p", ("jxw_p",)),
+    "laplace": ("p", "conn_p", "plan_p", ("jinv_p", "jxw_p")),
+    "elasticity": ("u", "conn_u", "plan_u", ("jinv_u", "jxw_u")),
+    "coupling": ("p", "conn_p", "plan_u", ("jinv_u", "jxw_u")),
+    "projection": ("u", "conn_u", "plan_p", ("jinv_p", "jxw_p")),
+}
+
+
+BIOT = 0.9     # the coupling's Biot coefficient in the timings (the deck's)
+
+
+def _generic_apply(d, name: str):
+    """(the whole apply, its gather-and-product part: input -> the cell
+    values it scatters) of generic apply ``name`` on ``d``."""
+    from ..ops import operators as ops
+    N, dim, E = d.dref_u_at_uq.shape[1], d.dim, d.n_cells
+    if name == "mass":
+        return d.mass, lambda x: ops.mass_core(x[d.conn_p], d.psi_p_at_pq,
+                                               d.jxw_p)
+    if name == "laplace":
+        return d.laplace, lambda x: ops.laplace_core(
+            x[d.conn_p], d.dref_p_at_pq, d.jinv_p, d.jxw_p)
+    if name == "elasticity":
+        return d.elasticity, lambda x: ops.elasticity_core(
+            x[d.conn_u].reshape(N, dim, E), d.dref_u_at_uq, d.jinv_u,
+            d.jxw_u, d.lam, d.mu)
+    if name == "coupling":
+        return (lambda x: d.coupling_rhs(x, BIOT)), \
+            lambda x: ops.coupling_core(x[d.conn_p], d.psi_p_at_uq,
+                                        d.dref_u_at_uq, d.jinv_u, d.jxw_u,
+                                        BIOT)
+    if name == "projection":
+        return d.strain_projection_rhs, lambda x: ops.projection_core(
+            x[d.conn_u].reshape(N, dim, E), d.psi_p_at_pq, d.dref_u_at_pq,
+            d.jinv_p, d.jxw_p).transpose(0, 1)
+    raise ValueError(f"no generic apply {name!r}")
+
+
+def generic_work(d, name: str) -> tuple:
+    """(bytes, flop) of one generic apply ``name`` on ``d``.  Bytes: each
+    input read once and the output written once: the input vector, the
+    gather connectivity, the Jacobian factors it reads, the shape tables,
+    the scatter plan and the output vector(s).  Flop: the shape-table
+    products (2 per multiply-add), the pointwise geometric algebra and the
+    scatter's additions (one per cell entry)."""
+    from ..ops.operators import VOIGT_PAIRS
+    dim, E = d.dim, d.n_cells
+    Qu, Nu = d.dref_u_at_uq.shape[:2]
+    Qp, Np = d.psi_p_at_pq.shape
+    C = len(VOIGT_PAIRS[dim])
+    inp, conn, plan, geo = GENERIC_OPERANDS[name]
+    n_in = d.n_udofs if inp == "u" else d.n_pdofs
+    n_out = {"mass": d.n_pdofs, "laplace": d.n_pdofs, "elasticity":
+             d.n_udofs, "coupling": d.n_udofs, "projection": C * d.n_pdofs}
+    tensors = [getattr(d, conn), getattr(d, plan).table] + [
+        getattr(d, g) for g in geo] + [
+        d.psi_p_at_pq, d.dref_p_at_pq, d.psi_p_at_uq, d.dref_u_at_uq,
+        d.dref_u_at_pq]
+    nbytes = (n_in + n_out[name]) * d.jxw_p.element_size() + sum(
+        t.numel() * t.element_size() for t in tensors)
+    m2 = dim * dim
+    flop = {
+        "mass": 4 * Qp * Np * E + Qp * E + Np * E,
+        "laplace": (4 * Qp * dim * Np * E + 2 * Qp * dim * (2 * dim - 1) * E
+                    + Qp * dim * E + Np * E),
+        "elasticity": (4 * Qu * dim * Nu * dim * E
+                       + 2 * Qu * m2 * (2 * dim - 1) * E
+                       + (dim - 1) * Qu * E + 6 * Qu * m2 * E + Qu * E
+                       + Nu * dim * E),
+        "coupling": (2 * Qu * Np * E + 2 * Qu * E + Qu * m2 * E
+                     + 2 * Nu * Qu * dim * dim * E + Nu * dim * E),
+        "projection": (2 * Qp * dim * Nu * dim * E
+                       + Qp * m2 * (2 * dim - 1) * E + 2 * Qp * m2 * E
+                       + Qp * C * E + 2 * Np * Qp * C * E + Np * C * E),
+    }[name]
+    return nbytes, flop
+
+
+def _cast(d, dtype):
+    """``d`` with its floating tensors cast to ``dtype``."""
+    return dataclasses.replace(d, dtype=dtype, **{
+        f.name: getattr(d, f.name).to(dtype) for f in dataclasses.fields(d)
+        if isinstance(getattr(d, f.name), torch.Tensor)
+        and getattr(d, f.name).is_floating_point()})
+
+
+def generic_run(n: int = 40, device="cuda", reps: int = 20,
+                deck=DECK) -> list:
+    """The five generic applies at ``n`` cells per axis on the distorted
+    mesh, float32 and float64 (one float64 build, cast for float32), each
+    applied twice to the same random input (bitwise repeat), then timed on
+    a CUDA device with its gather-and-product part and its scatter alone,
+    beside its bound; and the flat kernel (K6, ``make_flat_apply``) at the
+    same ``n``.  Returns one record per (apply, dtype)."""
+    from ..config import read_input_file
+    from ..ops import comp_major as cm
+    from ..ops import operators as ops
+    from ..solvers.discretization import build_discretization
+    from ..solvers.structured import build_grid_discretization
+    from .profile_step import generic_mesh
+
+    device = torch.device(device)
+    data = read_input_file(str(deck))
+    d64 = build_discretization(generic_mesh(n), data, dtype=torch.float64,
+                               device=device)
+    ke = build_grid_discretization(data, cells_per_axis=n, multigrid="off",
+                                   elasticity_backend="conv", device="cpu",
+                                   kernels="plain").element_ke
+    rng = np.random.default_rng(0)
+    xs = {"u": rng.standard_normal(d64.n_udofs),
+          "p": rng.standard_normal(d64.n_pdofs),
+          "flat": rng.standard_normal(3 * (2 * n + 1) ** 3)}
+    gpu = torch.cuda.get_device_name(device) if device.type == "cuda" \
+        else "cpu"
+    out = []
+    for dtype in (torch.float32, torch.float64):
+        d = d64 if dtype == torch.float64 else _cast(d64, dtype)
+        k6_ms = None
+        if device.type == "cuda":
+            k6 = cm.make_flat_apply(ke, n, dtype, device)
+            uf = torch.as_tensor(xs["flat"], dtype=dtype, device=device)
+            k6_ms = cuda_time_ms(lambda: k6(uf), reps)
+        for name in GENERIC_APPLIES:
+            x = torch.as_tensor(xs[GENERIC_OPERANDS[name][0]], dtype=dtype,
+                                device=device)
+            fn, core = _generic_apply(d, name)
+            plan = getattr(d, GENERIC_OPERANDS[name][2])
+            y1, y2 = fn(x), fn(x)
+            nbytes, flop = generic_work(d, name)
+            t_bytes = nbytes / PEAK_BYTES
+            t_flop = flop / PEAK_FLOPS[dtype]
+            rec = {"apply": name, "n": n, "dtype": str(dtype).split(".")[-1],
+                   "cells": d.n_cells, "device": gpu,
+                   "bitwise_repeat": bool(torch.equal(y1, y2)),
+                   "finite": bool(torch.isfinite(y1).all()),
+                   "bytes": nbytes, "flop": flop,
+                   "bound_ms": max(t_bytes, t_flop) * 1e3,
+                   "bound_by": "bytes" if t_bytes >= t_flop else "operations",
+                   "scatter_valence": plan.table.shape[1]}
+            if device.type == "cuda":
+                ye = core(x)
+                ms, host_ms = device_and_host_ms(lambda: fn(x), reps)
+                rec.update({
+                    "ms": ms, "host_ms": host_ms,
+                    "gather_product_ms": cuda_time_ms(lambda: core(x), reps),
+                    "scatter_ms": cuda_time_ms(
+                        lambda: ops.scatter_sum(ye, plan), reps),
+                    "k6_ms": k6_ms})
+                rec["scatter_share"] = rec["scatter_ms"] / ms
+                rec["times_bound"] = ms / rec["bound_ms"]
+            out.append(rec)
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     n = int(argv[0]) if argv else 40
     if not torch.cuda.is_available():
         raise SystemExit("apply_bench: needs a CUDA device "
                          "(torch.cuda.is_available() is False)")
+    if argv[1:] == ["generic"]:
+        for rec in generic_run(n):
+            print(json.dumps(rec), flush=True)
+        return 0
     rec = run(n)
     print(f"# {rec['device']} n={n} {rec['dtype']} dofs={rec['dofs']}")
     for name, ms in rec["ms"].items():

@@ -9,7 +9,10 @@ NCCL process group (``sharded``: the rows kit replaced by the z-slab kit,
 every mechanics apply the slab kernel), or the 2D configuration
 (:func:`data_2d`, ``backend`` ``2d``, e.g. ``512 2d``: the parity kit
 with the parity-resident elasticity GMG from 150,000 displacement dofs,
-GMG-Richardson in float32), with the solver's CG chunks
+GMG-Richardson in float32), or the bench configuration on the distorted
+hex mesh of the generic path (``generic``: :func:`generic_mesh`, the
+generic discretization's gather and plan-scatter applies, flat Jacobi-CG
+mechanics and Jacobi pressure CG), with the solver's CG chunks
 captured as CUDA graphs (``loop`` ``captured``, the default; the sharded
 path always runs them eagerly) or run eagerly (``eager``), each call
 site's chunk size from ``solvers/fss.py::CHUNK`` unless a ``site=C``
@@ -67,6 +70,16 @@ def data_2d(deck=DECK_2D):
         read_input_file(str(deck)), dtype="float32", flow_rate=1.0,
         fss_tol=2e-5, pressure_tol=2e-5, mech_cg_tol=1e-5,
         mech_cg_relative=True, pressure_cg_tol=1e-5, projection_cg_tol=1e-5)
+
+
+def generic_mesh(n: int):
+    """The generic path's at-scale mesh: ``hyper_rectangle`` of ``n`` cells
+    per axis over the 3D deck's [0, 10]^3, every interior vertex moved by
+    up to 0.2 of its cell size (``perturb_interior``, seed 0)."""
+    from ..mesh import hyper_rectangle
+    from ..mesh.generator import perturb_interior
+    return perturb_interior(hyper_rectangle([10.0] * 3, cells_per_axis=n),
+                            0.2, seed=0)
 
 
 def _busy_ms(intervals) -> float:
@@ -154,7 +167,7 @@ def _step(solver, state, bc, bc_prev):
     return state, stats, (time.perf_counter() - t0) * 1e3
 
 
-BACKENDS = ("rows", "conv", "sharded", "2d")
+BACKENDS = ("rows", "conv", "sharded", "2d", "generic")
 LOOPS = ("captured", "eager")
 
 
@@ -183,10 +196,14 @@ def _run(n, n_evolving, n_steady, device, backend, loop) -> list:
 
     from ..ops import comp_major as cm
     from ..parallel import make_slab_group, shard_production_discretization
+    from ..solvers.discretization import build_discretization
     from ..solvers.fss import CHUNK, FixedStressSolver
     from ..solvers.structured import build_grid_discretization
 
-    if backend == "2d":
+    if backend == "generic":
+        data = bench_data()
+        disc = build_discretization(generic_mesh(n), data, device=device)
+    elif backend == "2d":
         data = data_2d()
         disc = build_grid_discretization(data, cells_per_axis=n,
                                          multigrid="auto", device=device)

@@ -10,12 +10,16 @@ import torch
 
 from poroelasticity_dealii_torch import read_input_file
 from poroelasticity_dealii_torch.interop import state_from_numpy
+from poroelasticity_dealii_torch.mesh import read_msh
 from poroelasticity_dealii_torch.models.runner import (SimulationRunner,
                                                        run_from_data)
+from poroelasticity_dealii_torch.solvers.discretization import \
+    build_discretization
 from poroelasticity_dealii_torch.solvers.structured import \
     build_grid_discretization
 
 DECK = "configs/consolidation_3d.data"
+MSH_3D = "configs/irregular_3d.msh"
 
 
 def _data(tmp_path):
@@ -37,7 +41,11 @@ def _fields():
 ENTRY_POINTS = {
     "build_grid_discretization":
         lambda data, **kw: build_grid_discretization(data, **kw),
+    "build_discretization": lambda data, **kw: build_discretization(
+        read_msh(MSH_3D, dim=3), data, **kw),
     "SimulationRunner": lambda data, **kw: SimulationRunner(data, **kw),
+    "SimulationRunner[mesh file]": lambda data, **kw: SimulationRunner(
+        dataclasses.replace(data, mesh_file=MSH_3D), **kw),
     "run_from_data": lambda data, **kw: run_from_data(data, **kw),
     "state_from_numpy": lambda data, **kw: state_from_numpy(_fields(), **kw),
 }
@@ -56,7 +64,11 @@ def test_entry_point_runs_on_the_cpu_when_asked(entry, tmp_path):
     out = ENTRY_POINTS[entry](_data(tmp_path), device="cpu")
     tensors = {
         "build_grid_discretization": lambda d: [d.row_ops.ke],
+        "build_discretization": lambda d: [d.jinv_u, d.conn_u,
+                                           d.plan_u.table],
         "SimulationRunner": lambda r: [r.disc.row_ops.ke],
+        "SimulationRunner[mesh file]": lambda r: [r.disc.jinv_u,
+                                                  r.disc.plan_p.table],
         "run_from_data": lambda s: [s.p, s.u],
         "state_from_numpy": lambda s: [s.p, s.u, s.strains],
     }[entry](out)

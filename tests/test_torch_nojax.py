@@ -1,8 +1,10 @@
 """The torch port loads nothing of JAX and nothing of the JAX package: a
 fresh interpreter imports every module of the port (and chip_smoke.py),
 runs one n = 4 step on the CPU on each 3D mechanics backend (rows and
-conv) and one 2D step on the parity kit with the elasticity GMG and on
-flat vectors, and the CLI ``check``, and finds no module of ``jax``, ``jaxlib`` or
+conv), one 2D step on the parity kit with the elasticity GMG and on
+flat vectors, one step of the generic path on ``configs/irregular_3d.msh``
+(the gmsh reader, ``build_discretization``) and the CLI ``check``, and
+finds no module of ``jax``, ``jaxlib`` or
 ``poroelasticity_dealii_tpu`` loaded (the port keeps its own copies of the
 host modules it needs; ``tests/test_torch_vendored.py`` holds them equal to
 the originals)."""
@@ -41,6 +43,15 @@ for backend in ("parity", "conv"):
     s = FixedStressSolver(d, data2)
     state, stats = s.time_step(s.initial_state(), data2.time_step)
     assert stats.cg_converged and stats.fss_iterations >= 1, stats
+from poroelasticity_dealii_torch.mesh import read_msh
+from poroelasticity_dealii_torch.solvers.discretization import \
+    build_discretization
+d = build_discretization(read_msh("configs/irregular_3d.msh", dim=3), data,
+                         device="cpu")
+assert d.row_ops is None and d.n_cells == 210
+s = FixedStressSolver(d, data)
+state, stats = s.time_step(s.initial_state(), data.time_step)
+assert stats.cg_converged and stats.fss_iterations >= 1, stats
 assert main(["check", "configs/consolidation_3d.data"]) == 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib",
@@ -52,6 +63,10 @@ print("NO_JAX_OK")
 
 def test_port_imports_and_runs_without_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    # one intra-op thread: beside busy test workers, torch's default
+    # OpenMP pool oversubscribes the host and its barriers stall the
+    # many small operators of these steps (minutes instead of seconds)
+    env["OMP_NUM_THREADS"] = "1"
     res = subprocess.run([sys.executable, "-c", _CODE], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr

@@ -1,7 +1,8 @@
 """The port keeps its own copies of the JAX package's host modules
-(``config``, ``mesh/``, ``ops/shape.py``, ``ops/quadrature.py``,
-``utils/logging_utils.py``, ``models/terzaghi.py``, ``models/mandel.py``)
-and imports nothing of the JAX package.
+(``config``, ``mesh/`` with the gmsh reader ``mesh/gmsh_io.py``,
+``ops/shape.py``, ``ops/quadrature.py``, ``utils/logging_utils.py``,
+``utils/native.py``, ``models/terzaghi.py``, ``models/mandel.py``,
+``models/cryer.py``) and imports nothing of the JAX package.
 
 * No import line of the port or ``chip_smoke.py`` names the JAX package
   (``tests/test_torch_nojax.py`` checks in a fresh interpreter that none
@@ -9,8 +10,10 @@ and imports nothing of the JAX package.
 * The copies agree with the originals exactly: every deck in ``configs/``
   parses to equal fields, and the shape, quadrature, lattice, mesh and
   structured-space arrays are bitwise equal, for dims 2 and 3 and degrees
-  1 and 2; the analytic models' sources equal the originals but for their
-  relative imports, and their configurations and series are equal.
+  1 and 2; the analytic models' and the gmsh reader's sources equal the
+  originals but for their relative imports, their configurations, series
+  and meshes are equal, and ``read_msh`` reads both gmsh assets in
+  ``configs/`` to equal meshes.
 """
 
 import dataclasses
@@ -40,11 +43,22 @@ def test_no_import_line_names_the_jax_package():
                 assert "poroelasticity_dealii_tpu" not in line, (f, line)
 
 
-def test_mesh_package_has_no_gmsh_reader():
-    import poroelasticity_dealii_torch.mesh as tmesh
-    assert not hasattr(tmesh, "read_msh")
-    assert not (REPO / "poroelasticity_dealii_torch" / "mesh"
-                / "gmsh_io.py").exists()
+@pytest.mark.parametrize("msh,dim", [("irregular_2d.msh", 2),
+                                     ("irregular_3d.msh", 3)])
+def test_read_msh_equals_jax(msh, dim):
+    """Both packages read the gmsh asset to equal meshes, from its path
+    (the native parser when it builds) and from its text (the pure-Python
+    parser)."""
+    from poroelasticity_dealii_torch.mesh import read_msh
+    from poroelasticity_dealii_tpu.mesh import read_msh as jread_msh
+    path = str(REPO / "configs" / msh)
+    text = Path(path).read_text()
+    want = jread_msh(path, dim=dim)
+    assert want.n_cells > 0
+    for got in (read_msh(path, dim=dim), read_msh(text, dim=dim),
+                jread_msh(text, dim=dim)):
+        for f in dataclasses.fields(want):
+            _eq(getattr(got, f.name), getattr(want, f.name))
 
 
 @pytest.mark.parametrize("deck", DECKS)
@@ -124,7 +138,9 @@ def test_host_arrays_bitwise_equal_jax(dim, degree):
         _eq(getattr(fe_t, name), getattr(fe_j, name))
 
 
-MODELS = ("terzaghi", "mandel")
+MODELS = ("terzaghi", "mandel", "cryer")
+# host modules copied with no change but their relative imports
+HOST_COPIES = ("mesh/gmsh_io.py", "utils/native.py")
 
 
 def _code_lines(path: Path) -> list:
@@ -138,6 +154,32 @@ def test_model_copies_equal_jax_source(name):
     got = REPO / "poroelasticity_dealii_torch" / "models" / f"{name}.py"
     want = REPO / "poroelasticity_dealii_tpu" / "models" / f"{name}.py"
     assert _code_lines(got) == _code_lines(want)
+
+
+@pytest.mark.parametrize("rel", HOST_COPIES)
+def test_host_copies_equal_jax_source(rel):
+    got = REPO / "poroelasticity_dealii_torch" / rel
+    want = REPO / "poroelasticity_dealii_tpu" / rel
+    assert _code_lines(got) == _code_lines(want)
+
+
+def test_cryer_copy_computes_what_jax_computes():
+    from poroelasticity_dealii_torch.models import cryer as tc
+    from poroelasticity_dealii_tpu.models import cryer as jc
+    got, want = tc.cryer_config(dt=1.25), jc.cryer_config(dt=1.25)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    cp_t = tc.cryer_params(got, radius=10.0, load=7.2e6)
+    cp_j = jc.cryer_params(want, radius=10.0, load=7.2e6)
+    for a, b in zip(cp_t, cp_j):
+        _eq(a, b)
+    r = np.linspace(0.0, 10.0, 21)
+    for t in (1.25, 25.0, 125.0):
+        _eq(tc.cryer_pressure(r, t, cp_t), jc.cryer_pressure(r, t, cp_j))
+    _eq(tc.cryer_center_pressure([1.25, 25.0], cp_t),
+        jc.cryer_center_pressure([1.25, 25.0], cp_j))
+    mt, mj = tc.cryer_mesh(10.0, 4), jc.cryer_mesh(10.0, 4)
+    for f in dataclasses.fields(mj):
+        _eq(getattr(mt, f.name), getattr(mj, f.name))
 
 
 def test_model_copies_compute_what_jax_computes():
