@@ -54,7 +54,22 @@ just before and read just after:
   the golden 2D deck (float64, 17 steps) against
   ``tests/data/golden_history.json``, and on the gmsh deck
   ``configs/irregular_2d.data`` (the generic path, float64, 17 steps)
-  against :data:`IRREGULAR_2D_PIN`, JAX's counts and residuals.
+  against :data:`IRREGULAR_2D_PIN`, JAX's counts and residuals;
+* adaptive mesh refinement (``amr/``: forests, hanging-node constraints,
+  Kelly marking, transfer, the adaptive driver; plain torch on the
+  generic path): the golden adaptive deck through the CLI (float64, 17
+  steps, 256 -> 1000 cells) against
+  ``tests/data/adaptive_golden_history.json``; the gmsh-rooted quad and
+  hex forests at JAX's test sizes (float64) against
+  :data:`AMR_IRREGULAR_2D_PIN` and :data:`AMR_IRREGULAR_3D_PIN` (the 2D
+  one in blocks of two steps); and the 3D octree at scale (the bench
+  configuration with AMR, 112,724 DOF at level 4, one remesh to level 5,
+  float32, 6 captured steps through the runner's own loop): every solve
+  converged, captured equal to eager after the remesh, the hanging values
+  consistent, ``condense_vec`` bitwise repeatable, the old mesh's solver,
+  graphs and discretization freed and their memory returned, each step's
+  ms and the remesh's split, and padded against unpadded steps on the
+  final mesh (what ``AMR bucketing`` costs).
 
 Before the paths, the slab form of the row-layout apply (K5's z-slab form,
 ``nz``/``nv``) is held against its plain twin on every slab of 2-, 4- and
@@ -62,9 +77,9 @@ Before the paths, the slab form of the row-layout apply (K5's z-slab form,
 apply; the 4-way split at 40^3 float32 is timed beside its bound and its
 library yardstick.
 
-The 2D and the generic paths reach no hand-written kernel (the JAX
-package computes them with XLA einsums, gathers and segment sums, outside
-any Pallas kernel): their products are ``torch.matmul`` / ``torch.einsum``
+The 2D, the generic and the adaptive paths reach no hand-written kernel
+(the JAX package computes them with XLA einsums, gathers and segment
+sums and host numpy, outside any Pallas kernel): their products are ``torch.matmul`` / ``torch.einsum``
 at full float32, checked with TF32 off.
 
 It prints the kernel summary and, as its last line,
@@ -73,6 +88,7 @@ It prints the kernel summary and, as its last line,
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -105,7 +121,7 @@ from poroelasticity_dealii_torch.tools import apply_bench
 from poroelasticity_dealii_torch.tools.apply_bench import cuda_time_ms, \
     device_and_host_ms, nonzeros
 from poroelasticity_dealii_torch.tools.profile_step import BC_RATE, \
-    bench_data, data_2d, generic_mesh
+    amr_data, amr_sizes, bench_data, data_2d, generic_mesh
 
 REPO = Path(__file__).resolve().parent
 
@@ -1176,6 +1192,29 @@ IRREGULAR_2D_PIN = [
 ]
 
 
+# JAX's AMRSimulationRunner on the gmsh-rooted forests (float64, the CPU,
+# x64): (n_cells, n_pdofs, FSS iterations, pressure iterations,
+# pressure_error) per step, printed by scripts/torch_amr_pins.py.
+# configs/irregular_2d.data with AMR on, levels 0 -> 2, refine every 2, 6
+# steps:
+AMR_IRREGULAR_2D_PIN = [
+    (143, 168, 1, 5, 8.698673479713646e-09),
+    (176, 209, 1, 5, 7.043066193626105e-09),
+    (176, 209, 1, 5, 5.054590159431263e-09),
+    (269, 318, 1, 4, 6.903839455127845e-09),
+    (269, 318, 1, 4, 5.020981094965438e-09),
+    (359, 421, 1, 3, 8.200451004633047e-09),
+]
+# configs/consolidation_3d.data on configs/irregular_3d.msh, AMR on,
+# levels 0 -> 1, refine every 2, 4 steps:
+AMR_IRREGULAR_3D_PIN = [
+    (210, 336, 1, 8, 4.414570806792333e-09),
+    (420, 674, 1, 7, 4.768118706684661e-09),
+    (420, 674, 1, 6, 8.861476801574588e-09),
+    (511, 798, 1, 6, 5.9957313305838765e-09),
+]
+
+
 def check_tf32_off() -> None:
     """Every float32 matmul (the 2D path's products, the generic cores'
     einsums) runs at full float32."""
@@ -1303,6 +1342,392 @@ def irregular_check(cwd: Path) -> None:
     print(json.dumps(rec), flush=True)
     if len(vtks) != len(IRREGULAR_2D_PIN) + 1:
         raise AssertionError(f"irregular run VTK output: {rec}")
+
+
+# ---------------------------------------------------------------------------
+# adaptive mesh refinement: forests, hanging-node constraints, remeshes
+# ---------------------------------------------------------------------------
+
+AMR_GOLDEN_DECK = REPO / "configs" / "golden_2d_adaptive.data"
+AMR_GOLDEN_HISTORY = REPO / "tests" / "data" / "adaptive_golden_history.json"
+AMR_GOLDEN_RTOL = 1e-5      # tests/test_adaptive_history.py's tolerance
+AMR_PIN_RTOL = 1e-6         # JAX's pinned gmsh-rooted runs
+AMR_MAX_LEVEL = 5           # the at-scale point: levels 4 -> 5
+AMR_STEPS = 6               # one remesh, before step 5
+AMR_DOFS = 112_724          # 17^3 Q1 + 33^3 * 3 Q2 at level 4
+AMR_CONSISTENT_TOL = 1e-6   # distribute(x) vs x, relative to max |x| (f32)
+# the new mesh's share of device memory over the old one's, per unit of
+# the mesh's growth: 1.14-1.23 measured (its hanging-node tables and
+# constraint plans do not exist on the uniform mesh); see amr_after_remesh
+AMR_MEMORY_SLACK = 2.0
+AMR_PADDING_REPEATS = 5     # timed steps of each, see amr_padding_cost
+AMR_PADDING_TOL = 1e-4      # padded vs unpadded p, u (float32)
+
+
+def amr_gmsh_data(case: str):
+    """The gmsh-rooted adaptive runs of JAX's tests, float64: (data, pin).
+    The 2D run takes its steps between remeshes in blocks of two
+    (``Steps per dispatch = 2``, the runner's ``multi_step`` path)."""
+    from poroelasticity_dealii_torch.config import read_input_file
+    if case == "irregular_2d":
+        data = read_input_file(str(IRREGULAR_DECK))
+        return dataclasses.replace(
+            data, amr=True, mesh_file=str(REPO / "configs" /
+                                          "irregular_2d.msh"),
+            initial_refinement_level=0, max_refinement_level=2,
+            refine_every=2, t_max=6 * data.time_step, output_vtk=False,
+            steps_per_dispatch=2), AMR_IRREGULAR_2D_PIN
+    data = read_input_file(str(REPO / "configs" / "consolidation_3d.data"))
+    return dataclasses.replace(
+        data, amr=True, mesh_file=str(REPO / "configs" / "irregular_3d.msh"),
+        initial_refinement_level=0, max_refinement_level=1, refine_every=2,
+        t_max=4 * data.time_step, output_vtk=False), AMR_IRREGULAR_3D_PIN
+
+
+def amr_pin_check(name: str, hist: list, pin: list) -> None:
+    """An adaptive run's history against its pin: mesh sizes and counts
+    exactly, ``pressure_error`` within :data:`AMR_PIN_RTOL`."""
+    worst = 0.0
+    if len(hist) != len(pin):
+        raise AssertionError(f"{name}: {len(hist)} steps, the pin has "
+                             f"{len(pin)}")
+    for h, (cells, pdofs, fss, press, err) in zip(hist, pin):
+        rel = abs(h["err"] / err - 1.0)
+        worst = max(worst, rel)
+        if (h["n_cells"], h["n_pdofs"], h["fss"], h["press"]) != (
+                cells, pdofs, fss, press) or not rel <= AMR_PIN_RTOL:
+            raise AssertionError(f"{name} step {h['step']}: {h} vs pin "
+                                 f"{(cells, pdofs, fss, press, err)}")
+    print(json.dumps({"amr_gmsh_run": {
+        "case": name, "steps": len(hist),
+        "cells": [h["n_cells"] for h in hist],
+        "pressure": [h["press"] for h in hist],
+        "ms": [h["wall_s"] * 1e3 for h in hist],
+        "max_rel_err_vs_pin": worst, "rtol": AMR_PIN_RTOL}}), flush=True)
+
+
+def amr_golden_check(cwd: Path) -> None:
+    """The CLI's run of ``configs/golden_2d_adaptive.data`` (float64, 17
+    steps, 256 -> 376 -> 724 -> 1000 cells) against
+    ``tests/data/adaptive_golden_history.json``: cells, pressure dofs, FSS
+    and pressure counts exactly, ``pressure_error`` within
+    :data:`AMR_GOLDEN_RTOL`; 18 VTK files."""
+    log = _run_log(cwd / "solution" / "run_log.jsonl")
+    ref = json.loads(AMR_GOLDEN_HISTORY.read_text())
+    if len(log) != len(ref):
+        raise AssertionError(f"adaptive golden run logged {len(log)} steps, "
+                             f"the pin has {len(ref)}")
+    worst = 0.0
+    for a, r in zip(log, ref):
+        rel = abs(a["pressure_error"] / r["pressure_error"] - 1.0)
+        worst = max(worst, rel)
+        if (a["n_cells"], a["n_pdofs"], a["fss_iterations"],
+                a["pressure_iterations"]) != (
+                r["n_cells"], r["n_pdofs"], r["fss_iterations"],
+                r["pressure_iterations"]) or not rel <= AMR_GOLDEN_RTOL:
+            raise AssertionError(f"adaptive golden step {a['step']}: {a} "
+                                 f"vs pin {r}")
+    vtks = sorted((cwd / "solution").glob("solution-*.vtk"))
+    rec = {"amr_golden_cli": {
+        "steps": len(log), "cells": [a["n_cells"] for a in log],
+        "pressure": [a["pressure_iterations"] for a in log],
+        "wall_ms": [a["wall_s"] * 1e3 for a in log],
+        "max_rel_err_vs_pin": worst, "rtol": AMR_GOLDEN_RTOL,
+        "vtk_files": len(vtks)}}
+    print(json.dumps(rec), flush=True)
+    if len(vtks) != len(ref) + 1:
+        raise AssertionError(f"adaptive golden run VTK output: {rec}")
+
+
+def _memory(dev) -> dict:
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    return {"allocated": torch.cuda.memory_allocated(dev),
+            "reserved": torch.cuda.memory_reserved(dev)}
+
+
+def _pool_bytes(pool) -> int:
+    """Bytes of the device segments the caching allocator holds for the
+    graph memory pool ``pool`` (a ``torch.cuda.graph_pool_handle()``)."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def amr_step_check(runner, state, log, block) -> list:
+    """A block of adaptive steps the runner ran (``AMRSimulationRunner
+    .steps``'s ``after`` event), every solve checked; prints each step and
+    returns its ms."""
+    data = runner.data
+    solves = log.take()
+    bad = [x for x in solves if not x[2]]
+    out = []
+    for rec, stats in block:
+        k = rec["step"]
+        if bad or not stats.cg_converged or \
+                not stats.pressure_error <= float(np.float32(data.fss_tol)):
+            raise AssertionError(f"AMR step {k}: solves {bad}, stats "
+                                 f"{stats}")
+        check_state(state, runner.disc.n_pdofs, runner.disc.n_udofs)
+        out.append(rec["wall_s"] * 1e3)
+        print(json.dumps({
+            "amr_step": k, "ms": out[-1], **amr_sizes(runner),
+            "fss": stats.fss_iterations,
+            "pressure": stats.pressure_iterations,
+            "cg_pressure": stats.pressure_cg_iterations,
+            "cg_mechanics": stats.mech_cg_iterations,
+            "cg_projection": stats.projection_cg_iterations,
+            "pressure_error": stats.pressure_error,
+            "solves": len(solves), "graph_replays": _graph_replays(
+                runner.solver)}), flush=True)
+    return out
+
+
+def amr_consistency(runner, state, dev) -> dict:
+    """On the hanging mesh: ``distribute`` leaves the final p and u as
+    they are within float32 rounding (hanging values are their masters'
+    interpolation), and ``condense_vec`` repeats bit for bit on the card
+    and agrees with the CPU's."""
+    d = runner.disc
+    out = {}
+    for name, hc, x in (("p", d.hc_p, state.p), ("u", d.hc_u, state.u)):
+        scale = x.abs().max().item()
+        err = (hc.distribute(x) - x).abs().max().item() / scale
+        rng = np.random.default_rng(3)
+        r = torch.as_tensor(rng.standard_normal(x.shape[0]), dtype=x.dtype,
+                            device=dev)
+        once, again = hc.condense_vec(r), hc.condense_vec(r.clone())
+        host = hc.to("cpu").condense_vec(r.cpu())
+        out[name] = {"hanging_rows": int((hc.weights != 0).any(1).sum()),
+                     "distribute_rel_change": err,
+                     "condense_bitwise_repeat": bool(torch.equal(once,
+                                                                 again)),
+                     "condense_vs_cpu": _rel_err(once.cpu(), host)}
+        if not (err <= AMR_CONSISTENT_TOL and out[name][
+                "condense_bitwise_repeat"] and out[name]["condense_vs_cpu"]
+                <= TOL[torch.float32]) or out[name]["hanging_rows"] == 0:
+            raise AssertionError(f"AMR constraints on {name}: {out[name]}")
+    return out
+
+
+def amr_scale_point(dev) -> None:
+    """The 3D octree at scale: the bench configuration with AMR from the
+    uniform level-4 mesh (4,096 cells, 112,724 DOF), levels 4 -> 5,
+    bucketing on, float32, 6 captured steps with one remesh before step 5,
+    through the runner's own loop (``AMRSimulationRunner.steps``).  Every
+    solve converged (the bc response included, solved once on the hanging
+    mesh), fields finite; step 5 captured equal to step 5 eager bit for
+    bit; the hanging values consistent and ``condense_vec`` repeatable
+    (:func:`amr_consistency`).  Memory (:func:`amr_after_remesh`): after
+    the remesh nothing keeps the old mesh's solver, graphs or
+    discretization alive, and the allocator holds no segment of the old
+    graphs' pool (it held some before); once the runner has released them
+    the allocator holds no more than before the remesh less that pool (so
+    the old mesh's memory went back too); and memory after step 5 is at
+    most the level after the release plus :data:`AMR_MEMORY_SLACK` times
+    the old mesh's share scaled by the mesh's growth.  Levels are compared
+    between points with no product on a new stream in between: torch's
+    cuBLAS workspaces (one per stream, ~1 GiB here) sit outside any
+    tensor and never shrink.  Prints every step's ms and the remesh's
+    split, then :func:`amr_padding_cost`."""
+    import weakref
+    from poroelasticity_dealii_torch.amr.driver import AMRSimulationRunner
+    check_tf32_off()
+    data = amr_data(AMR_MAX_LEVEL)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner = AMRSimulationRunner(data, device=dev)
+    torch.cuda.synchronize()
+    sizes0 = amr_sizes(runner)
+    print(json.dumps({"amr_setup": {"setup_s": time.perf_counter() - t0,
+                                    "split_s": dict(runner.timings),
+                                    **sizes0}}), flush=True)
+    if sizes0["dofs"] != AMR_DOFS or sizes0["hanging_rows"] != [0, 0]:
+        raise AssertionError(f"AMR level-4 build: {sizes0}")
+    if runner.solver.graphs is None or runner.solver.graphs.captures:
+        raise AssertionError("AMR: no graphs, or graphs captured before "
+                             "the first step")
+    mem_base = _memory(dev)
+    ms_all, log, before, old, post = [], None, None, None, None
+    for kind, state, info in runner.steps(AMR_STEPS):
+        if kind == "start":
+            log = SolveLog(runner.solver)
+        elif kind == "before" and info % data.refine_every == 0:
+            # just remeshed: the old mesh's objects and pool must be gone
+            gc.collect()
+            kept = [name for name, ref in old.items() if ref() is not None]
+            after = amr_sizes(runner)
+            mem_pre["graph_pool_after_remesh"] = _pool_bytes(pool)
+            if kept or after["hanging_rows"][1] == 0 or \
+                    mem_pre["graph_pool_after_remesh"] or \
+                    not mem_pre["graph_pool"]:
+                raise AssertionError(f"AMR remesh: kept {kept} of the old "
+                                     f"mesh, its graph pool {mem_pre}, "
+                                     f"hanging rows {after}")
+            log = SolveLog(runner.solver)
+            post = dataclasses.replace(state, **{
+                n: getattr(state, n).clone()
+                for n in ("p", "u", "eps_v", "eps_v0", "strains")})
+        elif kind == "after":
+            k = info[-1][0]["step"]
+            ms_all += amr_step_check(runner, state, log, info)
+            if (k + 1) % data.refine_every == 0 and k + 1 <= AMR_STEPS:
+                mem_pre = _memory(dev)
+                pool = runner.solver.graphs._pool
+                mem_pre["graph_pool"] = _pool_bytes(pool)
+                before = amr_sizes(runner)
+                old = {"solver": weakref.ref(runner.solver),
+                       "graphs": weakref.ref(runner.solver.graphs),
+                       "discretization": weakref.ref(runner.disc)}
+            elif post is not None:
+                amr_after_remesh(runner, state, info[-1][1], ms_all[-1],
+                                 log, post, before, mem_base, mem_pre, dev)
+                post = None
+    cons = amr_consistency(runner, state, dev)
+    print(json.dumps({"amr_scale_point": {
+        "gpu": gpu_line(), "ms_per_step": ms_all,
+        "constraints": cons}}), flush=True)
+    amr_padding_cost(runner, state, dev)
+
+
+def amr_after_remesh(runner, state, stats, ms, log, post, before,
+                     mem_base, mem_pre, dev) -> None:
+    """The checks of :func:`amr_scale_point` on the step after the remesh:
+    captured equals eager, the bc response, device memory."""
+    data = runner.data
+    mem_post = _memory(dev)
+    # the same step eager, from the same post-remesh state
+    eager = FixedStressSolver(runner.disc, data, cuda_graphs=False)
+    e_state, e_stats = eager.time_step(post, data.time_step)
+    same = all(torch.equal(getattr(state, n), getattr(e_state, n))
+               for n in ("p", "u", "eps_v", "strains")) and \
+        _counts(stats) == _counts(e_stats)
+    del eager, e_state
+    after = amr_sizes(runner)
+    growth = max(after["cells"] / before["cells"],
+                 after["dofs"] / before["dofs"])
+    released = runner.reserved_after_release
+    bound = released + AMR_MEMORY_SLACK * growth * (
+        mem_pre["reserved"] - released)
+    bc = runner.solver._bc_response()
+    bc_solves = log.take()
+    rec = {"amr_remesh": {
+        "before_step": data.refine_every, "gpu": gpu_line(),
+        "remesh_s": runner.timings["remesh_s"],
+        "split_s": dict(runner.timings),
+        "first_step_ms_with_captures": ms,
+        "before": before, "after": after,
+        "memory_before_captures": mem_base, "memory_before_remesh": mem_pre,
+        "reserved_after_release": released,
+        "memory_after_step": mem_post, "memory_bound_reserved": bound,
+        "captured_equals_eager": same,
+        "bc_response": [x[:3] for x in bc_solves]}}
+    print(json.dumps(rec), flush=True)
+    if not same:
+        raise AssertionError("AMR step after the remesh: captured and "
+                             f"eager differ: {_counts(stats)} vs "
+                             f"{_counts(e_stats)}")
+    if not (released <= mem_pre["reserved"] - mem_pre["graph_pool"]
+            and mem_post["reserved"] <= bound):
+        raise AssertionError(f"AMR device memory not released: {rec}")
+    if not bc_solves or not all(x[2] for x in bc_solves) or \
+            not bool(torch.isfinite(bc).all()):
+        raise AssertionError(f"AMR bc response: {bc_solves}")
+
+
+def amr_padding_cost(runner, state, dev) -> None:
+    """What ``AMR bucketing`` costs on the card: the runner's padded
+    discretization of the final mesh against the unpadded one built for
+    the same forest, each with its own captured solver, stepping from the
+    same real-sized state (:data:`AMR_PADDING_REPEATS` timed steps each,
+    alternating, after one warm step each).  Equal FSS and pressure
+    counts, p and u within :data:`AMR_PADDING_TOL`; prints both ms.
+    Then the device memory the process holds outside any tensor: torch's
+    cuBLAS workspaces (one per stream that ran a product), measured by
+    clearing them."""
+    from poroelasticity_dealii_torch.amr.bucketing import pad_state
+    from poroelasticity_dealii_torch.amr.driver import \
+        build_amr_discretization
+    data = runner.data
+    real = runner._real_state(state)
+    disc = build_amr_discretization(runner.forest, data, device=dev)
+    solvers = {"unpadded": FixedStressSolver(disc, data),
+               "padded": runner.solver}
+    starts = {"unpadded": real,
+              "padded": pad_state(real, runner.disc.n_pdofs,
+                                  runner.disc.n_udofs)}
+    ms, out = {"padded": [], "unpadded": []}, {}
+    for rep in range(AMR_PADDING_REPEATS + 1):
+        for name in ("padded", "unpadded"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[name] = solvers[name].time_step(starts[name],
+                                                data.time_step)
+            torch.cuda.synchronize()
+            if rep:
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+    (sp, tp), (su, tu) = out["padded"], out["unpadded"]
+    n_p, n_u = disc.n_pdofs, disc.n_udofs
+    diff = {"p": _rel_err(sp.p[:n_p], su.p), "u": _rel_err(sp.u[:n_u], su.u)}
+    rec = {"amr_padding": {
+        "gpu": gpu_line(), "ms": ms,
+        "median_ms": {k: float(np.median(v)) for k, v in ms.items()},
+        "cells": [disc.n_cells, runner.disc.n_cells],
+        "pdofs": [n_p, runner.disc.n_pdofs],
+        "udofs": [n_u, runner.disc.n_udofs],
+        "counts": {"padded": _counts(tp), "unpadded": _counts(tu)},
+        "max_rel_diff": diff, "tol": AMR_PADDING_TOL}}
+    print(json.dumps(rec), flush=True)
+    if _counts(tp)[:2] != _counts(tu)[:2] or \
+            not max(diff.values()) <= AMR_PADDING_TOL:
+        raise AssertionError(f"AMR padded and unpadded steps differ: {rec}")
+    del solvers, starts, out, sp, su
+    held = _memory(dev)
+    # frees the workspaces; no graph captured before this is replayed after
+    # it (the last phase runs the CLI in subprocesses)
+    torch._C._cuda_clearCublasWorkspaces()
+    print(json.dumps({"amr_memory_outside_tensors": {
+        "before_clearing_cublas_workspaces": held,
+        "after": _memory(dev)}}), flush=True)
+
+
+def amr_phase(dev) -> None:
+    """Adaptive runs on the card: the golden adaptive deck through the CLI
+    (float64, 17 steps, :func:`amr_golden_check`) while the gmsh-rooted
+    quad and hex forests run in this process (float64, JAX's test sizes,
+    against :data:`AMR_IRREGULAR_2D_PIN` and :data:`AMR_IRREGULAR_3D_PIN`),
+    then the 3D octree at scale alone (:func:`amr_scale_point`)."""
+    from poroelasticity_dealii_torch.amr.driver import AMRSimulationRunner
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + [p for p in [env.get("PYTHONPATH")] if p])
+    with tempfile.TemporaryDirectory() as tmp:
+        cwd = Path(tmp)
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "poroelasticity_dealii_torch", "run",
+             str(AMR_GOLDEN_DECK), "--device", "cuda"], cwd=cwd, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            for case in ("irregular_2d", "irregular_3d"):
+                data, pin = amr_gmsh_data(case)
+                _, hist = AMRSimulationRunner(data, device=dev).run()
+                amr_pin_check(case, hist, pin)
+            out, err = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        sys.stdout.write(f"[cli golden_2d_adaptive]\n{err[-1500:]}")
+        if proc.returncode != 0:
+            raise AssertionError(f"adaptive golden CLI run failed "
+                                 f"({proc.returncode}):\n{out}\n{err}")
+        print(f"amr: gmsh-rooted runs and the adaptive golden CLI run in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        amr_golden_check(cwd)
+    gc.collect()
+    torch.cuda.empty_cache()
+    amr_scale_point(dev)
 
 
 TENSOR_CORE_OP = re.compile(r"\b([DHIBQ]G?MMA)\b")
@@ -1435,6 +1860,7 @@ def main() -> int:
     del states
     phase_2d(dev)
     generic_phase(dev)
+    amr_phase(dev)
     cli_phase()
 
     summary = []

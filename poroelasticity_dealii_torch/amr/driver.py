@@ -1,0 +1,379 @@
+"""AMR discretization builder and adaptive simulation runner (port of
+``poroelasticity_dealii_tpu/amr/driver.py``).
+
+Ties the pieces together the way the reference's ``refine_mesh`` +
+``setup_dofs`` + ``SolutionTransfer`` flow does
+(``PoroelasticityFSS.h:333-340, 448-498``): every ``refine_every``-th step,
+estimate -> mark -> remesh -> rebuild the discretization (with hanging-node
+constraints) -> transfer {p, eps_v, eps_v0} -> a new solver, and continue.
+
+The remesh is host work, as in the reference: the state comes to the host
+in one copy, the Kelly indicator, the marks, the forest, the generic
+discretization with its constraint tables, the padding (``TPU / AMR
+bucketing``) and the transfer are numpy and torch on the CPU, and the new
+discretization and state go to the device in one move each.  The old
+solver's captured CUDA graphs and their memory pool are released before
+the new solver is built, so device memory follows the current mesh.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import gc
+import os
+import time
+import warnings
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..config import InputData
+from ..interop import FIELDS
+from ..ops.operators import VOIGT_PAIRS
+from ..solvers.discretization import build_discretization
+from ..solvers.fss import FixedStressSolver, State, StepStats
+from .bucketing import pad_amr_discretization, pad_state, real_sizes, \
+    slice_state
+from .constraints import (build_hanging_constraints,
+                          build_hanging_constraints_3d_entities,
+                          build_hanging_constraints_from_edges,
+                          build_hanging_constraints_geometric)
+from .forest import QuadForest
+from .kelly import fixed_fraction_marks, kelly_estimate, kelly_estimate_3d
+from .multiroot import (MultiRootQuadForest, kelly_estimate_multiroot,
+                        transfer_nodal_multiroot)
+from .multiroot3d import (MultiRootOctForest, kelly_estimate_multiroot3d,
+                          transfer_nodal_multiroot3d)
+from .octforest import OctForest
+from .transfer import transfer_nodal
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def build_amr_discretization(forest, data: InputData, device="cuda",
+                             timings: Optional[dict] = None):
+    """Generic-path discretization of the forest's mesh on ``device``
+    (default the card), with hanging-node constraints installed and the
+    preconditioner diagonals pinned to 1 at hanging rows.
+
+    2D box forests use the explicit edge tables; 3D the geometric
+    Lagrange-trace builder; multi-root (gmsh-rooted) forests enumerate
+    their hanging edges (and in 3D faces), including across root
+    boundaries, and delegate to the entity builders (``constraints.py``).
+    The set-up runs on the host; ``timings`` (a dict) receives the seconds
+    of the generic build and of the constraint builders."""
+    device = resolve_device(device)
+    t0 = time.perf_counter()
+    mesh = forest.to_mesh()
+    disc = build_discretization(mesh, data, device="cpu")
+    t1 = time.perf_counter()
+    if isinstance(forest, MultiRootOctForest):
+        hc_p, hc_u = build_hanging_constraints_3d_entities(
+            forest.hanging_faces(), forest.hanging_edges(),
+            disc.displacement_space, disc.dtype)
+    elif isinstance(forest, MultiRootQuadForest):
+        hc_p, hc_u = build_hanging_constraints_from_edges(
+            forest.hanging_edges(), mesh.dim, disc.displacement_space,
+            disc.dtype)
+    else:
+        builder = (build_hanging_constraints if mesh.dim == 2
+                   else build_hanging_constraints_geometric)
+        hc_p, hc_u = builder(
+            forest, mesh, disc.pressure_space, disc.displacement_space,
+            disc.dtype)
+    disc.hc_p, disc.hc_u = hc_p, hc_u
+
+    def _pin(diag, hc):
+        return diag if hc.empty else diag.index_fill(0, hc.hanging, 1.0)
+    disc.diag_mass = _pin(disc.diag_mass, hc_p)
+    disc.diag_laplace = _pin(disc.diag_laplace, hc_p)
+    disc.diag_elasticity = _pin(disc.diag_elasticity, hc_u)
+    if timings is not None:
+        timings["generic_build_s"] = t1 - t0
+        timings["constraints_s"] = time.perf_counter() - t1
+    return disc if device.type == "cpu" else disc.to(device)
+
+
+class AMRSimulationRunner:
+    """Host-side adaptive time loop (2D quadtree / 3D octree, box or
+    gmsh-rooted forests), on the card unless ``device`` says ``"cpu"``.
+
+    The reference refines every 5th step between the initial level and
+    initial + max levels with fixed error fractions 0.6 / 0.4
+    (``PoroelasticityFSS.h:333-340, 460-462``; its ``refine_mesh`` is
+    dim-templated, so 3D is in-scope parity).  ``cuda_graphs``: as
+    :class:`..solvers.fss.FixedStressSolver`'s.  After every remesh
+    ``timings`` holds its split in seconds: the Kelly indicator, marking
+    and refining, the generic build, the constraint builders, padding,
+    the copy of the discretization to the device, the solver build, the
+    transfer and the copy of the state to the device, and the whole
+    remesh (``remesh_s``); on the card ``reserved_after_release`` holds
+    the bytes the caching allocator kept once the old mesh's solver, its
+    graphs and its discretization were freed."""
+
+    def __init__(self, data: InputData, device="cuda", logger=None,
+                 cuda_graphs: bool = True):
+        from ..models.runner import _check_supported
+        _check_supported(data)
+        if data.dim not in (2, 3):
+            raise NotImplementedError("AMR needs dim 2 or 3")
+        self._fused = data.steps_per_dispatch > 1
+        if self._fused and data.output_vtk:
+            warnings.warn(
+                "'TPU / Steps per dispatch' with AMR requires per-step "
+                "host state to stay on device between remesh points — "
+                "per-step VTK output forces the per-step path; disable it "
+                "(Output VTK = false) to run blocks of steps",
+                RuntimeWarning)
+            self._fused = False
+        self.data = data
+        self.device = resolve_device(device)
+        self.cuda_graphs = cuda_graphs
+        if data.mesh_file:
+            # forest-of-roots over the imported coarse mesh — the deal.II
+            # model where ANY Triangulation (including one read from gmsh,
+            # PoroelasticityFSS.h:439-445) can be adaptively refined
+            from ..mesh.gmsh_io import read_msh
+            forest_cls = (MultiRootQuadForest if data.dim == 2
+                          else MultiRootOctForest)
+            self.forest = forest_cls.from_mesh(
+                read_msh(data.mesh_file), data.initial_refinement_level)
+        else:
+            size = np.asarray(data.domain_size[:data.dim], float)
+            forest_cls = QuadForest if data.dim == 2 else OctForest
+            self.forest = forest_cls.uniform(-size / 2, size / 2,
+                                             data.initial_refinement_level)
+        self.logger = logger
+        self.solver = self.disc = None
+        self.timings = {}
+        self.reserved_after_release = None
+        self._rebuild()
+
+    def _rebuild(self):
+        """The forest's discretization (padded when ``AMR bucketing`` is
+        on) on the device and its solver, after releasing the old
+        solver's graphs."""
+        if self.solver is not None:
+            self.solver.release()
+            self.solver = self.disc = None
+            gc.collect()
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+                self.reserved_after_release = torch.cuda.memory_reserved(
+                    self.device)
+        t = {}
+        disc = build_amr_discretization(self.forest, self.data, "cpu", t)
+        t0 = time.perf_counter()
+        if self.data.amr_bucketing:
+            disc = pad_amr_discretization(disc)
+        t1 = time.perf_counter()
+        disc = disc.to(self.device)
+        _sync(self.device)
+        t2 = time.perf_counter()
+        self.disc = disc
+        self.solver = FixedStressSolver(disc, self.data,
+                                        cuda_graphs=self.cuda_graphs)
+        _sync(self.device)
+        t.update(padding_s=t1 - t0, disc_to_device_s=t2 - t1,
+                 solver_build_s=time.perf_counter() - t2)
+        self.timings.update(t)
+
+    def _real_state(self, state: State) -> State:
+        """Slice a (possibly bucket-padded) State to the real dof counts
+        for host consumers (Kelly, transfer, VTK)."""
+        n_p, n_u = real_sizes(self.disc)
+        if state.p.shape[0] == n_p:
+            return state
+        return slice_state(state, n_p, n_u)
+
+    def _padded_state(self, state: State) -> State:
+        """Zero-pad a real-sized State to the current disc's dof counts
+        (no-op when bucketing is off)."""
+        if state.p.shape[0] == self.disc.n_pdofs:
+            return state
+        return pad_state(state, self.disc.n_pdofs, self.disc.n_udofs)
+
+    def _remesh(self, state: State) -> State:
+        data = self.data
+        state = self._real_state(state)
+        # the real-sized state on the host: one copy from the device
+        t0 = time.perf_counter()
+        flat = torch.cat([getattr(state, k).reshape(-1)
+                          for k in FIELDS]).cpu().numpy()
+        sizes = [getattr(state, k).numel() for k in FIELDS]
+        host = dict(zip(FIELDS, np.split(flat, np.cumsum(sizes)[:-1])))
+        host["strains"] = host["strains"].reshape(state.strains.shape)
+        t1 = time.perf_counter()
+        mesh_old = self.disc.pressure_space.mesh
+        if isinstance(self.forest, MultiRootOctForest):
+            forest_old = self.forest.copy()
+            estimator = kelly_estimate_multiroot3d
+            transfer = transfer_nodal_multiroot3d
+        elif isinstance(self.forest, MultiRootQuadForest):
+            forest_old = self.forest.copy()
+            estimator = kelly_estimate_multiroot
+            transfer = transfer_nodal_multiroot
+        else:
+            forest_old = type(self.forest)(
+                self.forest.lower, self.forest.upper,
+                set(self.forest.leaves))
+            estimator = kelly_estimate if data.dim == 2 else kelly_estimate_3d
+            transfer = transfer_nodal
+        eta = estimator(self.forest, mesh_old, host["p"])
+        t2 = time.perf_counter()
+        # level clamps are ABSOLUTE, exactly like the reference's
+        # refine_mesh(data.initial_refinement_level,
+        # data.max_refinement_level) call (PoroelasticityFSS.h:335-337,
+        # :463-472): the golden deck's "refine 4 -> 6" means leaves are
+        # clamped to levels [4, 6], NOT [4, 4+6].  On gmsh-rooted
+        # multi-root forests levels count per-root subdivisions, so both
+        # clamps are depths above the coarse cells.
+        refine, coarsen = fixed_fraction_marks(
+            self.forest, eta, 0.6, 0.4,
+            min_level=data.initial_refinement_level,
+            max_level=data.max_refinement_level)
+        self.forest.refine_and_coarsen(refine, coarsen)
+        t3 = time.perf_counter()
+        self._rebuild()
+
+        t4 = time.perf_counter()
+        new_pts = self.disc.pressure_space.node_coords
+        n_voigt = len(VOIGT_PAIRS[data.dim])
+        # {p, eps_v, eps_v0} transfer = reference SolutionTransfer parity
+        # (PoroelasticityFSS.h:474-497); strains ride along as CG warm
+        # starts for the first post-remesh projection (all Q1 fields)
+        fields = np.concatenate([
+            np.stack([host["p"], host["eps_v"], host["eps_v0"]]),
+            host["strains"]])
+        moved = transfer(forest_old, mesh_old, fields, new_pts)
+        # displacement warm start (the reference re-solves u from scratch,
+        # :474-482; this re-solves too but from the transferred field):
+        # interpolate the old u's VERTEX values (Q2 node ids < n_vertices
+        # by construction, mesh/qk.py) multilinearly at the new Q2 nodes
+        dim = data.dim
+        u_old = host["u"].reshape(-1, dim)
+        u_vert = u_old[:mesh_old.n_vertices].T          # (dim, n_vertices)
+        u_new = transfer(forest_old, mesh_old, u_vert,
+                         self.disc.displacement_space.node_coords)
+        t5 = time.perf_counter()
+        n_p = moved.shape[1]
+        dev = torch.as_tensor(
+            np.concatenate([moved.reshape(-1), u_new.T.reshape(-1)]),
+            dtype=self.disc.dtype, device=self.device)
+        moved_t = dev[:moved.size].reshape(moved.shape)
+        new = State(p=moved_t[0], u=dev[moved.size:], eps_v=moved_t[1],
+                    eps_v0=moved_t[2], strains=moved_t[3:3 + n_voigt])
+        assert new.p.shape[0] == n_p
+        new = self._padded_state(new)
+        _sync(self.device)
+        self.timings.update(
+            state_to_host_s=t1 - t0, kelly_s=t2 - t1, mark_refine_s=t3 - t2,
+            transfer_s=t5 - t4, state_to_device_s=time.perf_counter() - t5,
+            remesh_s=time.perf_counter() - t0)
+        return new
+
+    def _output(self, state: State, step: int):
+        if not self.data.output_vtk:
+            return
+        from ..utils.vtk_io import (displacement_at_pressure_nodes,
+                                    write_vtk)
+        state = self._real_state(state)
+        sp = self.disc.pressure_space
+        su = self.disc.displacement_space
+        u_p = displacement_at_pressure_nodes(sp, su, state.u.cpu().numpy())
+        stresses = self.solver.effective_stresses(state.strains).cpu().numpy()
+        path = os.path.join(self.data.output_directory,
+                            f"solution-{step:04d}.vtk")
+        write_vtk(path, sp, u_p, state.p.cpu().numpy(),
+                  state.strains.cpu().numpy(), stresses)
+
+    def run(self, n_steps: Optional[int] = None):
+        """Steps to ``Time max`` (or ``n_steps``), remeshing before every
+        ``Refine every``-th step; with ``Steps per dispatch`` K > 1 (and no
+        VTK output) the steps between remesh points run in blocks of up to
+        K through :meth:`..solvers.fss.FixedStressSolver.multi_step`.
+        Returns ``(state, history)``: the real-sized state and one record
+        per step (mesh sizes, counts, residual, wall seconds)."""
+        history = []
+        for kind, state, info in self.steps(n_steps):
+            if kind == "after":
+                history.extend(rec for rec, _ in info)
+        if self.logger:
+            self.logger.close()
+        # callers see REAL-sized fields; bucket padding stays internal
+        return self._real_state(state), history
+
+    def steps(self, n_steps: Optional[int] = None):
+        """:meth:`run`'s loop as a generator of events ``(kind, state,
+        info)``: ``("start", state, 0)`` after the initial state,
+        ``("before", state, step)`` before each block of steps from
+        ``step`` on (after the remesh, if one falls there) and ``("after",
+        state, block)`` after it, ``block`` the block's ``[(record,
+        stats)]``.  Tools that time, profile or check single steps drive
+        the runner's own loop through it; ``state`` is the solver's
+        (bucket-padded) state."""
+        data = self.data
+        state = self.solver.initial_state()
+        self._output(state, 0)
+        yield "start", state, 0
+        t, step = 0.0, 0
+        while (t < data.t_max) and (n_steps is None or step < n_steps):
+            next_step = step + 1
+            if data.refine_every and next_step % data.refine_every == 0:
+                state = self._remesh(state)
+            K = 1
+            if self._fused:
+                K = int(data.steps_per_dispatch)
+                if data.refine_every:
+                    to_remesh = (next_step // data.refine_every + 1) \
+                        * data.refine_every - next_step
+                    K = min(K, to_remesh)
+                left = int(np.ceil((data.t_max - t) / data.time_step
+                                   - 1e-12))
+                if n_steps is not None:
+                    left = min(left, n_steps - step)
+                K = max(1, min(K, left))
+            yield "before", state, next_step
+            t0 = time.perf_counter()
+            if K > 1:
+                state, stacked = self.solver.multi_step(
+                    state, float(data.time_step), n_steps=K, want_u=True)
+                block = [StepStats(**{f.name: getattr(stacked, f.name)[i]
+                                      for f in dataclasses.fields(stacked)})
+                         for i in range(K)]
+            else:
+                state, stats = self.solver.time_step(state, data.time_step)
+                block = [stats]
+            _sync(self.device)
+            wall = time.perf_counter() - t0
+            mesh = self.disc.pressure_space.mesh     # REAL sizes for logs
+            n_pdofs = self.disc.pressure_space.n_nodes
+            records = []
+            for s_i in block:
+                t += data.time_step
+                step += 1
+                records.append(({
+                    "step": step, "time": t, "n_cells": mesh.n_cells,
+                    "n_pdofs": n_pdofs, "fss": int(s_i.fss_iterations),
+                    "press": int(s_i.pressure_iterations),
+                    "err": float(s_i.pressure_error),
+                    "cg_converged": bool(s_i.cg_converged),
+                    "wall_s": wall / K}, s_i))
+                if self.logger:
+                    self.logger.log_step(step, t, s_i, wall / K,
+                                         extra={"n_cells": mesh.n_cells,
+                                                "n_pdofs": n_pdofs})
+                if not np.isfinite(float(s_i.pressure_error)):
+                    raise FloatingPointError(f"FSS residual diverged at "
+                                             f"step {step}")
+                if not bool(s_i.cg_converged):
+                    warnings.warn(f"step {step}: a linear solve ended "
+                                  "before reaching tolerance",
+                                  RuntimeWarning)
+            self._output(state, step)
+            yield "after", state, records

@@ -4,8 +4,10 @@
 runs a 2D or 3D deck on its structured grid (e.g. ``configs/golden_2d.data``,
 ``configs/consolidation_3d.data``) or on its gmsh mesh (``Mesh / Mesh file``,
 e.g. ``configs/irregular_2d.data``, read relative to the working
-directory); ``check DECK`` parses and prints it; ``devices`` lists the
-visible CUDA devices.
+directory); a deck with ``TPU / AMR = true`` (e.g.
+``configs/golden_2d_adaptive.data``) runs the adaptive loop, remeshing
+every ``TPU / Refine every`` steps.  ``check DECK`` parses and prints it;
+``devices`` lists the visible CUDA devices.
 
 A deck with ``TPU / Sharding = production`` runs sharded under ``torchrun``
 (one process per device; rank 0 writes the output), e.g. on the CPU::

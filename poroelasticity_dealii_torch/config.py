@@ -184,11 +184,9 @@ _SCHEMA = {
     ("TPU", "Refine every"): ("5", _int(0)),  # reference: every 5th step
     ("TPU", "AMR"): ("false", _str({"true", "false"})),
     # Shape bucketing for adaptive runs: pad cells/dofs/constraint tables
-    # to geometric size buckets so remeshes that land in the same buckets
-    # reuse compiled executables (with the persistent compile cache, a
-    # bucket revisit costs a ~0.7 s re-trace instead of a 2-6 s CPU /
-    # ~26-39 s TPU recompile).  Padding is float-exact (phantom cells
-    # carry zero quadrature weight; phantom dofs are pinned to zero).
+    # to geometric size buckets (amr/bucketing.py).  Padding is
+    # float-exact (phantom cells carry zero quadrature weight; phantom dofs
+    # are pinned to zero).
     ("TPU", "AMR bucketing"): ("true", _str({"true", "false"})),
     # linear-solver tolerances (defaults = the reference's hardcoded values:
     # PoroElasticDisplacementSolver.h:298 abs 1e-12;

@@ -8,6 +8,11 @@ which both packages keep in the same layout: the comp-major row layout of
 the 3D rows kit, the parity layout of the 2D parity kit).  For a sharded
 discretization the caller passes its rows kit, and the caches become the
 rank's slabs (the other fields stay whole, as the solver replicates them).
+
+An adaptive run also carries its mesh: :func:`forest_from_fields` rebuilds
+the port's forest from a reference forest's fields, and
+:func:`constraints_from_numpy` the port's hanging-node constraints from the
+reference's tables, so both packages can run on one mesh and one state.
 """
 
 from __future__ import annotations
@@ -18,6 +23,11 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .amr.constraints import HangingConstraints
+from .amr.forest import QuadForest
+from .amr.multiroot import MultiRootQuadForest
+from .amr.multiroot3d import MultiRootOctForest
+from .amr.octforest import OctForest
 from .solvers.fss import State
 
 FIELDS = ("p", "u", "eps_v", "eps_v0", "strains")
@@ -56,3 +66,37 @@ def state_to_numpy(state: State) -> dict:
     return {k: (None if getattr(state, k) is None
                 else getattr(state, k).detach().cpu().numpy())
             for k in FIELDS + CACHES}
+
+
+def forest_from_fields(fields: Mapping):
+    """The port's forest from a reference forest's fields (e.g. ``vars()``
+    of one): a box forest from ``lower``, ``upper`` and ``leaves``
+    (:class:`.amr.forest.QuadForest` in 2D,
+    :class:`.amr.octforest.OctForest` in 3D); a gmsh-rooted forest from
+    ``root_cells``, ``root_coords``, ``boundary_ids`` and ``leaves``
+    (quads: :class:`.amr.multiroot.MultiRootQuadForest`, hexes:
+    :class:`.amr.multiroot3d.MultiRootOctForest`)."""
+    leaves = set(tuple(int(i) for i in leaf) for leaf in fields["leaves"])
+    if "root_cells" in fields:
+        cells = np.asarray(fields["root_cells"])
+        cls = MultiRootQuadForest if cells.shape[1] == 4 \
+            else MultiRootOctForest
+        return cls(root_cells=cells,
+                   root_coords=np.asarray(fields["root_coords"]),
+                   boundary_ids=dict(fields["boundary_ids"]), leaves=leaves)
+    lower = np.asarray(fields["lower"], float)
+    cls = QuadForest if lower.shape[0] == 2 else OctForest
+    return cls(lower=lower, upper=np.asarray(fields["upper"], float),
+               leaves=leaves)
+
+
+def constraints_from_numpy(hanging, masters, weights, device="cuda",
+                           dtype: torch.dtype = torch.float64
+                           ) -> HangingConstraints:
+    """The port's :class:`.amr.constraints.HangingConstraints` on
+    ``device`` (default the card; raises without one) from the
+    reference's tables: ``hanging (H,)``, ``masters (H, W)`` and
+    ``weights (H, W)``, as numpy arrays."""
+    return HangingConstraints.from_tables(
+        np.asarray(hanging), np.asarray(masters), np.asarray(weights),
+        dtype, resolve_device(device))

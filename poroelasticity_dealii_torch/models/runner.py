@@ -1,5 +1,8 @@
 """Host-side simulation driver (port of
-``poroelasticity_dealii_tpu/models/runner.py:101-126, 129-310``): builds the
+``poroelasticity_dealii_tpu/models/runner.py:101-126, 129-310``):
+:func:`run_from_data` sends an adaptive deck (``TPU / AMR = true``) to
+:class:`..amr.driver.AMRSimulationRunner` and any other to
+:class:`SimulationRunner`, which builds the
 problem (on the deck's gmsh mesh, ``Mesh / Mesh file``, through the generic
 discretization, else on its structured grid), shards it when the deck asks
 for ``TPU / Sharding = production``, steps time in blocks of up to ``TPU /
@@ -39,17 +42,22 @@ from ..utils.vtk_io import displacement_at_pressure_nodes, write_vtk
 def _check_supported(data: InputData) -> None:
     """Deck features the port does not run yet, with their ROADMAP item."""
     unsupported = [
-        (data.amr, "AMR (ROADMAP item 8b, A12)"),
+        (data.amr and data.sharding != "none",
+         f"AMR with 'Sharding = {data.sharding}' (ROADMAP item 9.3, A13: "
+         "psum is the one decomposition the reference runs with "
+         "hanging-node constraints)"),
         (data.sharding in ("psum", "ghost", "gspmd"),
          f"'Sharding = {data.sharding}' (ROADMAP item 9, A13: only "
          "production is ported)"),
         (data.sharding == "production" and data.dim != 3,
          "'Sharding = production' on a 2D deck (the y-slab parity form, "
          "ROADMAP item 9.2, A13)"),
-        (data.checkpoint_every > 0, "checkpoints (ROADMAP A8, runner options)"),
+        (data.checkpoint_every > 0,
+         "checkpoints (ROADMAP item 3, A8: an adaptive run's checkpoint "
+         "also carries its forest)"),
         (data.debug_nans, "'Debug NaNs = true' (ROADMAP Queue C)"),
         (data.nondimensionalize,
-         "nondimensionalisation (ROADMAP A8, runner options)"),
+         "nondimensionalisation (ROADMAP item 3, A8, runner options)"),
     ]
     for bad, what in unsupported:
         if bad:
@@ -88,6 +96,10 @@ class SimulationRunner:
     def __init__(self, data: InputData, device="cuda",
                  logger: Optional[RunLogger] = None):
         _check_supported(data)
+        if data.amr:
+            raise ValueError("an adaptive deck (AMR = true) runs through "
+                             "run_from_data or amr.driver."
+                             "AMRSimulationRunner")
         self.data = data
         self.group, self._own_group = None, False
         if data.sharding == "production":
@@ -200,8 +212,19 @@ class SimulationRunner:
 
 def run_from_data(data: InputData, device="cuda") -> State:
     """Full simulation from a parsed deck, on the card unless ``device``
-    says ``"cpu"``.  Under ``torchrun`` (or in an initialised process
-    group) a ``Sharding = production`` deck runs sharded, one rank per
-    device (``cuda:{LOCAL_RANK}`` on CUDA); every rank returns the whole
-    state."""
+    says ``"cpu"``: an adaptive deck through
+    :class:`..amr.driver.AMRSimulationRunner` (its run log
+    ``run_log.jsonl`` in the output directory), any other through
+    :class:`SimulationRunner`.  Under ``torchrun`` (or in an initialised
+    process group) a ``Sharding = production`` deck runs sharded, one
+    rank per device (``cuda:{LOCAL_RANK}`` on CUDA); every rank returns
+    the whole state."""
+    if data.amr:
+        from ..amr.driver import AMRSimulationRunner
+        _check_supported(data)
+        runner = AMRSimulationRunner(
+            data, device=device, logger=RunLogger(
+                os.path.join(data.output_directory, "run_log.jsonl")))
+        state, _ = runner.run()
+        return state
     return SimulationRunner(data, device=device).run()

@@ -52,15 +52,18 @@ class ScatterPlan:
 
 def scatter_plan(conn: np.ndarray, n_dofs: int, device) -> ScatterPlan:
     """The :class:`ScatterPlan` of ``conn`` (host numpy), on ``device``;
-    int32 indices."""
+    int32 indices.  Negative entries of ``conn`` are left out of the plan
+    (the phantom cells of AMR bucketing, the zero-weight entries of a
+    hanging-node table): their values are never read."""
     flat = np.asarray(conn).reshape(-1)
-    order = np.argsort(flat, kind="stable")          # by dof, then index
-    counts = np.bincount(flat, minlength=n_dofs)
+    live = np.flatnonzero(flat >= 0)
+    order = live[np.argsort(flat[live], kind="stable")]  # by dof, then index
+    counts = np.bincount(flat[live], minlength=n_dofs)
     start = np.concatenate([[0], np.cumsum(counts)[:-1]])
     dofs = flat[order]
-    table = np.full((n_dofs, max(int(counts.max()), 1)), flat.size,
+    table = np.full((n_dofs, max(int(counts.max(initial=0)), 1)), flat.size,
                     dtype=np.int32)
-    table[dofs, np.arange(flat.size) - start[dofs]] = order
+    table[dofs, np.arange(order.size) - start[dofs]] = order
     return ScatterPlan(table=torch.as_tensor(table, device=device),
                        n_values=flat.size)
 

@@ -95,6 +95,15 @@ class ChunkGraphs:
         self.captures = collections.Counter()
         self.replays = collections.Counter()
 
+    def release(self) -> None:
+        """Destroy every graph and drop every buffer, so that the pool's
+        memory goes back to the allocator (an adaptive run releases the
+        old mesh's solver before the new mesh's captures)."""
+        for site in self._sites.values():
+            for graph in site.graphs.values():
+                graph.reset()
+        self._sites.clear()
+
     def run(self, key, init, step, cond, inputs, consts, budget,
             size) -> tuple:
         """:func:`run_chunks` with the start and each chunk a graph

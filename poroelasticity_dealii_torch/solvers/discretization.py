@@ -14,9 +14,13 @@ the gather, shape-table product and plan-scatter applies of
 :mod:`..ops.operators` (plain torch: the reference computes them with XLA
 gathers, einsums and ``segment_sum``, outside any Pallas kernel).
 
-The reference's hanging-node constraints (``hc_p``, ``hc_u``) belong to
-adaptive meshes and are the identity on the conforming meshes built here;
-they are not ported yet (ROADMAP item 8b).
+The hanging-node constraints ``hc_p`` and ``hc_u``
+(:class:`..amr.constraints.HangingConstraints`) belong to adaptive meshes:
+:func:`..amr.driver.build_amr_discretization` installs them on the forest's
+mesh, and :class:`..amr.bucketing` may pad the tensors.  A conforming mesh
+has none (None; ``_hcp`` and ``_hcu`` are then empty tables, whose methods
+return their input untouched).  ``elasticity_constrained`` and the
+fixed-stress solver's generic branches go through them.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..amr.constraints import HangingConstraints, empty_constraints
 from ..config import InputData
 from ..mesh.core import FESpace, Mesh
 from ..mesh.qk import build_fe_space
@@ -76,7 +81,13 @@ class Discretization:
     row_ops: None = None
     gmg_precond: Optional[Callable] = None
     gmg_precond_rows: Optional[Callable] = None
+    # hanging-node constraints (AMR meshes only; None = conforming mesh)
+    hc_p: Optional[HangingConstraints] = None
+    hc_u: Optional[HangingConstraints] = None
 
+    # Sizes derive from the tensors, not the FE spaces: AMR bucketing
+    # (amr/bucketing.py) pads cells and dofs, while host consumers (VTK,
+    # transfer, Kelly) read the spaces' real node counts.
     @property
     def n_pdofs(self) -> int:
         return self.free_mask_p.shape[0]
@@ -102,9 +113,40 @@ class Discretization:
                                     self.dref_u_at_uq, self.jinv_u,
                                     self.jxw_u, self.lam, self.mu)
 
+    # ---- constraint helpers (no-ops on conforming meshes) ----------------
+    @property
+    def _hcp(self) -> HangingConstraints:
+        if self.hc_p is None:
+            self.hc_p = empty_constraints(self.dtype, self.device)
+        return self.hc_p
+
+    @property
+    def _hcu(self) -> HangingConstraints:
+        if self.hc_u is None:
+            self.hc_u = empty_constraints(self.dtype, self.device)
+        return self.hc_u
+
     def elasticity_constrained(self, u):
-        """Dirichlet-constrained elasticity ``m A(m u) + (1 - m) u``."""
-        return ops.constrained_apply(self.elasticity, self.free_mask_u)(u)
+        """Hanging-node and Dirichlet constrained elasticity
+        ``m Â(m u) + (1 - m) u``, ``Â = hc_u.constrained(A)``."""
+        return ops.constrained_apply(self._hcu.constrained(self.elasticity),
+                                     self.free_mask_u)(u)
+
+    def to(self, device) -> "Discretization":
+        """A copy with every tensor, plan and constraint table on
+        ``device`` (the FE spaces stay on the host)."""
+        device = resolve_device(device)
+        moved = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, torch.Tensor):
+                moved[f.name] = v.to(device)
+            elif isinstance(v, ops.ScatterPlan):
+                moved[f.name] = ops.ScatterPlan(v.table.to(device),
+                                                v.n_values)
+            elif isinstance(v, HangingConstraints):
+                moved[f.name] = v.to(device)
+        return dataclasses.replace(self, device=device, **moved)
 
     def coupling_rhs(self, p, biot_coef):
         return ops.coupling_rhs(p, self.conn_p, self.plan_u,

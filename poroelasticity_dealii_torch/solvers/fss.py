@@ -16,7 +16,8 @@ ends.
 
 The solver takes a structured discretization
 (:class:`.structured.GridDiscretization`) or a generic one
-(:class:`.discretization.Discretization`, any conforming quad or hex mesh).
+(:class:`.discretization.Discretization`, any quad or hex mesh, adaptive
+ones with hanging nodes included).
 On the generic one the pressure Jacobian is the mass and Laplace applies
 (the reference folds them into one stencil on structured grids only) with a
 Jacobi preconditioner, and the mechanics is flat Jacobi-CG.
@@ -33,8 +34,16 @@ With the z-slab kit of the sharded production path
 ``State.mech_b`` are the rank's slabs and ``State.u`` the gathered whole
 vector; the mechanics norms, dots and the bitwise-skip test go through the
 kit's reductions, so every rank takes the same branch.
-The reference's hanging-node maps (``d._hcu``) are the identity on
-structured grids, so the flat branches leave them out.
+On a generic discretization with hanging nodes (an adaptive mesh,
+:mod:`..amr`) the reference's constraint hooks run where it runs them:
+the pressure residual and the projection RHS are condensed, the pressure
+Jacobian, the mass of the projection and the elasticity
+(``disc.elasticity_constrained``) are the constrained operators, the
+solves start with zero hanging entries and their results are distributed,
+and the Dirichlet lift goes through the constrained elasticity.  Every
+other discretization (conforming meshes, structured grids, the rows and
+slab kits) holds empty tables, whose hooks return their input untouched,
+so those paths compute what they did bit for bit.
 
 Semantics kept from the reference (deliberate quirks):
 
@@ -55,6 +64,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from ..amr.constraints import empty_constraints
 from ..config import InputData
 from ..ops import dense
 from ..ops.operators import SHEAR_ENTRIES, VOIGT_PAIRS, VOLUMETRIC_ENTRIES
@@ -167,10 +177,17 @@ class FixedStressSolver:
         self.graphs = ChunkGraphs() if (
             cuda_graphs and disc.device.type == "cuda"
             and not isinstance(ro, ShardedRowOps)) else None
-        # the Dirichlet lift A g uses the UNconstrained operator (the
-        # reference's d._hcu.constrained(d.elasticity) is the identity
-        # hanging-node wrap on structured grids); by linearity the
-        # bc_scale-dependent lift is bc_scale * lift
+        # hanging-node constraints: a generic (adaptive) mesh's own, empty
+        # tables (identity hooks) on every other discretization
+        if isinstance(disc, Discretization):
+            self._hcp, self._hcu = disc._hcp, disc._hcu
+        else:
+            self._hcp = self._hcu = empty_constraints(disc.dtype,
+                                                      disc.device)
+        # the Dirichlet lift A g without the Dirichlet mask, through the
+        # hanging-node constrained operator (the identity wrap without
+        # hanging nodes; the rows kits' meshes have none); by linearity
+        # the bc_scale-dependent lift is bc_scale * lift
         if self._rows:
             self._dirichlet = ro.to_rows(disc.dirichlet_values)
             self._lift = ro.apply_rows(self._dirichlet)
@@ -178,12 +195,19 @@ class FixedStressSolver:
             self._free_mask = ro.free_mask_rows
         else:
             self._dirichlet = disc.dirichlet_values
-            self._lift = disc.elasticity(disc.dirichlet_values)
+            self._lift = self._hcu.constrained(disc.elasticity)(
+                disc.dirichlet_values)
             self._f_neumann = disc.f_neumann
             self._free_mask = disc.free_mask_u
         self._jac_stencils = {}
         self._p_gmg = {}
         self._bc_response_cache = None
+
+    def release(self) -> None:
+        """Free the captured graphs (the adaptive driver calls it before it
+        builds the next mesh's solver)."""
+        if self.graphs is not None:
+            self.graphs.release()
 
     def _cast(self, x: float) -> float:
         return _as_dtype(x, self.disc.dtype)
@@ -211,7 +235,8 @@ class FixedStressSolver:
             + (1.0 / data.m_modulus / dt) * (p - p_old)
         res = d.mass(acc) + (data.perm / data.visc) * d.laplace(p) \
             + d.f_well
-        return -res * d.free_mask_p
+        # hanging-row condensation (the reference's condense(residual))
+        return self._hcp.condense_vec(-res) * d.free_mask_p
 
     def _fused_jacobian_stencil(self, dt):
         """Pressure Jacobian mass/(M dt) + (k/mu) L as one Q1 stencil (on a
@@ -235,9 +260,10 @@ class FixedStressSolver:
         if isinstance(d, GridDiscretization):
             y = self._fused_jacobian_stencil(dt)(x * fp)
         else:
-            z = x * fp
-            y = (1.0 / data.m_modulus / dt) * d.mass(z) \
-                + (data.perm / data.visc) * d.laplace(z)
+            def base(z):
+                return (1.0 / data.m_modulus / dt) * d.mass(z) \
+                    + (data.perm / data.visc) * d.laplace(z)
+            y = self._hcp.constrained(base)(x * fp)
         return y * fp + x * (1.0 - fp)
 
     def _pressure_jacobian_diag(self, dt):
@@ -287,11 +313,12 @@ class FixedStressSolver:
         if self._rows:
             rhs = ro.coupling_rows(p) + self._f_neumann
         else:
-            rhs = d.coupling_rhs(p, data.biot_coef) + self._f_neumann
+            rhs = self._hcu.condense_vec(d.coupling_rhs(p, data.biot_coef)
+                                         + self._f_neumann)
         b = m * (rhs - bc_scale * self._lift) + (1.0 - m) * g
         # b and x0 carry the Dirichlet values, so every CG direction is
         # zero at constrained rows and the free-subspace apply is exact
-        x0 = m * u_warm + (1.0 - m) * g
+        x0 = self._hcu.zero_hanging(m * u_warm + (1.0 - m) * g)
         # the tolerance on the device, in the working type (the reference
         # casts it there); a bitwise-equal RHS lifts it to inf
         if data.mech_cg_relative:
@@ -328,7 +355,8 @@ class FixedStressSolver:
             # mixed-precision refinement is not ported (ROADMAP item 7)
             res = self._cg("mechanics", apply, b, x0, diag, tol=tol,
                            max_iter=data.cg_max_iterations)
-        return res.x, res.iterations, res.converged, res.stalled, b
+        return self._hcu.distribute(res.x), res.iterations, res.converged, \
+            res.stalled, b
 
     def _bc_response(self):
         """du/d(bc_scale) on the mechanics vector: the constrained solve
@@ -349,7 +377,7 @@ class FixedStressSolver:
                            diag, tol=rel * self._reduce.norm(b),
                            max_iter=5000, dot=self._reduce.dot,
                            norm=self._reduce.norm)
-            self._bc_response_cache = res.x
+            self._bc_response_cache = self._hcu.distribute(res.x)
         return self._bc_response_cache
 
     # ---------------- strain projection -------------------------------------
@@ -366,12 +394,14 @@ class FixedStressSolver:
         space: one batched mass-matrix CG.  Returns
         ``(strains, total iterations, converged)``, the last two as device
         tensors."""
-        d = self.disc
-        rhs = rhs_all[entries]
+        d, hc = self.disc, self._hcp
+        rhs = hc.condense_vec(rhs_all[entries])
         tol = self.data.projection_cg_tol * torch.linalg.norm(rhs, dim=1)
-        res = self._cg("projection", d.mass, rhs, warm, d.diag_mass, tol,
+        res = self._cg("projection", hc.constrained(d.mass), rhs,
+                       hc.zero_hanging(warm), d.diag_mass, tol,
                        self.data.cg_max_iterations, batched=True)
-        return res.x, res.iterations.sum(), res.converged.all()
+        return hc.distribute(res.x), res.iterations.sum(), \
+            res.converged.all()
 
     # ---------------- initialization ----------------------------------------
 
@@ -513,10 +543,11 @@ class FixedStressSolver:
             k = 0
             while k < data.max_pressure_iterations and err > pressure_tol:
                 ptol = data.pressure_cg_tol * torch.linalg.norm(r)
-                res = self._cg("pressure", jac, r, delta_p, jac_diag,
+                res = self._cg("pressure", jac, r,
+                               self._hcp.zero_hanging(delta_p), jac_diag,
                                tol=ptol, max_iter=data.cg_max_iterations,
                                precond=p_precond, graph_key=(dt,))
-                delta_p = res.x
+                delta_p = self._hcp.distribute(res.x)
                 p = p + delta_p
                 eps_v = eps_v + (data.biot_coef / data.bulk_modulus) \
                     * delta_p

@@ -12,14 +12,20 @@ with the parity-resident elasticity GMG from 150,000 displacement dofs,
 GMG-Richardson in float32), or the bench configuration on the distorted
 hex mesh of the generic path (``generic``: :func:`generic_mesh`, the
 generic discretization's gather and plan-scatter applies, flat Jacobi-CG
-mechanics and Jacobi pressure CG), with the solver's CG chunks
+mechanics and Jacobi pressure CG), or the adaptive octree run (``amr``:
+:func:`amr_data`, ``n`` the ``Max refinement level``, 5 or 6: 6 or 10
+steps from the uniform level-4 mesh with a remesh before every 5th, the
+hanging-node constrained generic path), with the solver's CG chunks
 captured as CUDA graphs (``loop`` ``captured``, the default; the sharded
 path always runs them eagerly) or run eagerly (``eager``), each call
 site's chunk size from ``solvers/fss.py::CHUNK`` unless a ``site=C``
 argument sets it (e.g. ``mechanics_gmg=1``):
 ``initial_state``, evolving steps with the Dirichlet load ramp, then steady
-steps at the last load.  It profiles the last evolving and the last steady
-step and prints one JSON line for each: the step's counts, its wall time
+steps at the last load (``amr``: steady steps, no ramp; it profiles the
+step before the first remesh and the last step, and prints each remesh's
+split and every step's wall time).  It profiles the last evolving and the
+last steady step and prints one JSON line for each: the step's counts,
+its wall time
 unprofiled (the step before, of the same kind) and profiled, the device
 busy time (union of the device activity intervals) over the profiled wall
 span, the host's ``cudaGraphLaunch`` and ``cudaLaunchKernel`` calls, the
@@ -31,6 +37,7 @@ included), and the host operators with the most self time.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -80,6 +87,23 @@ def generic_mesh(n: int):
     from ..mesh.generator import perturb_interior
     return perturb_interior(hyper_rectangle([10.0] * 3, cells_per_axis=n),
                             0.2, seed=0)
+
+
+AMR_INITIAL_LEVEL = 4     # 4,096 cells, 112,724 DOF
+AMR_REFINE_EVERY = 5
+
+
+def amr_data(max_level: int = 5, deck=DECK):
+    """The adaptive at-scale configuration: the bench configuration
+    (:func:`bench_data`) on the 3D deck's octree, AMR on from the uniform
+    level-4 mesh (4,096 cells, 112,724 DOF), leaves clamped to levels
+    4 .. ``max_level``, a remesh before every 5th step (the reference's
+    cadence), shape bucketing on, no VTK output."""
+    return dataclasses.replace(
+        bench_data(deck), amr=True,
+        initial_refinement_level=AMR_INITIAL_LEVEL,
+        max_refinement_level=max_level, refine_every=AMR_REFINE_EVERY,
+        amr_bucketing=True, output_vtk=False)
 
 
 def _busy_ms(intervals) -> float:
@@ -167,7 +191,7 @@ def _step(solver, state, bc, bc_prev):
     return state, stats, (time.perf_counter() - t0) * 1e3
 
 
-BACKENDS = ("rows", "conv", "sharded", "2d", "generic")
+BACKENDS = ("rows", "conv", "sharded", "2d", "generic", "amr")
 LOOPS = ("captured", "eager")
 
 
@@ -178,6 +202,8 @@ def run(n: int = 40, n_evolving: int = 5, n_steady: int = 3,
     returns their records.  ``sharded`` initialises a world-size-1 process
     group here (NCCL on CUDA, gloo on the CPU) and destroys it at the
     end."""
+    if backend == "amr":
+        return _run_amr(n, device, loop)
     if backend != "sharded":
         return _run(n, n_evolving, n_steady, device, backend, loop)
     import torch.distributed as dist
@@ -192,8 +218,6 @@ def run(n: int = 40, n_evolving: int = 5, n_steady: int = 3,
 
 
 def _run(n, n_evolving, n_steady, device, backend, loop) -> list:
-    from torch.profiler import ProfilerActivity, profile
-
     from ..ops import comp_major as cm
     from ..parallel import make_slab_group, shard_production_discretization
     from ..solvers.discretization import build_discretization
@@ -229,18 +253,9 @@ def _run(n, n_evolving, n_steady, device, backend, loop) -> list:
             bc_prev = bc
             continue
         cm.reset_launch_counts()
-        before = (dict(graphs.captures), dict(graphs.replays)) if graphs \
-            else ({}, {})
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            state, stats, ms = _step(solver, state, bc, bc_prev)
+        (state, stats, ms), dev = _profiled(
+            solver, lambda: _step(solver, state, bc, bc_prev))
         bc_prev = bc
-        dev = device_summary(prof)
-        dev["graphs"] = {
-            kind: {k: v - old.get(k, 0) for k, v in now.items()}
-            for kind, now, old in (
-                ("captures", graphs.captures if graphs else {}, before[0]),
-                ("replays", graphs.replays if graphs else {}, before[1]))}
         for wrapper in WRAPPERS:
             dev[wrapper]["calls"] = getattr(cm, wrapper).launches
         records.append({
@@ -264,6 +279,100 @@ def _run(n, n_evolving, n_steady, device, backend, loop) -> list:
     return records
 
 
+@contextlib.contextmanager
+def _profiling(solver):
+    """``torch.profiler`` around the block; yields a dict that receives,
+    at its end, the device summary and the graphs the solver captured and
+    replayed during it."""
+    from torch.profiler import ProfilerActivity, profile
+    graphs = solver.graphs
+    before = (dict(graphs.captures), dict(graphs.replays)) if graphs \
+        else ({}, {})
+    dev = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        yield dev
+    dev.update(device_summary(prof))
+    dev["graphs"] = {
+        kind: {k: v - old.get(k, 0) for k, v in now.items()}
+        for kind, now, old in (
+            ("captures", graphs.captures if graphs else {}, before[0]),
+            ("replays", graphs.replays if graphs else {}, before[1]))}
+
+
+def _profiled(solver, fn):
+    """Run ``fn`` (one synced step, returning (state, stats, ms)) under
+    :func:`_profiling`; returns its result and the device summary."""
+    with _profiling(solver) as dev:
+        out = fn()
+    return out, dev
+
+
+def _run_amr(max_level, device, loop) -> list:
+    """The adaptive run of :func:`amr_data` through the runner's own loop
+    (``AMRSimulationRunner.steps``): 6 steps at ``max_level`` 5, 10 at 6;
+    every step's wall time and counts, each remesh's split, and the step
+    before the first remesh and the last step under the profiler."""
+    from ..amr.driver import AMRSimulationRunner
+
+    data = amr_data(max_level)
+    n_steps = 6 if max_level <= 5 else 10
+    t0 = time.perf_counter()
+    runner = AMRSimulationRunner(data, device=device,
+                                 cuda_graphs=loop == "captured")
+    torch.cuda.synchronize()
+    print(json.dumps({"amr_setup": {
+        "max_level": max_level, "setup_s": time.perf_counter() - t0,
+        **amr_sizes(runner)}}), flush=True)
+    records, sizes = [], amr_sizes(runner)
+    events = runner.steps(n_steps)
+    for kind, _, k in events:
+        if kind != "before":
+            continue
+        if k % data.refine_every == 0:
+            print(json.dumps({"amr_remesh": {
+                "before_step": k, "remesh_s": runner.timings["remesh_s"],
+                "split_s": dict(runner.timings), "before": sizes,
+                "after": amr_sizes(runner)}}), flush=True)
+        dev = None
+        if k in (data.refine_every - 1, n_steps):
+            with _profiling(runner.solver) as dev:
+                _, _, block = next(events)
+        else:
+            _, _, block = next(events)
+        sizes = amr_sizes(runner)
+        for step, stats in block:
+            ms = step["wall_s"] * 1e3
+            rec = {"step": step["step"], "backend": "amr",
+                   "max_level": max_level,
+                   "loop": "captured" if runner.solver.graphs else "eager",
+                   "gpu": torch.cuda.get_device_name(),
+                   "wall_ms": ms, **sizes,
+                   "counts": {
+                       "fss": stats.fss_iterations,
+                       "pressure": stats.pressure_iterations,
+                       "cg_pressure": stats.pressure_cg_iterations,
+                       "cg_mechanics": stats.mech_cg_iterations,
+                       "cg_projection": stats.projection_cg_iterations},
+                   "cg_converged": stats.cg_converged}
+            if dev is None:
+                print(json.dumps(rec), flush=True)
+                continue
+            rec.update(idle_share=1.0 - dev["busy_ms"] / ms, **dev)
+            records.append(rec)
+    return records
+
+
+def amr_sizes(runner) -> dict:
+    """Real cells, DOF and hanging rows of an adaptive runner's mesh."""
+    d = runner.disc
+    sp, su = d.pressure_space, d.displacement_space
+    hang = lambda hc: int((hc.weights != 0).any(1).sum())  # noqa: E731
+    return {"cells": sp.mesh.n_cells,
+            "dofs": sp.n_nodes + sp.mesh.dim * su.n_nodes,
+            "hanging_rows": [hang(d._hcp), hang(d._hcu)]}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     n = int(argv[0]) if argv else 40
@@ -276,6 +385,9 @@ def main(argv=None) -> int:
             raise SystemExit(f"profile_step: no call site {site!r} in "
                              f"{sorted(CHUNK)}")
         CHUNK[site] = int(size)
+    if backend == "amr" and n not in (5, 6):
+        raise SystemExit("profile_step: the amr backend takes the Max "
+                         f"refinement level 5 or 6 as n, got {n}")
     if backend not in BACKENDS or loop not in LOOPS:
         raise SystemExit(f"profile_step: backend must be one of {BACKENDS} "
                          f"and loop one of {LOOPS}, got {backend!r}, "
@@ -284,7 +396,7 @@ def main(argv=None) -> int:
         raise SystemExit("profile_step: needs a CUDA device "
                          "(torch.cuda.is_available() is False)")
     for rec in run(n, backend=backend, loop=loop):
-        top = dict(list(rec.pop("kernels").items())[:12])
+        top = dict(list(rec.pop("kernels", {}).items())[:12])
         print(json.dumps({**rec, "top_kernels": top}), flush=True)
     return 0
 

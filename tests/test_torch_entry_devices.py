@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from poroelasticity_dealii_torch import read_input_file
+from poroelasticity_dealii_torch.amr.driver import AMRSimulationRunner
 from poroelasticity_dealii_torch.interop import state_from_numpy
 from poroelasticity_dealii_torch.mesh import read_msh
 from poroelasticity_dealii_torch.models.runner import (SimulationRunner,
@@ -46,6 +47,8 @@ ENTRY_POINTS = {
     "SimulationRunner": lambda data, **kw: SimulationRunner(data, **kw),
     "SimulationRunner[mesh file]": lambda data, **kw: SimulationRunner(
         dataclasses.replace(data, mesh_file=MSH_3D), **kw),
+    "AMRSimulationRunner": lambda data, **kw: AMRSimulationRunner(
+        dataclasses.replace(data, amr=True), **kw),
     "run_from_data": lambda data, **kw: run_from_data(data, **kw),
     "state_from_numpy": lambda data, **kw: state_from_numpy(_fields(), **kw),
 }
@@ -69,6 +72,8 @@ def test_entry_point_runs_on_the_cpu_when_asked(entry, tmp_path):
         "SimulationRunner": lambda r: [r.disc.row_ops.ke],
         "SimulationRunner[mesh file]": lambda r: [r.disc.jinv_u,
                                                   r.disc.plan_p.table],
+        "AMRSimulationRunner": lambda r: [r.disc.jinv_u, r.disc.hc_u.weights,
+                                          r.disc.plan_u.table],
         "run_from_data": lambda s: [s.p, s.u],
         "state_from_numpy": lambda s: [s.p, s.u, s.strains],
     }[entry](out)

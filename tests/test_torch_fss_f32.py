@@ -97,7 +97,10 @@ def test_runner_writes_vtk_and_run_log(tmp_path):
                                          ("checkpoint_every", 2),
                                          ("nondimensionalize", True)])
 def test_runner_rejects_unported_features(field, value):
-    data = dataclasses.replace(read_input_file(DECK), **{field: value})
+    # AMR itself runs (tests/test_torch_amr.py); AMR with psum does not
+    extra = {"sharding": "psum"} if field == "amr" else {}
+    data = dataclasses.replace(read_input_file(DECK), **{field: value},
+                               **extra)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SimulationRunner(data, device="cpu")
 

@@ -19,7 +19,8 @@ float64 on the CPU unless a test says otherwise:
 * float32: the applies within 1e-5 of their max, one step's fields within
   1e-4;
 * ``Sharding = production`` on a mesh deck: one process warns and runs
-  unsharded, more ranks are refused, as in the JAX runner.
+  unsharded, more ranks are refused, as in the JAX runner;
+* the gmsh deck with ``AMR = true`` runs through ``run_from_data``.
 """
 
 import dataclasses
@@ -57,7 +58,7 @@ from poroelasticity_dealii_torch.mesh.generator import \
     perturb_interior  # noqa: E402
 from poroelasticity_dealii_torch.models import cryer as tcryer  # noqa: E402
 from poroelasticity_dealii_torch.models.runner import (  # noqa: E402
-    SimulationRunner, _apply_sharding)
+    SimulationRunner, _apply_sharding, run_from_data)
 from poroelasticity_dealii_torch.ops import operators as ops  # noqa: E402
 from poroelasticity_dealii_torch.solvers.discretization import \
     build_discretization  # noqa: E402
@@ -78,6 +79,17 @@ F32_FIELD_TOL = 1e-4   # float32 step fields, relative to max |field|
 RESIDUAL_RTOL = 1e-6   # pressure_error against JAX
 PIN_RTOL = 1e-9        # chip_smoke's pin against JAX on this CPU
 CRYER_R, CRYER_LOAD = 10.0, 7.2e6
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread per test: beside busy test workers, torch's
+    default OpenMP pool oversubscribes the host and its barriers stall the
+    many small operators of these runs (minutes instead of seconds)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _cryer_data(mod):
@@ -217,7 +229,8 @@ def test_scatter_plan_sums_every_entry_in_a_fixed_order(dtype):
 
 GENERIC_SOURCES = ("ops/operators.py", "solvers/discretization.py",
                    "solvers/fss.py", "solvers/cg.py",
-                   "solvers/cuda_graphs.py")
+                   "solvers/cuda_graphs.py", "amr/constraints.py",
+                   "amr/bucketing.py", "amr/driver.py")
 ATOMIC_CALLS = re.compile(
     r"index_add_?\(|scatter_add_?\(|scatter_reduce_?\(|index_reduce_?\(|"
     r"\.put_\(|index_put_?\(|accumulate\s*=\s*True")
@@ -425,9 +438,20 @@ def test_production_sharding_on_a_mesh_deck(tmp_path):
         _apply_sharding(runner.disc, data, two)
 
 
-def test_amr_mesh_deck_still_refused():
-    data = dataclasses.replace(read_input_file(str(IRREGULAR_2D)), amr=True)
+def test_amr_mesh_deck_runs(tmp_path):
+    """The gmsh deck with ``AMR = true`` runs through ``run_from_data``
+    on the gmsh-rooted forest (levels 0 -> 1, a remesh before step 2),
+    with no warning; ``SimulationRunner`` sends such a deck there."""
+    data = dataclasses.replace(
+        read_input_file(str(IRREGULAR_2D)), amr=True,
+        initial_refinement_level=0, max_refinement_level=1, refine_every=2,
+        t_max=120.0, output_vtk=False, output_directory=str(tmp_path))
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        with pytest.raises(NotImplementedError, match="AMR"):
-            SimulationRunner(data, device="cpu")
+        state = run_from_data(data, device="cpu")
+    recs = [json.loads(line) for line in
+            (tmp_path / "run_log.jsonl").read_text().splitlines()]
+    assert [r["n_cells"] for r in recs] == [143, 176]
+    assert state.p.shape[0] == 209 and bool(torch.isfinite(state.u).all())
+    with pytest.raises(ValueError, match="run_from_data"):
+        SimulationRunner(data, device="cpu")

@@ -3,7 +3,10 @@ fresh interpreter imports every module of the port (and chip_smoke.py),
 runs one n = 4 step on the CPU on each 3D mechanics backend (rows and
 conv), one 2D step on the parity kit with the elasticity GMG and on
 flat vectors, one step of the generic path on ``configs/irregular_3d.msh``
-(the gmsh reader, ``build_discretization``) and the CLI ``check``, and
+(the gmsh reader, ``build_discretization``), an adaptive run with one
+remesh on the 2D quadtree (Kelly, marking, refining, the constraint
+builders, the transfer, a step on the hanging mesh) and the CLI
+``check``, and
 finds no module of ``jax``, ``jaxlib`` or
 ``poroelasticity_dealii_tpu`` loaded (the port keeps its own copies of the
 host modules it needs; ``tests/test_torch_vendored.py`` holds them equal to
@@ -52,6 +55,15 @@ assert d.row_ops is None and d.n_cells == 210
 s = FixedStressSolver(d, data)
 state, stats = s.time_step(s.initial_state(), data.time_step)
 assert stats.cg_converged and stats.fss_iterations >= 1, stats
+import dataclasses
+from poroelasticity_dealii_torch.amr.driver import AMRSimulationRunner
+amr = dataclasses.replace(data2, amr=True, initial_refinement_level=2,
+                          max_refinement_level=3, refine_every=2,
+                          t_max=2 * data2.time_step, output_vtk=False)
+r = AMRSimulationRunner(amr, device="cpu")
+state, hist = r.run()
+assert [h["n_cells"] for h in hist][0] == 16 and hist[1]["n_cells"] > 16
+assert not r.disc.hc_p.empty and hist[1]["cg_converged"], hist
 assert main(["check", "configs/consolidation_3d.data"]) == 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib",

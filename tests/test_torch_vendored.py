@@ -2,7 +2,10 @@
 (``config``, ``mesh/`` with the gmsh reader ``mesh/gmsh_io.py``,
 ``ops/shape.py``, ``ops/quadrature.py``, ``utils/logging_utils.py``,
 ``utils/native.py``, ``models/terzaghi.py``, ``models/mandel.py``,
-``models/cryer.py``) and imports nothing of the JAX package.
+``models/cryer.py``, the AMR forests, Kelly indicator and transfer
+``amr/{forest,octforest,kelly,transfer,multiroot,multiroot3d}.py``, and
+the four hanging-node builders of ``amr/constraints.py``) and imports
+nothing of the JAX package.
 
 * No import line of the port or ``chip_smoke.py`` names the JAX package
   (``tests/test_torch_nojax.py`` checks in a fresh interpreter that none
@@ -13,10 +16,14 @@
   1 and 2; the analytic models' and the gmsh reader's sources equal the
   originals but for their relative imports, their configurations, series
   and meshes are equal, and ``read_msh`` reads both gmsh assets in
-  ``configs/`` to equal meshes.
+  ``configs/`` to equal meshes; the AMR modules' sources equal the
+  originals but for their relative imports (and the reference checkout's
+  directory, left out of two docstrings), and the constraint builders'
+  and their helpers' sources equal the originals.
 """
 
 import dataclasses
+import re
 from pathlib import Path
 
 import numpy as np
@@ -140,12 +147,25 @@ def test_host_arrays_bitwise_equal_jax(dim, degree):
 
 MODELS = ("terzaghi", "mandel", "cryer")
 # host modules copied with no change but their relative imports
-HOST_COPIES = ("mesh/gmsh_io.py", "utils/native.py")
+HOST_COPIES = ("mesh/gmsh_io.py", "utils/native.py", "amr/forest.py",
+               "amr/octforest.py", "amr/kelly.py", "amr/transfer.py",
+               "amr/multiroot.py", "amr/multiroot3d.py")
+# the numpy functions of amr/constraints.py, copied as they are (the
+# tables' class, its empty instance and _pack_rows's return are the port's)
+CONSTRAINT_BUILDERS = (
+    "build_hanging_constraints", "build_hanging_constraints_geometric",
+    "build_hanging_constraints_3d_entities",
+    "build_hanging_constraints_from_edges", "_q2_edge_triples",
+    "_edge_midnode_map", "_q2_face_centers", "_face_center_map",
+    "_resolve_chains", "_lagrange_q2_1d")
 
 
 def _code_lines(path: Path) -> list:
-    """The source's lines, its relative import lines left out."""
-    return [ln for ln in path.read_text().splitlines()
+    """The source's lines, its relative import lines left out, and an
+    absolute directory before a file name in a literal (the reference's
+    checkout in a docstring) dropped."""
+    return [re.sub(r"``/[^`]*/([^/`]+)``", r"``\1``", ln)
+            for ln in path.read_text().splitlines()
             if not ln.startswith("from .")]
 
 
@@ -161,6 +181,16 @@ def test_host_copies_equal_jax_source(rel):
     got = REPO / "poroelasticity_dealii_torch" / rel
     want = REPO / "poroelasticity_dealii_tpu" / rel
     assert _code_lines(got) == _code_lines(want)
+
+
+@pytest.mark.parametrize("name", CONSTRAINT_BUILDERS)
+def test_constraint_builders_equal_jax_source(name):
+    import inspect
+
+    from poroelasticity_dealii_torch.amr import constraints as tc
+    from poroelasticity_dealii_tpu.amr import constraints as jc
+    assert inspect.getsource(getattr(tc, name)) == \
+        inspect.getsource(getattr(jc, name))
 
 
 def test_cryer_copy_computes_what_jax_computes():
