@@ -69,7 +69,17 @@ just before and read just after:
   consistent, ``condense_vec`` bitwise repeatable, the old mesh's solver,
   graphs and discretization freed and their memory returned, each step's
   ms and the remesh's split, and padded against unpadded steps on the
-  final mesh (what ``AMR bucketing`` costs).
+  final mesh (what ``AMR bucketing`` costs);
+* the runner's deck options (``runner_options_phase``): the 40^3 float32
+  bench configuration through ``SimulationRunner`` with a checkpoint every
+  2 steps, resumed by a fresh runner from step 2 (steps 3-4 bit for bit,
+  K1-K4 launched; the checkpoint's bytes and write ms, the resume's
+  set-up seconds); ``Nondimensionalize`` at 40^3 float64 against the
+  dimensional run; ``Debug NaNs`` on against off (bit for bit, step ms of
+  both) and a NaN deck that must raise; the golden adaptive deck resumed
+  after its first remesh; and, in the CLI phase, the 8^3 deck resumed
+  with ``--resume`` from a checkpoint the CLI wrote and run with
+  ``--profile`` (the trace must hold CUDA kernel events).
 
 Before the paths, the slab form of the row-layout apply (K5's z-slab form,
 ``nz``/``nv``) is held against its plain twin on every slab of 2-, 4- and
@@ -779,16 +789,88 @@ def _run_log(path: Path) -> list:
 
 CLI_BLOCKS = ("  set Steps per dispatch = 4\n  set Sync every = 2\n"
               "  set Output VTK = false\n")
+CLI_CKPT = "  set Checkpoint every = 3\n  set Output VTK = false\n"
+CLI_RESUME_STEP = 3
+
+
+def _cli(path: Path, cwd: Path, env: dict, *extra) -> subprocess.Popen:
+    return subprocess.Popen(
+        [sys.executable, "-m", "poroelasticity_dealii_torch", "run",
+         str(path), "--device", "cuda", *extra], cwd=cwd, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _finish(runs: dict) -> None:
+    """Wait for each CLI run of ``runs`` ({name: (cwd, process)}); fail on
+    a non-zero exit; kill what is left on the way out."""
+    try:
+        for name, (cwd, proc) in runs.items():
+            out, err = proc.communicate(timeout=600)
+            sys.stdout.write(f"[cli {name}]\n{err[-2000:]}")
+            if proc.returncode != 0:
+                raise AssertionError(f"CLI run ({name}) failed "
+                                     f"({proc.returncode}):\n{out}\n{err}")
+    finally:
+        for _, proc in runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def cli_resume_and_profile(tmp: Path, env: dict, ckpt_deck: Path) -> None:
+    """The 8^3 deck through the CLI twice more, at once: resumed with
+    ``--resume`` from the checkpoint the ``ckpt`` run wrote at step
+    :data:`CLI_RESUME_STEP` (its run log must repeat the ``ckpt`` run's
+    later steps: counts exactly, ``pressure_error`` within
+    :data:`CLI_PRESSURE_RTOL`), and with ``--profile`` (the trace must
+    hold CUDA kernel events)."""
+    ckpt = (tmp / "ckpt" / "checkpoints"
+            / f"ckpt-{CLI_RESUME_STEP:06d}.npz")
+    runs = {}
+    for name, extra in (("resume", ("--resume", str(ckpt))),
+                        ("profile", ("--profile", str(tmp / "trace")))):
+        cwd = tmp / name
+        cwd.mkdir()
+        runs[name] = (cwd, _cli(ckpt_deck if name == "resume" else
+                                REPO / "configs" / "consolidation_3d.data",
+                                cwd, env, *extra))
+    t0 = time.perf_counter()
+    _finish(runs)
+    full = _run_log(tmp / "ckpt" / "solution" / "run_log.jsonl")
+    resumed = _run_log(tmp / "resume" / "solution" / "run_log.jsonl")
+    key = lambda r: (r["step"], r["time"], r["fss_iterations"],  # noqa: E731
+                     r["pressure_iterations"], r["cg_iterations"])
+    want = full[CLI_RESUME_STEP:]
+    same = [key(a) == key(b) and abs(a["pressure_error"]
+                                     - b["pressure_error"])
+            <= CLI_PRESSURE_RTOL * abs(a["pressure_error"])
+            for a, b in zip(resumed, want)]
+    trace = tmp / "trace" / "trace.json"
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    rec = {"cli_resume": {"steps": [r["step"] for r in resumed],
+                          "equal_to_uninterrupted": same},
+           "cli_profile": {"trace_bytes": trace.stat().st_size,
+                           "events": len(events), "kernel_events": kernels},
+           "seconds": time.perf_counter() - t0}
+    print(json.dumps(rec), flush=True)
+    if len(resumed) != len(want) or not want or not all(same):
+        raise AssertionError(f"CLI --resume run differs: {rec}")
+    if kernels == 0:
+        raise AssertionError(f"CLI --profile trace has no CUDA kernel "
+                             f"events: {rec}")
 
 
 def cli_phase():
     """The CLI on the 3D deck as written (8^3, float64, 6 steps), on a copy
-    with ``Elasticity backend = conv`` and on a copy with blocks of 4 steps
+    with ``Elasticity backend = conv``, on a copy with blocks of 4 steps
     and a sync every 2 (:data:`CLI_BLOCKS`; no VTK output, which would
-    read every step's state and so cut every block to one step), and on the
-    golden 2D deck (:func:`golden_check`), all at once; the conv run log
+    read every step's state and so cut every block to one step), on a copy
+    with a checkpoint every 3 steps (:data:`CLI_CKPT`), and on the golden
+    2D deck (:func:`golden_check`), all at once; the conv run log
     must agree with the rows one in FSS counts and pressure_error, the
-    blocks run log in its steps, times and counts."""
+    blocks run log in its steps, times and counts; then the resume from
+    the checkpoint and a profiled run (:func:`cli_resume_and_profile`)."""
     deck = REPO / "configs" / "consolidation_3d.data"
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -800,6 +882,9 @@ def cli_phase():
         blocks_deck = Path(tmp) / "consolidation_3d_blocks.data"
         blocks_deck.write_text(deck.read_text() + "\nsubsection TPU\n"
                                + CLI_BLOCKS + "end\n")
+        ckpt_deck = Path(tmp) / "consolidation_3d_ckpt.data"
+        ckpt_deck.write_text(deck.read_text() + "\nsubsection TPU\n"
+                             + CLI_CKPT + "end\n")
         # the gmsh deck names its mesh relative to the repository's root
         irregular_deck = Path(tmp) / IRREGULAR_DECK.name
         irregular_deck.write_text(IRREGULAR_DECK.read_text() + (
@@ -808,45 +893,32 @@ def cli_phase():
         t0 = time.perf_counter()
         runs = {}
         for name, path in (("rows", deck), ("conv", conv_deck),
-                           ("blocks", blocks_deck),
+                           ("blocks", blocks_deck), ("ckpt", ckpt_deck),
                            ("golden_2d", GOLDEN_DECK),
                            ("irregular_2d", irregular_deck)):
             cwd = Path(tmp) / name
             cwd.mkdir()
-            runs[name] = (cwd, subprocess.Popen(
-                [sys.executable, "-m", "poroelasticity_dealii_torch", "run",
-                 str(path), "--device", "cuda"], cwd=cwd, env=env,
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            runs[name] = (cwd, _cli(path, cwd, env))
+        _finish(runs)
         logs = {}
-        try:
-            for name, (cwd, proc) in runs.items():
-                out, err = proc.communicate(timeout=600)
-                sys.stdout.write(f"[cli {name}]\n{err[-2000:]}")
-                if proc.returncode != 0:
-                    raise AssertionError(f"CLI run ({name}) failed "
-                                         f"({proc.returncode}):\n{out}\n"
-                                         f"{err}")
-                sol = cwd / "solution"
-                vtks = sorted(sol.glob("solution-*.vtk"))
-                log = sol / "run_log.jsonl"
-                want = {"blocks": 0, "golden_2d": 18,
-                        "irregular_2d": 18}.get(name, 7)
-                if len(vtks) != want or not log.exists():
-                    raise AssertionError(f"CLI output ({name}) incomplete: "
-                                         f"{len(vtks)} VTK files, run log "
-                                         f"{log.exists()}")
-                logs[name] = _run_log(log)
-                print(f"cli {name}: {len(vtks)} VTK files, "
-                      f"{len(logs[name])} run-log records", flush=True)
-        finally:
-            for _, proc in runs.values():
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
+        for name, (cwd, _) in runs.items():
+            sol = cwd / "solution"
+            vtks = sorted(sol.glob("solution-*.vtk"))
+            log = sol / "run_log.jsonl"
+            want = {"blocks": 0, "ckpt": 0, "golden_2d": 18,
+                    "irregular_2d": 18}.get(name, 7)
+            if len(vtks) != want or not log.exists():
+                raise AssertionError(f"CLI output ({name}) incomplete: "
+                                     f"{len(vtks)} VTK files, run log "
+                                     f"{log.exists()}")
+            logs[name] = _run_log(log)
+            print(f"cli {name}: {len(vtks)} VTK files, "
+                  f"{len(logs[name])} run-log records", flush=True)
         print(f"cli: the {len(runs)} runs in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         golden_check(Path(tmp) / "golden_2d")
         irregular_check(Path(tmp) / "irregular_2d")
+        cli_resume_and_profile(Path(tmp), env, ckpt_deck)
     rows, conv, blocks = logs["rows"], logs["conv"], logs["blocks"]
     key = lambda r: (r["step"], r["time"], r["fss_iterations"],  # noqa: E731
                      r["pressure_iterations"], r["cg_iterations"])
@@ -1730,6 +1802,290 @@ def amr_phase(dev) -> None:
     amr_scale_point(dev)
 
 
+# ---------------------------------------------------------------------------
+# the runner's deck options: checkpoints and resume, Nondimensionalize,
+# Debug NaNs, the adaptive resume
+# ---------------------------------------------------------------------------
+
+N_OPTIONS_STEPS = 4          # the checkpointed 40^3 run: 4 steps, one
+CKPT_EVERY = 2               # checkpoint every 2, resumed from step 2
+RESUME_SKIP_TOL = 1e-4       # resumed vs uninterrupted p, u, strains, rel
+#                              to max |field|, only when the uninterrupted
+#                              run took the bitwise skip the resume cannot
+# Nondimensionalize at 40^3 float64, dimensional vs nondimensional runs at
+# the bench's relative mechanics tolerance and at 1e-10: FSS, pressure and
+# pressure CG counts equal and p within tests/test_scaling.py's 1e-10; the
+# mechanics Jacobi-CG (85-172 iterations at 1.66M DOF) stops a few
+# iterations apart in the two runs, so its counts are held within 15% (test:
+# 5 iterations; measured up to 9.6%) and u within 10x the solve's own
+# tolerance relative to max |u| (test: 1e-8 elementwise; measured 0.2-1.5x
+# the tolerance)
+ND_MECH_TOLS = (1e-5, 1e-10)
+ND_P_RTOL = 1e-10
+ND_MECH_SLACK = 0.15
+ND_U_TOL_FACTOR = 10.0
+# JAX's tests/test_amr.py::test_amr_checkpoint_resume
+AMR_RESUME_P_RTOL = 1e-12
+AMR_RESUME_EPS_RTOL = 1e-10
+COUNTS = ("fss_iterations", "pressure_iterations", "pressure_cg_iterations",
+          "mech_cg_iterations", "projection_cg_iterations")
+
+
+class RecordingLog:
+    """A run logger that keeps each step's number, counts and residual."""
+
+    def __init__(self):
+        self.steps = []
+
+    def log_step(self, step, t, stats, wall_s, extra=None):
+        self.steps.append({"step": step, "wall_ms": wall_s * 1e3,
+                           "counts": [int(getattr(stats, f))
+                                      for f in COUNTS],
+                           "pressure_error": float(stats.pressure_error)})
+
+    def close(self):
+        pass
+
+
+def _options_data(tmp: Path, name: str, **kw):
+    """The bench configuration at 40^3 as a deck (elasticity GMG off: the
+    3D rows kit never builds it with ``auto``), no VTK, its output and
+    checkpoints under ``tmp``."""
+    data = bench_data()
+    return dataclasses.replace(
+        data, cells_per_axis=(N_MAIN,) * 3,
+        t_max=N_OPTIONS_STEPS * data.time_step, output_vtk=False,
+        output_directory=str(tmp / f"out_{name}"),
+        checkpoint_directory=str(tmp / f"ckpt_{name}"), **kw)
+
+
+def _field_gap(a, b) -> float:
+    return _rel_err(a, b) if a.shape == b.shape else float("inf")
+
+
+def checkpoint_resume_check(dev, tmp: Path) -> None:
+    """4 steps of the 40^3 float32 bench configuration through
+    ``SimulationRunner`` with a checkpoint every 2, then a fresh runner
+    resumed from ``ckpt-000002.npz``: steps 3-4 give the uninterrupted
+    run's counts, and p, u and strains bit for bit (or within
+    :data:`RESUME_SKIP_TOL` if the uninterrupted run took the bitwise skip
+    at step 3, which the resume cannot take); K1-K4 launched; the
+    checkpoint's write ms and bytes and the resume's set-up seconds."""
+    from poroelasticity_dealii_torch.models.runner import SimulationRunner
+    from poroelasticity_dealii_torch.utils.checkpoint import (
+        load_checkpoint, save_checkpoint)
+    cm.reset_launch_counts()
+    data = _options_data(tmp, "full", checkpoint_every=CKPT_EVERY)
+    full_log = RecordingLog()
+    full = SimulationRunner(data, device=dev, logger=full_log)
+    st_full = full.run()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    modes = cm.elasticity_rows_apply.mode_launches
+    del full
+    ckpt = Path(data.checkpoint_directory) / f"ckpt-{CKPT_EVERY:06d}.npz"
+    t0 = time.perf_counter()
+    resumed = SimulationRunner(_options_data(tmp, "resumed"), device=dev,
+                               logger=RecordingLog())
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    load_checkpoint(str(ckpt), resumed.disc.dtype, dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    st_res = resumed.run(resume_from=str(ckpt))
+    res_log = resumed.logger.steps
+    torch.cuda.synchronize()
+    t0w = time.perf_counter()
+    save_checkpoint(str(tmp / "timed.npz"), st_res, 0.0, 0)
+    write_ms = (time.perf_counter() - t0w) * 1e3
+    tail = full_log.steps[CKPT_EVERY:]
+    skip = tail[0]["counts"][3] == 0 and res_log[0]["counts"][3] > 0
+    gaps = {k: _field_gap(getattr(st_res, k), getattr(st_full, k))
+            for k in ("p", "u", "strains")}
+    bitwise = {k: torch.equal(getattr(st_res, k), getattr(st_full, k))
+               for k in ("p", "u", "strains")}
+    rec = {"checkpoint_resume": {
+        "dofs": resumed.disc.n_pdofs + resumed.disc.n_udofs,
+        "checkpoint_bytes": ckpt.stat().st_size,
+        "checkpoint_write_ms": write_ms,
+        "resume_setup_s": {"runner": t1 - t0, "load": t2 - t1},
+        "uninterrupted": full_log.steps, "resumed": res_log,
+        "bitwise": bitwise, "max_rel_err": gaps,
+        "uninterrupted_took_skip_at_resume": skip,
+        "launches": launches,
+        "rows_apply_modes": {"free": modes[cm.FREE],
+                             "constrained": modes[cm.CONSTRAINED]}}}
+    print(json.dumps(rec), flush=True)
+    if [s["step"] for s in res_log] != [s["step"] for s in tail] or \
+            len(tail) != N_OPTIONS_STEPS - CKPT_EVERY:
+        raise AssertionError(f"resumed run's steps differ: {rec}")
+    if skip:
+        print("checkpoint_resume: the uninterrupted run took the bitwise "
+              "skip at its first resumed step; fields held to "
+              f"{RESUME_SKIP_TOL}", flush=True)
+        if not all(g <= RESUME_SKIP_TOL for g in gaps.values()) or [
+                s["counts"][:3] for s in tail] != [
+                s["counts"][:3] for s in res_log]:
+            raise AssertionError(f"resumed run differs: {rec}")
+    elif [s["counts"] for s in tail] != [s["counts"] for s in res_log] \
+            or not all(bitwise.values()):
+        raise AssertionError(f"resumed run differs from the uninterrupted "
+                             f"one: {rec}")
+    for name in MAIN_PATH_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} not launched by the "
+                                 "checkpointed runs")
+    if modes[cm.FREE] <= 0 or modes[cm.CONSTRAINED] <= 0:
+        raise AssertionError(f"K1 / K2 not launched: {dict(modes)}")
+
+
+def nondimensional_check(dev, tmp: Path) -> None:
+    """2 steps of the 40^3 bench configuration in float64 through
+    ``SimulationRunner``, dimensional and nondimensionalized
+    (tests/test_scaling.py's check), at each mechanics tolerance of
+    :data:`ND_MECH_TOLS`: FSS, pressure and pressure CG counts equal,
+    mechanics CG within :data:`ND_MECH_SLACK`, p rescaled to SI within
+    :data:`ND_P_RTOL` and u within :data:`ND_U_TOL_FACTOR` times the
+    mechanics tolerance, relative to max |u|."""
+    from poroelasticity_dealii_torch.models.runner import SimulationRunner
+    from poroelasticity_dealii_torch.models.scaling import nondimensionalize
+    for tol in ND_MECH_TOLS:
+        data = _options_data(tmp, "dim", dtype="float64", mech_cg_tol=tol)
+        scaled, sc = nondimensionalize(data)
+        out = {}
+        for name, d, scales in (("dim", data, None), ("nd", scaled, sc)):
+            r = SimulationRunner(d, device=dev, scales=scales)
+            st = r.solver.initial_state()
+            counts, ms = [], []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, stats = r.solver.time_step(st, d.time_step)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                counts.append([getattr(stats, f) for f in COUNTS])
+            out[name] = (st.p.cpu().numpy(), st.u.cpu().numpy(), counts, ms)
+            del r, st
+        (p_d, u_d, c_d, ms_d), (p_n, u_n, c_n, ms_n) = out["dim"], out["nd"]
+        p_si, u_si = sc.p(p_n), sc.u(u_n)
+        du = np.abs(u_si - u_d)
+        big = np.abs(u_d) > 1e-3 * np.abs(u_d).max()
+        rec = {"nondimensional": {
+            "mech_cg_tol": tol, "counts": [c_d, c_n], "ms": [ms_d, ms_n],
+            "p_max_rel_err": float(np.max(np.abs(p_si - p_d)
+                                          / np.abs(p_d))),
+            "u_max_err_rel_to_max": float(du.max() / np.abs(u_d).max()),
+            "u_max_rel_err_above_1e-3_max": float(np.max(
+                du[big] / np.abs(u_d[big]))),
+            "p_rtol": ND_P_RTOL, "u_tol": ND_U_TOL_FACTOR * tol}}
+        print(json.dumps(rec), flush=True)
+        rec = rec["nondimensional"]
+        for a, b in zip(c_d, c_n):
+            if a[:3] != b[:3] or abs(a[3] - b[3]) > ND_MECH_SLACK * a[3]:
+                raise AssertionError(f"nondimensional counts differ: {rec}")
+        if not (rec["p_max_rel_err"] <= ND_P_RTOL
+                and rec["u_max_err_rel_to_max"] <= rec["u_tol"]):
+            raise AssertionError(f"nondimensional fields differ: {rec}")
+
+
+def debug_nans_check(dev, tmp: Path) -> None:
+    """``Debug NaNs`` at 40^3 float32: 2 evolving + 1 steady captured
+    steps with the option on equal the option-off steps bit for bit,
+    counts and fields (step ms of both printed); a deck with a NaN flow
+    rate raises ``FloatingPointError`` naming the pressure residual in
+    its first step, through the runner."""
+    from poroelasticity_dealii_torch.models.runner import SimulationRunner
+    data = bench_data()
+    disc = build_grid_discretization(data, cells_per_axis=N_MAIN,
+                                     multigrid="off", device=dev)
+    runs = {}
+    for on in (False, True):
+        solver = FixedStressSolver(
+            disc, dataclasses.replace(data, debug_nans=on))
+        runs[on] = run_steps(solver, N_GRAPH_EVOLVING, N_GRAPH_STEADY,
+                             log=False)
+        del solver
+    (st_off, ss_off, ms_off), (st_on, ss_on, ms_on) = runs[False], runs[True]
+    rec = {"debug_nans": {
+        "counts": [[_counts(s) for s in ss_off], [_counts(s) for s in ss_on]],
+        "ms": [ms_off, ms_on],
+        "bitwise": all(torch.equal(getattr(a, k), getattr(b, k))
+                       for a, b in zip(st_off, st_on)
+                       for k in ("p", "u", "eps_v", "strains"))}}
+    del runs, st_off, st_on, disc
+    nan_data = _options_data(tmp, "nan", flow_rate=float("nan"),
+                             debug_nans=True)
+    try:
+        SimulationRunner(nan_data, device=dev).run()
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    rec["debug_nans"]["nan_run_raised"] = raised
+    print(json.dumps(rec), flush=True)
+    if rec["debug_nans"]["counts"][0] != rec["debug_nans"]["counts"][1] \
+            or not rec["debug_nans"]["bitwise"]:
+        raise AssertionError(f"Debug NaNs changed a finite run: {rec}")
+    if raised is None or not raised.startswith(
+            "step 1: Debug NaNs: the pressure residual"):
+        raise AssertionError(f"the NaN run did not raise as it should: "
+                             f"{raised!r}")
+
+
+def amr_resume_check(dev, tmp: Path) -> None:
+    """The golden adaptive deck (float64, levels 4 -> 6, a remesh before
+    every 5th step) for 8 steps with a checkpoint every 6, and a fresh
+    runner resumed from ``ckpt-000006.npz`` (after the first remesh): the
+    forest's leaves equal, p within 1e-12 and eps_v within 1e-10 relative
+    (JAX's tests/test_amr.py::test_amr_checkpoint_resume)."""
+    from poroelasticity_dealii_torch.amr.driver import AMRSimulationRunner
+    from poroelasticity_dealii_torch.config import read_input_file
+    data = dataclasses.replace(
+        read_input_file(str(AMR_GOLDEN_DECK)), t_max=480.0,
+        output_vtk=False, checkpoint_every=6,
+        checkpoint_directory=str(tmp / "ckpt_amr"))
+    full = AMRSimulationRunner(data, device=dev)
+    st_full, hist = full.run()
+    res = AMRSimulationRunner(data, device=dev)
+    st_res, res_hist = res.run(
+        resume_from=str(tmp / "ckpt_amr" / "ckpt-000006.npz"))
+    p_gap = float(np.max(np.abs(st_res.p.cpu().numpy()
+                                - st_full.p.cpu().numpy())
+                         / np.abs(st_full.p.cpu().numpy())))
+    e_r, e_f = st_res.eps_v.cpu().numpy(), st_full.eps_v.cpu().numpy()
+    eps_ok = bool(np.all(np.abs(e_r - e_f)
+                         <= AMR_RESUME_EPS_RTOL * np.abs(e_f)))
+    rec = {"amr_resume": {
+        "cells": [h["n_cells"] for h in hist],
+        "resumed_steps": [h["step"] for h in res_hist],
+        "leaves_equal": res.forest.leaves == full.forest.leaves,
+        "counts": [[(h["fss"], h["press"]) for h in hist[6:]],
+                   [(h["fss"], h["press"]) for h in res_hist]],
+        "p_max_rel_err": p_gap, "p_rtol": AMR_RESUME_P_RTOL,
+        "eps_v_within_rtol": eps_ok}}
+    print(json.dumps(rec), flush=True)
+    if not (rec["amr_resume"]["leaves_equal"] and eps_ok
+            and p_gap <= AMR_RESUME_P_RTOL
+            and rec["amr_resume"]["resumed_steps"] == [7, 8]
+            and len(set(rec["amr_resume"]["cells"])) > 1):
+        raise AssertionError(f"adaptive resume differs: {rec}")
+
+
+def runner_options_phase(dev) -> None:
+    """The runner's deck options on the card, every step on the rows kit
+    with K1-K4 and captured chunks (the adaptive resume on the generic
+    path): :func:`checkpoint_resume_check`, :func:`nondimensional_check`,
+    :func:`debug_nans_check`, :func:`amr_resume_check`."""
+    with tempfile.TemporaryDirectory() as tmp:
+        for check in (checkpoint_resume_check, nondimensional_check,
+                      debug_nans_check, amr_resume_check):
+            t0 = time.perf_counter()
+            check(dev, Path(tmp))
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"runner options: {check.__name__} in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 TENSOR_CORE_OP = re.compile(r"\b([DHIBQ]G?MMA)\b")
 
 
@@ -1861,6 +2217,7 @@ def main() -> int:
     phase_2d(dev)
     generic_phase(dev)
     amr_phase(dev)
+    runner_options_phase(dev)
     cli_phase()
 
     summary = []

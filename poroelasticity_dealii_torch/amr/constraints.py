@@ -69,7 +69,11 @@ class HangingConstraints:
         for each master, its entries of nonzero weight in table order; the
         zero-weight padding (a short row's self entries, the phantom rows
         of AMR bucketing) adds nothing and stays out of it, so the plan's
-        width is the largest number of rows a master serves."""
+        width is the largest number of rows a master serves.  ``dtype`` is
+        a torch or a numpy float type (the scipy oracle,
+        :mod:`..validation`, passes ``np.float64``)."""
+        if not isinstance(dtype, torch.dtype):
+            dtype = getattr(torch, np.dtype(dtype).name)
         hanging = np.asarray(hanging, np.int64).reshape(-1)
         masters = np.asarray(masters, np.int64)
         weights = np.array(weights, np.float64)

@@ -14,6 +14,11 @@ bucketing``) and the transfer are numpy and torch on the CPU, and the new
 discretization and state go to the device in one move each.  The old
 solver's captured CUDA graphs and their memory pool are released before
 the new solver is built, so device memory follows the current mesh.
+
+Checkpoints (``TPU / Checkpoint every``) carry the real-sized fields and
+the forest, so a run resumes on its refined mesh
+(``run(resume_from=...)``); a step whose FSS residual is not finite is
+logged and the run goes on, as in the reference's adaptive driver.
 """
 
 from __future__ import annotations
@@ -30,10 +35,13 @@ import torch
 
 from .. import resolve_device
 from ..config import InputData
-from ..interop import FIELDS
+from ..interop import fields_to_host
 from ..ops.operators import VOIGT_PAIRS
 from ..solvers.discretization import build_discretization
-from ..solvers.fss import FixedStressSolver, State, StepStats
+from ..solvers.fss import (FixedStressSolver, State, StepStats,
+                           numbered_steps)
+from ..utils.checkpoint import (load_checkpoint, load_checkpoint_forest,
+                                save_checkpoint)
 from .bucketing import pad_amr_discretization, pad_state, real_sizes, \
     slice_state
 from .constraints import (build_hanging_constraints,
@@ -107,7 +115,11 @@ class AMRSimulationRunner:
     initial + max levels with fixed error fractions 0.6 / 0.4
     (``PoroelasticityFSS.h:333-340, 460-462``; its ``refine_mesh`` is
     dim-templated, so 3D is in-scope parity).  ``cuda_graphs``: as
-    :class:`..solvers.fss.FixedStressSolver`'s.  After every remesh
+    :class:`..solvers.fss.FixedStressSolver`'s.  ``scales``: a
+    :class:`..models.scaling.Scales` when ``data`` is already
+    nondimensionalized; the VTK output is rescaled back to SI (the
+    adaptive loop itself is scale-invariant: Kelly marks are chosen by
+    fixed fractions, not absolute thresholds).  After every remesh
     ``timings`` holds its split in seconds: the Kelly indicator, marking
     and refining, the generic build, the constraint builders, padding,
     the copy of the discretization to the device, the solver build, the
@@ -117,21 +129,21 @@ class AMRSimulationRunner:
     graphs and its discretization were freed."""
 
     def __init__(self, data: InputData, device="cuda", logger=None,
-                 cuda_graphs: bool = True):
+                 cuda_graphs: bool = True, scales=None):
         from ..models.runner import _check_supported
         _check_supported(data)
         if data.dim not in (2, 3):
             raise NotImplementedError("AMR needs dim 2 or 3")
         self._fused = data.steps_per_dispatch > 1
-        if self._fused and data.output_vtk:
+        if self._fused and (data.output_vtk or data.checkpoint_every):
             warnings.warn(
                 "'TPU / Steps per dispatch' with AMR requires per-step "
                 "host state to stay on device between remesh points — "
-                "per-step VTK output forces the per-step path; disable it "
-                "(Output VTK = false) to run blocks of steps",
-                RuntimeWarning)
+                "per-step VTK output / checkpointing forces the per-step "
+                "path; disable them (Output VTK = false, Checkpoint "
+                "every = 0) to fuse dispatches", RuntimeWarning)
             self._fused = False
-        self.data = data
+        self.data, self.scales = data, scales
         self.device = resolve_device(device)
         self.cuda_graphs = cuda_graphs
         if data.mesh_file:
@@ -185,7 +197,7 @@ class AMRSimulationRunner:
 
     def _real_state(self, state: State) -> State:
         """Slice a (possibly bucket-padded) State to the real dof counts
-        for host consumers (Kelly, transfer, VTK)."""
+        for host consumers (Kelly, transfer, VTK, checkpoints)."""
         n_p, n_u = real_sizes(self.disc)
         if state.p.shape[0] == n_p:
             return state
@@ -203,11 +215,7 @@ class AMRSimulationRunner:
         state = self._real_state(state)
         # the real-sized state on the host: one copy from the device
         t0 = time.perf_counter()
-        flat = torch.cat([getattr(state, k).reshape(-1)
-                          for k in FIELDS]).cpu().numpy()
-        sizes = [getattr(state, k).numel() for k in FIELDS]
-        host = dict(zip(FIELDS, np.split(flat, np.cumsum(sizes)[:-1])))
-        host["strains"] = host["strains"].reshape(state.strains.shape)
+        host = fields_to_host(state)
         t1 = time.perf_counter()
         mesh_old = self.disc.pressure_space.mesh
         if isinstance(self.forest, MultiRootOctForest):
@@ -280,27 +288,25 @@ class AMRSimulationRunner:
     def _output(self, state: State, step: int):
         if not self.data.output_vtk:
             return
-        from ..utils.vtk_io import (displacement_at_pressure_nodes,
-                                    write_vtk)
-        state = self._real_state(state)
-        sp = self.disc.pressure_space
-        su = self.disc.displacement_space
-        u_p = displacement_at_pressure_nodes(sp, su, state.u.cpu().numpy())
-        stresses = self.solver.effective_stresses(state.strains).cpu().numpy()
-        path = os.path.join(self.data.output_directory,
-                            f"solution-{step:04d}.vtk")
-        write_vtk(path, sp, u_p, state.p.cpu().numpy(),
-                  state.strains.cpu().numpy(), stresses)
+        from ..models.runner import write_state_vtk
+        write_state_vtk(os.path.join(self.data.output_directory,
+                                     f"solution-{step:04d}.vtk"),
+                        self.disc, self.solver, self._real_state(state),
+                        self.scales)
 
-    def run(self, n_steps: Optional[int] = None):
+    def run(self, n_steps: Optional[int] = None,
+            resume_from: Optional[str] = None):
         """Steps to ``Time max`` (or ``n_steps``), remeshing before every
         ``Refine every``-th step; with ``Steps per dispatch`` K > 1 (and no
-        VTK output) the steps between remesh points run in blocks of up to
-        K through :meth:`..solvers.fss.FixedStressSolver.multi_step`.
+        VTK output or checkpoints) the steps between remesh points run in
+        blocks of up to K through
+        :meth:`..solvers.fss.FixedStressSolver.multi_step`.
+        ``resume_from``: an ``.npz`` checkpoint (of either package) to
+        continue from, on its persisted forest.
         Returns ``(state, history)``: the real-sized state and one record
         per step (mesh sizes, counts, residual, wall seconds)."""
         history = []
-        for kind, state, info in self.steps(n_steps):
+        for kind, state, info in self.steps(n_steps, resume_from):
             if kind == "after":
                 history.extend(rec for rec, _ in info)
         if self.logger:
@@ -308,9 +314,11 @@ class AMRSimulationRunner:
         # callers see REAL-sized fields; bucket padding stays internal
         return self._real_state(state), history
 
-    def steps(self, n_steps: Optional[int] = None):
+    def steps(self, n_steps: Optional[int] = None,
+              resume_from: Optional[str] = None):
         """:meth:`run`'s loop as a generator of events ``(kind, state,
-        info)``: ``("start", state, 0)`` after the initial state,
+        info)``: ``("start", state, step)`` after the initial (or resumed)
+        state,
         ``("before", state, step)`` before each block of steps from
         ``step`` on (after the remesh, if one falls there) and ``("after",
         state, block)`` after it, ``block`` the block's ``[(record,
@@ -318,10 +326,19 @@ class AMRSimulationRunner:
         the runner's own loop through it; ``state`` is the solver's
         (bucket-padded) state."""
         data = self.data
-        state = self.solver.initial_state()
-        self._output(state, 0)
-        yield "start", state, 0
-        t, step = 0.0, 0
+        if resume_from:
+            forest = load_checkpoint_forest(resume_from)
+            if forest is not None:
+                self.forest = forest
+                self._rebuild()
+            state, t, step = load_checkpoint(resume_from, self.disc.dtype,
+                                             self.device)
+            state = self._padded_state(state)
+        else:
+            state = self.solver.initial_state()
+            self._output(state, 0)
+            t, step = 0.0, 0
+        yield "start", state, step
         while (t < data.t_max) and (n_steps is None or step < n_steps):
             next_step = step + 1
             if data.refine_every and next_step % data.refine_every == 0:
@@ -340,15 +357,18 @@ class AMRSimulationRunner:
                 K = max(1, min(K, left))
             yield "before", state, next_step
             t0 = time.perf_counter()
-            if K > 1:
-                state, stacked = self.solver.multi_step(
-                    state, float(data.time_step), n_steps=K, want_u=True)
-                block = [StepStats(**{f.name: getattr(stacked, f.name)[i]
-                                      for f in dataclasses.fields(stacked)})
-                         for i in range(K)]
-            else:
-                state, stats = self.solver.time_step(state, data.time_step)
-                block = [stats]
+            with numbered_steps(next_step):
+                if K > 1:
+                    state, stacked = self.solver.multi_step(
+                        state, float(data.time_step), n_steps=K, want_u=True)
+                    block = [StepStats(**{
+                        f.name: getattr(stacked, f.name)[i]
+                        for f in dataclasses.fields(stacked)})
+                        for i in range(K)]
+                else:
+                    state, stats = self.solver.time_step(state,
+                                                         data.time_step)
+                    block = [stats]
             _sync(self.device)
             wall = time.perf_counter() - t0
             mesh = self.disc.pressure_space.mesh     # REAL sizes for logs
@@ -368,12 +388,19 @@ class AMRSimulationRunner:
                     self.logger.log_step(step, t, s_i, wall / K,
                                          extra={"n_cells": mesh.n_cells,
                                                 "n_pdofs": n_pdofs})
-                if not np.isfinite(float(s_i.pressure_error)):
-                    raise FloatingPointError(f"FSS residual diverged at "
-                                             f"step {step}")
+                # a diverged step is logged and the run goes on, as in the
+                # reference's adaptive driver; the warning is the port's
                 if not bool(s_i.cg_converged):
                     warnings.warn(f"step {step}: a linear solve ended "
                                   "before reaching tolerance",
                                   RuntimeWarning)
             self._output(state, step)
+            every = data.checkpoint_every
+            if every and step % every == 0:
+                # real-sized fields: mesh-portable and bucketing-agnostic
+                # (a resume re-pads for its own buckets)
+                save_checkpoint(os.path.join(data.checkpoint_directory,
+                                             f"ckpt-{step:06d}.npz"),
+                                self._real_state(state), t, step,
+                                forest=self.forest)
             yield "after", state, records

@@ -1,13 +1,17 @@
 """Command-line interface of the port.
 
-``python -m poroelasticity_dealii_torch run DECK [--device cuda|cpu] [--x64]``
-runs a 2D or 3D deck on its structured grid (e.g. ``configs/golden_2d.data``,
+``python -m poroelasticity_dealii_torch run DECK [--device cuda|cpu] [--x64]
+[--resume CKPT.npz] [--profile LOGDIR]`` runs a 2D or 3D deck on its
+structured grid (e.g. ``configs/golden_2d.data``,
 ``configs/consolidation_3d.data``) or on its gmsh mesh (``Mesh / Mesh file``,
 e.g. ``configs/irregular_2d.data``, read relative to the working
 directory); a deck with ``TPU / AMR = true`` (e.g.
 ``configs/golden_2d_adaptive.data``) runs the adaptive loop, remeshing
-every ``TPU / Refine every`` steps.  ``check DECK`` parses and prints it;
-``devices`` lists the visible CUDA devices.
+every ``TPU / Refine every`` steps.  ``--resume`` continues from an
+``.npz`` checkpoint (``TPU / Checkpoint every``; either package's), and
+``--profile`` writes a ``torch.profiler`` Chrome trace of the run into
+LOGDIR.  ``check DECK`` parses and prints it; ``devices`` lists the
+visible CUDA devices.
 
 A deck with ``TPU / Sharding = production`` runs sharded under ``torchrun``
 (one process per device; rank 0 writes the output), e.g. on the CPU::
@@ -36,6 +40,10 @@ def main(argv=None) -> int:
                        help="cuda, cuda:N or cpu (default cuda)")
     run_p.add_argument("--x64", action="store_true",
                        help="force float64 (overrides deck TPU/Dtype)")
+    run_p.add_argument("--resume", default=None,
+                       help="checkpoint .npz to resume from")
+    run_p.add_argument("--profile", default=None, metavar="LOGDIR",
+                       help="write a torch.profiler trace of the run")
     chk = sub.add_parser("check", help="parse + validate a deck, print it")
     chk.add_argument("deck")
     sub.add_parser("devices", help="list visible CUDA devices")
@@ -64,7 +72,13 @@ def main(argv=None) -> int:
     data = read_input_file(args.deck)
     if args.x64:
         data = dataclasses.replace(data, dtype="float64")
-    run_from_data(data, device=resolve_device(args.device))
+    device = resolve_device(args.device)
+    if args.profile:
+        from .utils.profiling import device_trace
+        with device_trace(args.profile):
+            run_from_data(data, resume_from=args.resume, device=device)
+    else:
+        run_from_data(data, resume_from=args.resume, device=device)
     return 0
 
 

@@ -60,6 +60,15 @@ def state_from_numpy(fields: Mapping[str, np.ndarray], device="cuda",
     return State(**kw)
 
 
+def fields_to_host(state: State) -> dict:
+    """The restart fields (:data:`FIELDS`) of ``state`` as numpy arrays,
+    brought to the host in one device-to-host copy."""
+    tensors = [getattr(state, k) for k in FIELDS]
+    flat = torch.cat([t.reshape(-1) for t in tensors]).cpu().numpy()
+    parts = np.split(flat, np.cumsum([t.numel() for t in tensors])[:-1])
+    return {k: a.reshape(t.shape) for k, a, t in zip(FIELDS, parts, tensors)}
+
+
 def state_to_numpy(state: State) -> dict:
     """The inverse of :func:`state_from_numpy`: field name -> numpy array
     (None where the state holds None)."""

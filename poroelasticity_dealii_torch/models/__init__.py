@@ -1,1 +1,3 @@
 """Host-side simulation drivers."""
+
+from .runner import SimulationRunner, run_from_deck  # noqa: F401

@@ -8,13 +8,19 @@ discretization, else on its structured grid), shards it when the deck asks
 for ``TPU / Sharding = production``, steps time in blocks of up to ``TPU /
 Steps per dispatch`` steps
 (:meth:`..solvers.fss.FixedStressSolver.multi_step`), writes the JSONL run
-log and the VTK files at sync points every ``TPU / Sync every`` steps, and
-stops on a diverged FSS residual.
+log, the VTK files and the ``.npz`` checkpoints (``TPU / Checkpoint every``,
+:mod:`..utils.checkpoint`) at sync points every ``TPU / Sync every`` steps,
+and stops on a diverged FSS residual.  ``run(resume_from=...)`` restarts
+from a checkpoint of either package.  :func:`run_from_data` applies ``TPU /
+Nondimensionalize`` (:mod:`.scaling`; the VTK output is rescaled to SI, the
+run log and checkpoints stay in solver units); ``TPU / Debug NaNs`` is the
+solver's (:class:`..solvers.fss.FixedStressSolver`).
 
 The sharded run is one process per device in a ``torch.distributed``
 process group (``torchrun``, or a group the caller initialised): every
-rank runs this time loop, and rank 0 alone writes the run log and the VTK
-files."""
+rank runs this time loop and reads the same checkpoint on a resume, and
+rank 0 alone writes the run log, the VTK files and the checkpoints (from
+the whole state, which every rank holds)."""
 
 from __future__ import annotations
 
@@ -28,19 +34,25 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..config import InputData
+from ..config import InputData, read_input_file
 from ..mesh import read_msh
 from ..parallel.rows import shard_production_discretization
 from ..parallel.sharding import SlabGroup, init_from_env
 from ..utils.logging_utils import RunLogger
 from ..solvers.discretization import build_discretization
-from ..solvers.fss import FixedStressSolver, State, StepStats
+from ..solvers.fss import (FixedStressSolver, State, StepStats,
+                           numbered_steps)
 from ..solvers.structured import build_grid_discretization
+from ..utils.checkpoint import load_checkpoint, refuse_orbax, save_checkpoint
 from ..utils.vtk_io import displacement_at_pressure_nodes, write_vtk
+from .scaling import Scales, nondimensionalize, scale_mesh
 
 
 def _check_supported(data: InputData) -> None:
-    """Deck features the port does not run yet, with their ROADMAP item."""
+    """Deck features the port does not run yet, with their ROADMAP item;
+    ``Checkpoint format = orbax``, which it does not take on."""
+    if data.checkpoint_format == "orbax":
+        refuse_orbax("'Checkpoint format = orbax'")
     unsupported = [
         (data.amr and data.sharding != "none",
          f"AMR with 'Sharding = {data.sharding}' (ROADMAP item 9.3, A13: "
@@ -52,12 +64,6 @@ def _check_supported(data: InputData) -> None:
         (data.sharding == "production" and data.dim != 3,
          "'Sharding = production' on a 2D deck (the y-slab parity form, "
          "ROADMAP item 9.2, A13)"),
-        (data.checkpoint_every > 0,
-         "checkpoints (ROADMAP item 3, A8: an adaptive run's checkpoint "
-         "also carries its forest)"),
-        (data.debug_nans, "'Debug NaNs = true' (ROADMAP Queue C)"),
-        (data.nondimensionalize,
-         "nondimensionalisation (ROADMAP item 3, A8, runner options)"),
     ]
     for bad, what in unsupported:
         if bad:
@@ -92,23 +98,46 @@ def _apply_sharding(disc, data: InputData, group: SlabGroup):
     return shard_production_discretization(disc, group)
 
 
+def write_state_vtk(path: str, disc, solver, state: State,
+                    scales: Optional[Scales] = None) -> None:
+    """The VTK file of ``state`` (``state.u`` materialised) on ``disc``'s
+    pressure nodes; with ``scales`` (a nondimensional run) p, u, the
+    stresses and the node coordinates back in SI units."""
+    sp, su = disc.pressure_space, disc.displacement_space
+    u_p = displacement_at_pressure_nodes(sp, su, state.u.cpu().numpy())
+    stresses = solver.effective_stresses(state.strains).cpu().numpy()
+    p = state.p.cpu().numpy()
+    if scales is not None:
+        u_p, stresses, p = scales.u(u_p), scales.stresses(stresses), \
+            scales.p(p)
+        sp = dataclasses.replace(sp, node_coords=scales.u(sp.node_coords))
+    write_vtk(path, sp, u_p, p, state.strains.cpu().numpy(), stresses)
+
+
 class SimulationRunner:
     def __init__(self, data: InputData, device="cuda",
-                 logger: Optional[RunLogger] = None):
+                 logger: Optional[RunLogger] = None,
+                 scales: Optional[Scales] = None):
+        """``scales``: a :class:`.scaling.Scales` when ``data`` is the
+        nondimensionalized deck: a gmsh mesh is divided by its length
+        scale, and the VTK output is rescaled back to SI (run logs and
+        checkpoints stay in solver units)."""
         _check_supported(data)
         if data.amr:
             raise ValueError("an adaptive deck (AMR = true) runs through "
                              "run_from_data or amr.driver."
                              "AMRSimulationRunner")
-        self.data = data
+        self.data, self.scales = data, scales
         self.group, self._own_group = None, False
         if data.sharding == "production":
             self.group, self._own_group = _slab_group(data, device)
             device = self.group.device
         self.is_root = self.group is None or self.group.rank == 0
         if data.mesh_file:
-            self.disc = build_discretization(
-                read_msh(data.mesh_file, dim=data.dim), data, device=device)
+            mesh = read_msh(data.mesh_file, dim=data.dim)
+            if scales is not None:          # the same L as the deck rescale
+                mesh = scale_mesh(mesh, scales)
+            self.disc = build_discretization(mesh, data, device=device)
         else:
             self.disc = build_grid_discretization(data, device=device)
         if self.group is not None:
@@ -123,29 +152,34 @@ class SimulationRunner:
     def output(self, state: State, step: int):
         if not (self.data.output_vtk and self.is_root):
             return
-        sp, su = self.disc.pressure_space, self.disc.displacement_space
-        u_p = displacement_at_pressure_nodes(sp, su, state.u.cpu().numpy())
-        strains = state.strains.cpu().numpy()
-        stresses = self.solver.effective_stresses(state.strains).cpu().numpy()
-        path = os.path.join(self.data.output_directory,
-                            f"solution-{step:04d}.vtk")
-        write_vtk(path, sp, u_p, state.p.cpu().numpy(), strains, stresses)
+        write_state_vtk(os.path.join(self.data.output_directory,
+                                     f"solution-{step:04d}.vtk"),
+                        self.disc, self.solver, state, self.scales)
 
     def _needed(self, step: int) -> bool:
         """Whether a host consumer reads step ``step``'s whole state: the
-        VTK output (checkpoints are not ported)."""
-        return self.data.output_vtk
+        VTK output or a checkpoint."""
+        every = self.data.checkpoint_every
+        return bool(self.data.output_vtk or (every and step % every == 0))
 
-    def run(self) -> State:
+    def run(self, resume_from: Optional[str] = None) -> State:
         """The JAX runner's time loop (``models/runner.py:186-287``): blocks
         of ``min(Steps per dispatch, steps left)`` steps, each ended early
         at a step whose state a host consumer reads; the buffered steps
-        are logged, written and checked at each sync point, every ``Sync
-        every`` steps (and after a block that ends at a read step).  Every
-        rank of a sharded run flushes at the same steps."""
+        are logged, written, checkpointed and checked at each sync point,
+        every ``Sync every`` steps (and after a block that ends at a read
+        step).  Every rank of a sharded run flushes at the same steps.
+
+        ``resume_from``: an ``.npz`` checkpoint (of either package) whose
+        state, time and step the run continues from, on the solver's
+        dtype and device; no step-0 VTK is written then."""
         data = self.data
-        state, t, step = self.solver.initial_state(), 0.0, 0
-        self.output(state, 0)
+        if resume_from:
+            state, t, step = load_checkpoint(resume_from, self.disc.dtype,
+                                             self.disc.device)
+        else:
+            state, t, step = self.solver.initial_state(), 0.0, 0
+            self.output(state, 0)
         dt = data.time_step
         sync_every = max(1, data.sync_every)
         per_dispatch = max(1, data.steps_per_dispatch)
@@ -156,6 +190,11 @@ class SimulationRunner:
                 self.logger.log_step(s, ts, stats, wall)
                 if st is not None:
                     self.output(st, s)
+                every = data.checkpoint_every
+                if every and s % every == 0 and self.is_root:
+                    save_checkpoint(os.path.join(data.checkpoint_directory,
+                                                 f"ckpt-{s:06d}.npz"),
+                                    st, ts, s)
                 if not np.isfinite(float(stats.pressure_error)):
                     raise FloatingPointError(f"FSS residual diverged at "
                                              f"step {s}")
@@ -179,17 +218,18 @@ class SimulationRunner:
                     break
             needed = self._needed(step + B)
             t0 = time.perf_counter()
-            if B == 1:
-                state, stats = self.solver.time_step(state, dt,
-                                                     want_u=needed)
-                block = [stats]
-            else:
-                state, stacked = self.solver.multi_step(state, dt,
-                                                        n_steps=B,
-                                                        want_u=needed)
-                block = [StepStats(**{f.name: getattr(stacked, f.name)[i]
-                                      for f in dataclasses.fields(stacked)})
-                         for i in range(B)]
+            with numbered_steps(step + 1):
+                if B == 1:
+                    state, stats = self.solver.time_step(state, dt,
+                                                         want_u=needed)
+                    block = [stats]
+                else:
+                    state, stacked = self.solver.multi_step(
+                        state, dt, n_steps=B, want_u=needed)
+                    block = [StepStats(**{
+                        f.name: getattr(stacked, f.name)[i]
+                        for f in dataclasses.fields(stacked)})
+                        for i in range(B)]
             if sync_every == 1 and B == 1 and \
                     self.disc.device.type == "cuda":
                 torch.cuda.synchronize(self.disc.device)
@@ -210,21 +250,36 @@ class SimulationRunner:
         return state
 
 
-def run_from_data(data: InputData, device="cuda") -> State:
+def run_from_data(data: InputData, resume_from: Optional[str] = None,
+                  device="cuda") -> State:
     """Full simulation from a parsed deck, on the card unless ``device``
-    says ``"cpu"``: an adaptive deck through
+    says ``"cpu"``, from the ``.npz`` checkpoint ``resume_from`` when
+    given: ``Nondimensionalize = true`` rescales the deck first
+    (:func:`.scaling.nondimensionalize`) and hands the runner its scales;
+    then an adaptive deck runs through
     :class:`..amr.driver.AMRSimulationRunner` (its run log
     ``run_log.jsonl`` in the output directory), any other through
     :class:`SimulationRunner`.  Under ``torchrun`` (or in an initialised
     process group) a ``Sharding = production`` deck runs sharded, one
     rank per device (``cuda:{LOCAL_RANK}`` on CUDA); every rank returns
     the whole state."""
+    scales = None
+    if data.nondimensionalize:
+        data, scales = nondimensionalize(data)
     if data.amr:
         from ..amr.driver import AMRSimulationRunner
-        _check_supported(data)
         runner = AMRSimulationRunner(
             data, device=device, logger=RunLogger(
-                os.path.join(data.output_directory, "run_log.jsonl")))
-        state, _ = runner.run()
+                os.path.join(data.output_directory, "run_log.jsonl")),
+            scales=scales)
+        state, _ = runner.run(resume_from=resume_from)
         return state
-    return SimulationRunner(data, device=device).run()
+    return SimulationRunner(data, device=device, scales=scales).run(
+        resume_from=resume_from)
+
+
+def run_from_deck(path: str, resume_from: Optional[str] = None,
+                  device="cuda") -> State:
+    """Deck file -> full simulation (:func:`run_from_data`)."""
+    return run_from_data(read_input_file(path), resume_from=resume_from,
+                         device=device)

@@ -58,6 +58,7 @@ Semantics kept from the reference (deliberate quirks):
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Union
 
@@ -95,6 +96,11 @@ from .structured import GridDiscretization, _single_cell_spaces
 CHUNK = {"mechanics": 8, "pressure": 2, "projection": 8, "bc_response": 16,
          "mechanics_gmg": 1}
 
+# ``TPU / Debug NaNs``: the solves whose results a step records, by code
+# (StepStats.nan_site; 0: every result finite)
+NAN_SITES = (None, "pressure residual", "pressure CG", "mechanics solve",
+             "bc-response solve", "projection CG")
+
 
 @dataclasses.dataclass
 class StepStats:
@@ -112,6 +118,9 @@ class StepStats:
     cg_stalled: bool = False          # True if a mechanics solve that did
     #                                   not converge ended on Richardson's
     #                                   stagnation exit, not the cap
+    nan_site: int = 0                 # Debug NaNs: the first solve of the
+    #                                   step whose result was not finite
+    #                                   (a NAN_SITES code; 0 none or off)
 
 
 @dataclasses.dataclass
@@ -137,20 +146,47 @@ def _as_dtype(x: float, dtype: torch.dtype) -> float:
 
 
 def _read_stats(steps: list) -> list:
-    """Host :class:`StepStats` of steps whose CG counts and converged flag
-    are device tensors: one device-to-host read for all of them."""
+    """Host :class:`StepStats` of steps whose CG counts, flags and (with
+    ``Debug NaNs``) finiteness record are device tensors: one
+    device-to-host read for all of them.  A step that recorded a
+    non-finite result raises ``FloatingPointError`` naming the solve and
+    the step's place in the call (``step_in_call``, from 0)."""
     if not steps:
         return []
+    debug = isinstance(steps[0].nan_site, torch.Tensor)
     dev = torch.stack([torch.stack([
         s.pressure_cg_iterations, s.mech_cg_iterations,
         s.projection_cg_iterations, s.cg_converged.long(),
-        s.cg_stalled.long()])
+        s.cg_stalled.long()] + ([s.nan_site.long()] if debug else []))
         for s in steps]).tolist()
+    for i, row in enumerate(dev):
+        if debug and row[5]:
+            err = FloatingPointError(
+                f"Debug NaNs: the {NAN_SITES[row[5]]} gave a non-finite "
+                "result" + (f" in step {i + 1} of this {len(steps)}-step "
+                            "call" if len(steps) > 1 else ""))
+            err.step_in_call = i
+            raise err
     return [dataclasses.replace(
-        s, pressure_cg_iterations=cp, mech_cg_iterations=cu,
-        projection_cg_iterations=cr, cg_converged=bool(ok),
-        cg_stalled=bool(st))
-        for s, (cp, cu, cr, ok, st) in zip(steps, dev)]
+        s, pressure_cg_iterations=row[0], mech_cg_iterations=row[1],
+        projection_cg_iterations=row[2], cg_converged=bool(row[3]),
+        cg_stalled=bool(row[4]), nan_site=0)
+        for s, row in zip(steps, dev)]
+
+
+@contextlib.contextmanager
+def numbered_steps(first: int):
+    """Around a :meth:`FixedStressSolver.time_step` or ``multi_step`` call
+    whose first step is step ``first`` of a run: a Debug NaNs
+    ``FloatingPointError`` is raised again with the step's number in the
+    run."""
+    try:
+        yield
+    except FloatingPointError as e:
+        if not hasattr(e, "step_in_call"):
+            raise
+        raise FloatingPointError(
+            f"step {first + e.step_in_call}: {e}") from e
 
 
 class FixedStressSolver:
@@ -163,6 +199,13 @@ class FixedStressSolver:
 
     def __init__(self, disc: Union[GridDiscretization, Discretization],
                  data: InputData, cuda_graphs: bool = True):
+        """``data.debug_nans`` (``TPU / Debug NaNs``): each step records on
+        the device the first of its solves whose result is not finite (the
+        pressure residual, the pressure CG, the mechanics solve, the
+        bc-response solve, the projection CG), and :meth:`time_step` /
+        :meth:`multi_step` raise ``FloatingPointError`` naming it when they
+        read the step's counts: no extra host read, and nothing added to
+        the captured chunks.  Off, the step computes nothing extra."""
         if data.mixed_precision_refinement == "on":
             raise NotImplementedError(
                 "mixed-precision refinement is ROADMAP A11 (the H100 runs "
@@ -211,6 +254,19 @@ class FixedStressSolver:
 
     def _cast(self, x: float) -> float:
         return _as_dtype(x, self.disc.dtype)
+
+    def _note_nan(self, flag, site: str, x, mechanics: bool = False):
+        """Debug NaNs: the step's record ``flag`` (an int32 device scalar,
+        0 while every checked result was finite) set to ``site``'s code if
+        it is still 0 and ``x`` is not finite; None, with nothing computed,
+        when the option is off.  A mechanics vector is checked across the
+        slab group, so every rank records the same code."""
+        if flag is None:
+            return None
+        finite = torch.isfinite(x)
+        ok = self._reduce.all_equal(finite, True) if mechanics \
+            else finite.all()
+        return flag.masked_fill((flag == 0) & ~ok, NAN_SITES.index(site))
 
     def _cg(self, site, *args, graph_key=(), batched=False, **kw):
         """``cg_solve`` (or ``cg_solve_batched``) at call site ``site``: its
@@ -484,24 +540,29 @@ class FixedStressSolver:
             for f in dataclasses.fields(StepStats)})
 
     def _step(self, state: State, dt, bc_scale, bc_scale_prev, want_u):
-        """:meth:`time_step` with the stats' CG counts and converged flag
-        left on the device."""
+        """:meth:`time_step` with the stats' CG counts, flags and
+        finiteness record left on the device."""
         ds = 0.0 if bc_scale_prev is None else bc_scale - bc_scale_prev
+        nan = torch.zeros((), dtype=torch.int32, device=self.disc.device) \
+            if self.data.debug_nans else None
+        response = self._bc_response() if ds != 0.0 else None
+        if response is not None:
+            nan = self._note_nan(nan, "bc-response solve", response,
+                                 mechanics=True)
         if self._rows:
             if state.u_rows is None:
                 state = dataclasses.replace(
                     state, u_rows=self.disc.row_ops.to_rows(state.u))
             state = dataclasses.replace(state, u=None)
-            if ds != 0.0:
+            if response is not None:
                 state = dataclasses.replace(
-                    state, u_rows=state.u_rows + ds * self._bc_response())
+                    state, u_rows=state.u_rows + ds * response)
         else:
             state = dataclasses.replace(state, u_rows=None)
-            if ds != 0.0:
-                state = dataclasses.replace(
-                    state, u=state.u + ds * self._bc_response())
+            if response is not None:
+                state = dataclasses.replace(state, u=state.u + ds * response)
         return self._time_step_impl(state, dt, bc_scale,
-                                    want_u or not self._rows)
+                                    want_u or not self._rows, nan)
 
     def materialize_u(self, state: State) -> State:
         """Fill ``state.u`` from the row layout after a want_u=False step."""
@@ -510,7 +571,7 @@ class FixedStressSolver:
         return dataclasses.replace(
             state, u=self.disc.row_ops.from_rows(state.u_rows))
 
-    def _time_step_impl(self, state: State, dt, bc_scale, want_u):
+    def _time_step_impl(self, state: State, dt, bc_scale, want_u, nan):
         d, data = self.disc, self.data
         dim = d.dim
         vol, shear = VOLUMETRIC_ENTRIES[dim], SHEAR_ENTRIES[dim]
@@ -537,8 +598,10 @@ class FixedStressSolver:
             """Stationary iteration on the fixed-stress-stabilised flow
             system; the predictor moves eps_v before each residual.  One
             host read of the residual norm per iteration."""
+            nonlocal nan
             delta_p = torch.zeros_like(p)     # reset per FSS iteration
             r = self._pressure_residual(p, p_old, eps_v, eps_v0, dt)
+            nan = self._note_nan(nan, "pressure residual", r)
             err = torch.linalg.norm(r).item()
             k = 0
             while k < data.max_pressure_iterations and err > pressure_tol:
@@ -548,10 +611,12 @@ class FixedStressSolver:
                                tol=ptol, max_iter=data.cg_max_iterations,
                                precond=p_precond, graph_key=(dt,))
                 delta_p = self._hcp.distribute(res.x)
+                nan = self._note_nan(nan, "pressure CG", delta_p)
                 p = p + delta_p
                 eps_v = eps_v + (data.biot_coef / data.bulk_modulus) \
                     * delta_p
                 r = self._pressure_residual(p, p_old, eps_v, eps_v0, dt)
+                nan = self._note_nan(nan, "pressure residual", r)
                 err = torch.linalg.norm(r).item()
                 k += 1
                 cg_p = cg_p + res.iterations
@@ -580,12 +645,15 @@ class FixedStressSolver:
                                                             cg_ok)
             u, it_u, ok_u, st_u, mech_b = self._mechanics_solve(
                 p, u, bc_scale, b_prev=mech_b)
+            nan = self._note_nan(nan, "mechanics solve", u, mechanics=True)
             proj_rhs = self._projection_rhs(u)
             vol_strains, it_pr, ok_pr = self._project(vol, vol_strains,
                                                       proj_rhs)
+            nan = self._note_nan(nan, "projection CG", vol_strains)
             if resync:
                 eps_v = vol_strains.sum(0)
             r = self._pressure_residual(p, p_old, eps_v, eps_v0, dt)
+            nan = self._note_nan(nan, "pressure residual", r)
             err = torch.linalg.norm(r).item()
             err_hist[it] = err
             it += 1
@@ -600,6 +668,7 @@ class FixedStressSolver:
             # the final FSS iteration's projection RHS: the same u
             shear_strains, it_sh, ok_sh = self._project(
                 shear, state.strains[shear], proj_rhs)
+            nan = self._note_nan(nan, "projection CG", shear_strains)
             strains[shear] = shear_strains
             cg_proj = cg_proj + it_sh
             cg_ok = cg_ok & ok_sh
@@ -615,7 +684,7 @@ class FixedStressSolver:
             pressure_iterations=press_total, pressure_cg_iterations=cg_p,
             mech_cg_iterations=cg_u, projection_cg_iterations=cg_proj,
             fss_error_history=err_hist, cg_converged=cg_ok,
-            cg_stalled=cg_stall)
+            cg_stalled=cg_stall, nan_site=0 if nan is None else nan)
         return new_state, stats
 
     # ---------------- nodal effective stresses ------------------------------

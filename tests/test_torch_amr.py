@@ -24,8 +24,7 @@ float64 on the CPU:
   unpadded one; ``Steps per dispatch = 3`` against the per-step run, bit
   for bit;
 * the entry points: the CLI on an adaptive deck, and AMR decks with
-  ``Sharding = psum``, checkpoints or nondimensionalisation refused with
-  their ROADMAP item.
+  ``Sharding = psum`` refused with their ROADMAP item.
 """
 
 import dataclasses
@@ -644,9 +643,7 @@ def test_cli_runs_an_adaptive_deck(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("sharding", "psum", "ROADMAP item 9.3"),
-    ("checkpoint_every", 2, "ROADMAP item 3"),
-    ("nondimensionalize", True, "ROADMAP item 3")])
+    ("sharding", "psum", "ROADMAP item 9.3")])
 def test_adaptive_decks_refuse_unported_options(field, value, item):
     data = dataclasses.replace(read_input_file(ADAPTIVE), output_vtk=False,
                                **{field: value})

@@ -93,9 +93,7 @@ def test_runner_writes_vtk_and_run_log(tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [("amr", True),
-                                         ("sharding", "psum"),
-                                         ("checkpoint_every", 2),
-                                         ("nondimensionalize", True)])
+                                         ("sharding", "psum")])
 def test_runner_rejects_unported_features(field, value):
     # AMR itself runs (tests/test_torch_amr.py); AMR with psum does not
     extra = {"sharding": "psum"} if field == "amr" else {}

@@ -5,8 +5,9 @@ conv), one 2D step on the parity kit with the elasticity GMG and on
 flat vectors, one step of the generic path on ``configs/irregular_3d.msh``
 (the gmsh reader, ``build_discretization``), an adaptive run with one
 remesh on the 2D quadtree (Kelly, marking, refining, the constraint
-builders, the transfer, a step on the hanging mesh) and the CLI
-``check``, and
+builders, the transfer, a step on the hanging mesh), a checkpointed run
+with Debug NaNs resumed from its checkpoint, a nondimensional run and the
+CLI ``check``, and
 finds no module of ``jax``, ``jaxlib`` or
 ``poroelasticity_dealii_tpu`` loaded (the port keeps its own copies of the
 host modules it needs; ``tests/test_torch_vendored.py`` holds them equal to
@@ -21,6 +22,7 @@ REPO = Path(__file__).resolve().parent.parent
 
 _CODE = """
 import importlib, pkgutil, sys
+import torch
 import poroelasticity_dealii_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     if not m.name.endswith("__main__"):
@@ -64,6 +66,21 @@ r = AMRSimulationRunner(amr, device="cpu")
 state, hist = r.run()
 assert [h["n_cells"] for h in hist][0] == 16 and hist[1]["n_cells"] > 16
 assert not r.disc.hc_p.empty and hist[1]["cg_converged"], hist
+import tempfile
+from poroelasticity_dealii_torch.models.runner import SimulationRunner, \
+    run_from_data
+with tempfile.TemporaryDirectory() as tmp:
+    ck = dataclasses.replace(data2, initial_refinement_level=2,
+                             t_max=2 * data2.time_step, output_vtk=False,
+                             checkpoint_every=1, checkpoint_directory=tmp,
+                             output_directory=tmp, debug_nans=True)
+    full = SimulationRunner(ck, device="cpu").run()
+    res = SimulationRunner(ck, device="cpu").run(
+        resume_from=tmp + "/ckpt-000001.npz")
+    assert torch.equal(full.p, res.p)
+    nd = run_from_data(dataclasses.replace(ck, nondimensionalize=True,
+                                           checkpoint_every=0), device="cpu")
+    assert torch.allclose(nd.p * data2.youngs_modulus, full.p, rtol=1e-8)
 assert main(["check", "configs/consolidation_3d.data"]) == 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib",

@@ -512,6 +512,47 @@ def test_runner_blocks_and_deferred_syncs_on_two_ranks(tmp_path):
     assert torch.equal(outs[0]["u"], outs[1]["u"])
 
 
+CKPT = {"checkpoint_every": 1, "output_vtk": False}
+
+
+def _runner_ckpt_worker(rank, world, out_root, resume_from):
+    """The production deck with a checkpoint every step, each rank with its
+    own output and checkpoint directories (only rank 0's may receive
+    files), from the start or resumed from ``resume_from``."""
+    data = _runner_data(f"{out_root}/rank{rank}", "production",
+                        checkpoint_directory=f"{out_root}/rank{rank}/ckpt",
+                        **CKPT)
+    state = run_from_data(data, resume_from=resume_from, device="cpu")
+    return {"p": state.p, "u": state.u, "strains": state.strains}
+
+
+def test_runner_checkpoints_and_resumes_on_two_ranks(tmp_path):
+    """A checkpointed production run on two ranks: rank 0 alone writes the
+    whole state (the unsharded run's within 1e-9), and both ranks resumed
+    from its step-1 file give the uninterrupted run's state bit for
+    bit."""
+    full = _spawn(_runner_ckpt_worker, 2, tmp_path / "spawn_full",
+                  str(tmp_path / "full"), None)
+    ckpt = tmp_path / "full" / "rank0" / "ckpt"
+    assert sorted(p.name for p in ckpt.iterdir()) == \
+        ["ckpt-000001.npz", "ckpt-000002.npz"]
+    assert not (tmp_path / "full" / "rank1").exists()
+    ref = SimulationRunner(_runner_data(tmp_path / "unsharded", "none",
+                                        output_vtk=False), device="cpu")
+    ref_state = ref.run()
+    with np.load(ckpt / "ckpt-000002.npz") as z:
+        assert z["u"].shape == tuple(ref_state.u.shape)
+        assert _rel(z["u"], ref_state.u) <= 1e-8
+        np.testing.assert_allclose(z["p"], ref_state.p, rtol=1e-9)
+    res = _spawn(_runner_ckpt_worker, 2, tmp_path / "spawn_res",
+                 str(tmp_path / "res"), str(ckpt / "ckpt-000001.npz"))
+    for a, b in zip(full, res):
+        for k in ("p", "u", "strains"):
+            assert torch.equal(a[k], b[k]), k
+    log = _run_log(tmp_path / "res" / "rank0" / "run_log.jsonl")
+    assert [r["step"] for r in log] == [2]
+
+
 def test_runner_warns_and_runs_unsharded_on_one_process(tmp_path):
     data = dataclasses.replace(_runner_data(tmp_path, "production"),
                                initial_refinement_level=1,
@@ -544,7 +585,8 @@ def test_runner_refuses_devices_other_than_world_size(tmp_path):
                          device="cpu")
 
 
-@pytest.mark.parametrize("option,item", [({"debug_nans": True}, "Queue C")])
+@pytest.mark.parametrize("option,item", [({"checkpoint_format": "orbax"},
+                                          "no orbax dependency")])
 def test_runner_refuses_unported_options(option, item, tmp_path):
     with pytest.raises(NotImplementedError, match=item):
         SimulationRunner(_runner_data(tmp_path, "none", **option),

@@ -2,10 +2,11 @@
 (``config``, ``mesh/`` with the gmsh reader ``mesh/gmsh_io.py``,
 ``ops/shape.py``, ``ops/quadrature.py``, ``utils/logging_utils.py``,
 ``utils/native.py``, ``models/terzaghi.py``, ``models/mandel.py``,
-``models/cryer.py``, the AMR forests, Kelly indicator and transfer
-``amr/{forest,octforest,kelly,transfer,multiroot,multiroot3d}.py``, and
-the four hanging-node builders of ``amr/constraints.py``) and imports
-nothing of the JAX package.
+``models/cryer.py``, ``models/scaling.py``, the AMR forests, Kelly
+indicator and transfer
+``amr/{forest,octforest,kelly,transfer,multiroot,multiroot3d}.py``, the
+four hanging-node builders of ``amr/constraints.py``, and the scipy
+oracle ``validation.py``) and imports nothing of the JAX package.
 
 * No import line of the port or ``chip_smoke.py`` names the JAX package
   (``tests/test_torch_nojax.py`` checks in a fresh interpreter that none
@@ -149,7 +150,8 @@ MODELS = ("terzaghi", "mandel", "cryer")
 # host modules copied with no change but their relative imports
 HOST_COPIES = ("mesh/gmsh_io.py", "utils/native.py", "amr/forest.py",
                "amr/octforest.py", "amr/kelly.py", "amr/transfer.py",
-               "amr/multiroot.py", "amr/multiroot3d.py")
+               "amr/multiroot.py", "amr/multiroot3d.py", "models/scaling.py",
+               "validation.py")
 # the numpy functions of amr/constraints.py, copied as they are (the
 # tables' class, its empty instance and _pack_rows's return are the port's)
 CONSTRAINT_BUILDERS = (
