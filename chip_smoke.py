@@ -31,6 +31,20 @@ just before and read just after:
 * the conv backend: fixed-stress steps at 40^3 float32 on flat vectors,
   its elasticity apply the flat kernel, step 1 compared with a conv run on
   the plain stencil and with the rows path;
+* the structured path's solver options (``structured_options_phase``):
+  (a) the JAX package's configuration off a TPU, the 40^3 conv backend
+  with ``multigrid="auto"`` (4 levels, every level apply above the dense
+  coarse inverse the flat kernel: 24 launches a V-cycle, the V-cycle held
+  against the same hierarchy on the plain stencil), GMG-Richardson
+  mechanics ending converged or on the stagnation exit, never at the cap,
+  2 evolving + 1 steady captured steps equal to eager bit for bit, step 1
+  against the rows and the conv Jacobi-CG runs, a profiled evolving and
+  steady step beside the rows path's ms, and a conv deck through
+  ``SimulationRunner``; (b) 40^3 float64 ``Mixed precision refinement``
+  on against native f64 GMG-CG; (c) node-block Jacobi against Jacobi on
+  rows; (d) the 80 x 40 x 20 anisotropic grid (1,673,784 DOF, plain
+  stencils), captured against eager and profiled, its elasticity apply
+  beside its bound; (e) a Q2/Q2 step at 16^3;
 * the 2D path at ``bench.py::build_2d``'s 512^2 float32 point: the
   parity kit with the parity-resident elasticity GMG (asserted selected),
   GMG-Richardson mechanics, 2 evolving + 1 steady captured steps with
@@ -115,6 +129,7 @@ import torch
 import torch.distributed as dist
 
 from poroelasticity_dealii_torch.mesh import hyper_rectangle
+from poroelasticity_dealii_torch.models.runner import SimulationRunner
 from poroelasticity_dealii_torch.ops import _cuda
 from poroelasticity_dealii_torch.ops import cell_products as cp
 from poroelasticity_dealii_torch.ops import comp_major as cm
@@ -127,7 +142,7 @@ from poroelasticity_dealii_torch.solvers.discretization import \
 from poroelasticity_dealii_torch.solvers.fss import FixedStressSolver
 from poroelasticity_dealii_torch.solvers.structured import \
     build_grid_discretization
-from poroelasticity_dealii_torch.tools import apply_bench
+from poroelasticity_dealii_torch.tools import apply_bench, profile_step
 from poroelasticity_dealii_torch.tools.apply_bench import cuda_time_ms, \
     device_and_host_ms, nonzeros
 from poroelasticity_dealii_torch.tools.profile_step import BC_RATE, \
@@ -718,13 +733,13 @@ def flat_apply_phase(dev) -> dict:
     return rec
 
 
-def conv_phase(dev, rows_states) -> int:
+def conv_phase(dev, rows_states) -> tuple:
     """The conv backend (flat vectors; its elasticity apply is the flat
     kernel) at 40^3 float32: 2 evolving + 1 steady steps, the flat kernel
     launched at least once per mechanics CG iteration; step 1 against a
     conv run on the plain stencil (``kernels="plain"``: equal FSS and
     pressure counts) and against the rows path.  Returns the flat kernel's
-    launches in the steps."""
+    launches in the steps and the state after step 1."""
     data = bench_data()
     t0 = time.perf_counter()
     disc = build_grid_discretization(data, cells_per_axis=N_MAIN,
@@ -780,7 +795,7 @@ def conv_phase(dev, rows_states) -> int:
             if not err <= CROSS_TOL:
                 raise AssertionError(f"step 1 {name}: conv vs {ref_name} "
                                      f"rel err {err:.3e} > {CROSS_TOL}")
-    return launches["elasticity_grid_apply"]
+    return launches["elasticity_grid_apply"], states[0]
 
 
 def _run_log(path: Path) -> list:
@@ -1051,7 +1066,7 @@ class SolveLog:
         return out
 
 
-def check_solves_2d(k, solves, stats, data) -> dict:
+def check_solves_2d(k, solves, stats, data, tag="2D") -> dict:
     """Step ``k``'s solves: every pressure, projection and bc-response
     solve converged; every mechanics solve converged or stopped on
     Richardson's stagnation exit (the float32 attainable floor of the true
@@ -1062,14 +1077,14 @@ def check_solves_2d(k, solves, stats, data) -> dict:
     for site, it, ok, stalled, _ in solves:
         if site.startswith("mechanics"):
             if it >= cap or not (ok or stalled):
-                raise AssertionError(f"2D step {k}: mechanics solve "
+                raise AssertionError(f"{tag} step {k}: mechanics solve "
                                      f"{it} iterations, converged {ok}, "
                                      f"stalled {stalled}")
         elif not ok:
-            raise AssertionError(f"2D step {k}: a {site} solve did not "
+            raise AssertionError(f"{tag} step {k}: a {site} solve did not "
                                  "converge")
     if not stats.pressure_error <= float(np.float32(data.fss_tol)):
-        raise AssertionError(f"2D step {k}: FSS residual "
+        raise AssertionError(f"{tag} step {k}: FSS residual "
                              f"{stats.pressure_error} above its tolerance")
     return {"iterations": [x[1] for x in mech],
             "converged": [x[2] for x in mech],
@@ -1079,11 +1094,13 @@ def check_solves_2d(k, solves, stats, data) -> dict:
                              for x in mech]}
 
 
-def run_steps_2d(solver, log, n_evolving, n_steady):
+def run_steps_2d(solver, log, n_evolving, n_steady, tag="2d",
+                 launches=None):
     """:func:`run_steps` with every linear solve checked
     (:func:`check_solves_2d`), and the graph replays, the port's kernel
     launches and the mechanics solves of each step printed beside its
-    counts; ``log``: the solver's :class:`SolveLog`."""
+    counts; ``log``: the solver's :class:`SolveLog`; ``launches``: a dict
+    the steps' kernel launches are added into."""
     data = solver.data
     dt = data.time_step
     state = solver.initial_state()
@@ -1101,9 +1118,10 @@ def run_steps_2d(solver, log, n_evolving, n_steady):
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         bc_prev = bc
-        mech = check_solves_2d(k, log.take(), stats, data)
+        mech = check_solves_2d(k, log.take(), stats, data, tag)
         print(json.dumps({
-            "2d_step": k, "kind": "evolving" if k <= n_evolving else "steady",
+            f"{tag}_step": k,
+            "kind": "evolving" if k <= n_evolving else "steady",
             "loop": "captured" if solver.graphs else "eager", "ms": ms,
             "fss": stats.fss_iterations,
             "pressure": stats.pressure_iterations,
@@ -1115,9 +1133,14 @@ def run_steps_2d(solver, log, n_evolving, n_steady):
             "cg_stalled": stats.cg_stalled, "mechanics_solves": mech,
             "graph_replays": _graph_replays(solver) - replays0,
             "kernel_launches": launch_counts()}), flush=True)
+        if launches is not None:
+            for name, v in launch_counts().items():
+                launches[name] = launches.get(name, 0) + v
         if k <= n_evolving and stats.mech_cg_iterations <= 0:
-            raise AssertionError(f"2D evolving step {k}: no mechanics work")
-        check_state(state, solver.disc.n_pdofs, solver.disc.n_udofs, 3)
+            raise AssertionError(f"{tag} evolving step {k}: no mechanics "
+                                 "work")
+        check_state(state, solver.disc.n_pdofs, solver.disc.n_udofs,
+                    3 if solver.disc.dim == 2 else 6)
         states.append(state)
         stats_all.append(stats)
         ms_all.append(ms)
@@ -2086,6 +2109,363 @@ def runner_options_phase(dev) -> None:
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the structured path's solver options: 3D elasticity GMG (the JAX package's
+# configuration off a TPU), refinement, node-block Jacobi, anisotropic
+# grids, another degree pair
+# ---------------------------------------------------------------------------
+
+N_GMG_LEVELS = 4          # 40/20/10/5 cells; the coarsest 3 * 11^3 = 3,993
+#                           dofs, inverted densely on the host
+VCYCLE_APPLIES = 8        # operator applies per level visit: 3 + 3 smoother
+#                           applies (degree-3 Chebyshev) and 2 residuals
+VCYCLE_TOL = 1e-5         # K6 V-cycle vs the plain one, relative to max |z|
+#                           (f32 rounding through 4 levels)
+N_OPT_EVOLVING, N_OPT_STEADY = 2, 1
+REFINE_GAP_FACTOR = 10.0  # refined vs native f64: p and u gaps (relative to
+#                           max |field|) within 10x the mechanics tolerance
+ANISO_CELLS = (80, 40, 20)
+ANISO_DOMAIN = (20.0, 10.0, 5.0)
+ANISO_DOFS = 1_673_784    # 161*81*41*3 + 81*41*21
+DEGREE_PAIR = (2, 2)      # (pressure, displacement) degrees of phase (e)
+N_DEGREE = 16
+
+
+def _free_opts() -> None:
+    """Free what a finished option run left (SolveLog's cycles, graphs)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def profiled_steps(solver, state, bc_prev, tag) -> list:
+    """One more evolving step (the ramp's next scale) and one steady step
+    after a run, each under ``torch.profiler``: wall ms, device busy ms and
+    idle share, the flat kernel's device ms and its launches, the host's
+    launch calls and the kernels with the most device time."""
+    out = []
+    bc = bc_prev + BC_RATE
+    for kind, prev in (("evolving", bc_prev), ("steady", bc)):
+        cm.reset_launch_counts()
+        (state, stats, ms), dev = profile_step._profiled(
+            solver, lambda st=state, p=prev: profile_step._step(
+                solver, st, bc, p))
+        check_state(state, solver.disc.n_pdofs, solver.disc.n_udofs)
+        rec = {f"{tag}_profiled_step": kind, "wall_ms_profiled": ms,
+               "busy_ms": dev["busy_ms"],
+               "idle_share": 1.0 - dev["busy_ms"] / ms,
+               "counts": _counts(stats),
+               "elasticity_grid_apply": {
+                   "device_ms": dev["elasticity_grid_apply"]["ms"],
+                   "calls": eg.elasticity_grid_apply.launches},
+               "runtime_calls": dev["runtime_calls"],
+               "graphs": dev["graphs"],
+               "top_kernels": dict(list(dev["kernels"].items())[:8])}
+        print(json.dumps(rec), flush=True)
+        out.append(rec)
+    return out
+
+
+def gmg_config_phase(dev, rows_step1, conv_step1, rows_ms) -> None:
+    """(a) The JAX package's configuration of the 40^3 bench deck off a
+    TPU: the conv kit with ``multigrid="auto"`` (4 levels), f32, every
+    mechanics solve GMG-Richardson, ending converged or on its stagnation
+    exit, never at the cap; 2 evolving + 1 steady captured steps, equal to
+    eager bit for bit; step 1 within :data:`CROSS_TOL` of the rows and the
+    conv Jacobi-CG runs; every level apply of a V-cycle on the flat
+    kernel, and the V-cycle within :data:`VCYCLE_TOL` of the plain
+    stencil's; the hierarchy's set-up, one V-cycle's device ms, a profiled
+    evolving and steady step beside the rows path's ms; and one conv deck
+    through ``SimulationRunner``."""
+    data = bench_data()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    disc = build_grid_discretization(data, cells_per_axis=N_MAIN,
+                                     multigrid="auto",
+                                     elasticity_backend="conv", device=dev)
+    solver = FixedStressSolver(disc, data)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    if disc.row_ops is not None or disc.gmg_levels != N_GMG_LEVELS:
+        raise AssertionError(f"40^3 conv 'auto': kit {disc.row_ops}, "
+                             f"{disc.gmg_levels} GMG levels")
+    rng = np.random.default_rng(40)
+    r = torch.as_tensor(rng.standard_normal(disc.n_udofs),
+                        dtype=torch.float32, device=dev) * disc.free_mask_u
+    cm.reset_launch_counts()
+    z = disc.gmg_precond(r)
+    torch.cuda.synchronize()
+    per_vcycle = eg.elasticity_grid_apply.launches
+    if per_vcycle != VCYCLE_APPLIES * (N_GMG_LEVELS - 1) or not bool(
+            torch.isfinite(z).all()):
+        raise AssertionError(f"one V-cycle launched the flat kernel "
+                             f"{per_vcycle} times (want "
+                             f"{VCYCLE_APPLIES * (N_GMG_LEVELS - 1)})")
+    # the same hierarchy on the plain stencil: the V-cycle's every level
+    # (K6 at n = 40, 20 and 10) against its plain twin on the same r
+    plain = build_grid_discretization(data, cells_per_axis=N_MAIN,
+                                      multigrid="auto",
+                                      elasticity_backend="conv", device=dev,
+                                      kernels="plain")
+    cm.reset_launch_counts()
+    z_plain = plain.gmg_precond(r)
+    torch.cuda.synchronize()
+    if eg.elasticity_grid_apply.launches:
+        raise AssertionError("the plain hierarchy launched the flat kernel")
+    vcycle_err = _rel_err(z, z_plain)
+    if not vcycle_err <= VCYCLE_TOL:
+        raise AssertionError(f"V-cycle on K6 vs the plain stencil: rel err "
+                             f"{vcycle_err:.3e} > {VCYCLE_TOL}")
+    del plain, z_plain
+    vcycle_ms, vcycle_host_ms = device_and_host_ms(
+        lambda: disc.gmg_precond(r), reps=5, calls=4)
+    log = SolveLog(solver)
+    launches = {}
+    cm.reset_launch_counts()
+    run = run_steps_2d(solver, log, N_OPT_EVOLVING, N_OPT_STEADY,
+                       tag="gmg", launches=launches)
+    states, stats, ms = run
+    k6 = launches["elasticity_grid_apply"]
+    if k6 <= 0:
+        raise AssertionError("the GMG path never launched the flat kernel")
+    captured_vs_eager("gmg", solver, disc, data, captured_run=run)
+    errs = {}
+    for ref_name, ref in (("rows", rows_step1),
+                          ("conv_jacobi", conv_step1)):
+        for name in ("p", "u"):
+            err = _rel_err(getattr(states[0], name), getattr(ref, name))
+            errs[f"{name}_vs_{ref_name}"] = err
+            if not err <= CROSS_TOL:
+                raise AssertionError(f"GMG step 1 {name} vs {ref_name}: "
+                                     f"rel err {err:.3e} > {CROSS_TOL}")
+    prof = profiled_steps(solver, states[-1],
+                          1.0 + BC_RATE * N_OPT_EVOLVING, "gmg")
+    print(json.dumps({"gmg_config": {
+        "gpu": gpu_line(), "n": N_MAIN, "dofs": disc.n_pdofs + disc.n_udofs,
+        "levels": disc.gmg_levels, "setup_s": setup_s,
+        "gmg_setup_s": disc.gmg_setup_s, "vcycle_ms": vcycle_ms,
+        "vcycle_host_ms": vcycle_host_ms,
+        "flat_kernel_launches_per_vcycle": per_vcycle,
+        "vcycle_vs_plain_rel_err": vcycle_err, "vcycle_tol": VCYCLE_TOL,
+        "flat_kernel_launches_in_steps": k6,
+        "richardson_iterations_per_step": [x.mech_cg_iterations
+                                           for x in stats],
+        "ms_per_step": ms, "rows_ms_per_step": rows_ms,
+        "profiled": [{k: x[k] for k in ("wall_ms_profiled", "busy_ms",
+                                        "idle_share")} for x in prof],
+        "step1_rel_err": errs, "tol": CROSS_TOL}}), flush=True)
+    del solver, disc, log, run, states
+    _free_opts()
+    # the runner builds the hierarchy from a conv deck
+    tmp = Path(tempfile.mkdtemp(prefix="gmg_runner_"))
+    try:
+        rdata = dataclasses.replace(
+            data, elasticity_backend="conv", cells_per_axis=(N_MAIN,) * 3,
+            t_max=data.time_step, output_vtk=False,
+            output_directory=str(tmp))
+        runner = SimulationRunner(rdata, device=dev)
+        if runner.disc.gmg_levels != N_GMG_LEVELS:
+            raise AssertionError(f"SimulationRunner on the conv deck built "
+                                 f"{runner.disc.gmg_levels} GMG levels")
+        state = runner.run()
+        check_state(state, runner.disc.n_pdofs, runner.disc.n_udofs)
+        log_rec = _run_log(tmp / "run_log.jsonl")
+        print(json.dumps({"gmg_runner": {"levels": runner.disc.gmg_levels,
+                                         "run_log": log_rec}}), flush=True)
+        del runner, state
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _free_opts()
+
+
+def refinement_check(dev) -> None:
+    """(b) The 40^3 bench deck in float64 with ``Elasticity backend =
+    conv`` (multigrid 'auto'), ``Mixed precision refinement`` on against
+    off, 2 evolving steps each: off is native f64 GMG-CG (its V-cycle's
+    applies the flat kernel on DMMA), on is f64 Richardson over whole f32
+    solves of the conv twin (flat Jacobi-CG on the flat kernel, the
+    pressure's f32 GMG-CG, batched mass CG).  Every solve converges, and
+    the gaps in p and u after each step stay within
+    :data:`REFINE_GAP_FACTOR` times the mechanics tolerance."""
+    runs = {}
+    for mode in ("off", "on"):
+        data = dataclasses.replace(bench_data(), dtype="float64",
+                                   elasticity_backend="conv",
+                                   mixed_precision_refinement=mode)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        disc = build_grid_discretization(data, cells_per_axis=N_MAIN,
+                                         multigrid="auto", device=dev)
+        solver = FixedStressSolver(disc, data)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        if (solver._ir is not None) != (mode == "on") or \
+                disc.gmg_levels != N_GMG_LEVELS or (
+                    mode == "on" and solver._ir_disc32.row_ops is not None):
+            raise AssertionError(f"refinement {mode}: inner "
+                                 f"{solver._ir}, {disc.gmg_levels} levels")
+        cm.reset_launch_counts()
+        states, stats, ms = run_steps(solver, N_OPT_EVOLVING, 0, log=False)
+        check_steps(states, stats, disc, N_OPT_EVOLVING)
+        runs[mode] = {"states": states, "rec": {
+            "setup_s": setup_s, "ms": ms,
+            "counts": [_counts(x) for x in stats],
+            "pressure_error": [x.pressure_error for x in stats],
+            "launches": launch_counts()}}
+        del solver, disc
+        _free_opts()
+    limit = REFINE_GAP_FACTOR * bench_data().mech_cg_tol
+    gaps = [{name: _rel_err(getattr(on, name), getattr(off, name))
+             for name in ("p", "u")}
+            for on, off in zip(runs["on"]["states"], runs["off"]["states"])]
+    print(json.dumps({"refinement_40": {
+        "gpu": gpu_line(), "dtype": "float64",
+        "off": runs["off"]["rec"], "on": runs["on"]["rec"],
+        "gap": gaps, "limit": limit}}), flush=True)
+    for k, gap in enumerate(gaps, 1):
+        for name, g in gap.items():
+            if not g <= limit:
+                raise AssertionError(f"step {k}: refined vs native f64 "
+                                     f"{name} gap {g:.3e} > {limit:.1e}")
+
+
+def block_jacobi_check(dev) -> None:
+    """(c) The rows kit at 40^3 f32 with ``Mechanics preconditioner =
+    block`` against ``jacobi``: 2 evolving + 1 steady captured steps each,
+    every solve converged; counts, ms, the set-up (the block build) and
+    the gaps in p and u printed."""
+    runs = {}
+    for prec in ("jacobi", "block"):
+        data = dataclasses.replace(bench_data(), mech_precond=prec)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        disc = build_grid_discretization(data, cells_per_axis=N_MAIN,
+                                         multigrid="off", device=dev)
+        solver = FixedStressSolver(disc, data)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        if (solver._block is not None) != (prec == "block"):
+            raise AssertionError(f"{prec}: block preconditioner "
+                                 f"{solver._block}")
+        cm.reset_launch_counts()
+        states, stats, ms = run_steps(solver, N_OPT_EVOLVING, N_OPT_STEADY,
+                                      log=False)
+        check_steps(states, stats, disc, N_OPT_EVOLVING)
+        runs[prec] = {"states": states, "rec": {
+            "setup_s": setup_s, "ms": ms,
+            "counts": [_counts(x) for x in stats],
+            "launches": launch_counts()}}
+        del solver, disc
+        _free_opts()
+    gaps = {name: _rel_err(getattr(runs["block"]["states"][-1], name),
+                           getattr(runs["jacobi"]["states"][-1], name))
+            for name in ("p", "u")}
+    print(json.dumps({"block_jacobi_40": {
+        "gpu": gpu_line(), "jacobi": runs["jacobi"]["rec"],
+        "block": runs["block"]["rec"], "gap_last_step": gaps}}), flush=True)
+    for name, gap in gaps.items():
+        if not gap <= CROSS_TOL:
+            raise AssertionError(f"block vs Jacobi {name}: gap {gap:.3e}")
+
+
+def aniso_check(dev) -> None:
+    """(d) The 3D deck on a 20 x 10 x 5 box with 80 x 40 x 20 cells, f32,
+    the bench's tolerances: the conv kit on the plain stencil (the flat
+    kernel takes one n), flat Jacobi-CG mechanics and Jacobi pressure CG
+    (no GMG on unequal counts); 2 evolving + 1 steady captured steps with
+    every solve checked, equal to eager bit for bit, a profiled evolving and
+    steady step, and the elasticity apply's device ms beside its bound."""
+    data = dataclasses.replace(bench_data(), domain_size=ANISO_DOMAIN,
+                               cells_per_axis=ANISO_CELLS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    disc = build_grid_discretization(data, device=dev)
+    solver = FixedStressSolver(disc, data)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    if disc.n_pdofs + disc.n_udofs != ANISO_DOFS or disc.row_ops is not None \
+            or disc.gmg_precond is not None:
+        raise AssertionError(f"anisotropic build: {disc.n_pdofs} + "
+                             f"{disc.n_udofs} dofs, kit {disc.row_ops}")
+    log = SolveLog(solver)
+    cm.reset_launch_counts()
+    launches = {}
+    run = run_steps_2d(solver, log, N_OPT_EVOLVING, N_OPT_STEADY,
+                       tag="aniso", launches=launches)
+    captured_vs_eager("aniso", solver, disc, data, captured_run=run)
+    prof = profiled_steps(solver, run[0][-1],
+                          1.0 + BC_RATE * N_OPT_EVOLVING, "aniso")
+    u = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        disc.n_udofs), dtype=torch.float32, device=dev)
+    apply_ms, apply_host_ms = device_and_host_ms(
+        lambda: disc.stencil_elasticity(u))
+    cells = int(np.prod(ANISO_CELLS))
+    nbytes = 2 * disc.n_udofs * 4
+    flop = 2 * 81 * 81 * cells
+    t_bytes, t_flop = nbytes / PEAK_BYTES, flop / PEAK_FLOPS[torch.float32]
+    print(json.dumps({"aniso_3d": {
+        "gpu": gpu_line(), "cells": list(ANISO_CELLS),
+        "dofs": disc.n_pdofs + disc.n_udofs, "setup_s": setup_s,
+        "ms_per_step": run[2], "counts": [_counts(x) for x in run[1]],
+        "launches": launches,
+        "profiled": [{k: x[k] for k in ("wall_ms_profiled", "busy_ms",
+                                        "idle_share")} for x in prof],
+        "elasticity_apply": {"ms": apply_ms, "host_ms": apply_host_ms,
+                             "bytes": nbytes, "flop": flop,
+                             "bound_ms": max(t_bytes, t_flop) * 1e3,
+                             "bound_by": "bytes" if t_bytes >= t_flop
+                             else "operations"}}}), flush=True)
+    if launches.get("elasticity_grid_apply", 0):
+        raise AssertionError("the anisotropic grid launched the flat kernel")
+    del solver, disc, log, run
+    _free_opts()
+
+
+def degree_pair_check(dev) -> None:
+    """(e) One evolving step of the bench deck with Q2 pressure and Q2
+    displacement at 16^3 (the conv kit on plain stencils, the degree-2
+    pressure GMG): converged, finite."""
+    kp, ku = DEGREE_PAIR
+    data = bench_data()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    disc = build_grid_discretization(data, cells_per_axis=N_DEGREE,
+                                     pressure_degree=kp,
+                                     displacement_degree=ku, device=dev)
+    solver = FixedStressSolver(disc, data)
+    state = solver.initial_state()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    p_gmg = solver._pressure_precond(data.time_step) is not None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, stats = solver.time_step(state, data.time_step, 1.0 + BC_RATE,
+                                    bc_scale_prev=1.0)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    check_state(state, disc.n_pdofs, disc.n_udofs)
+    print(json.dumps({"degree_pair": {
+        "degrees": [kp, ku], "n": N_DEGREE,
+        "dofs": disc.n_pdofs + disc.n_udofs, "pressure_gmg": p_gmg,
+        "setup_s": setup_s, "ms": ms, "counts": _counts(stats),
+        "cg_converged": stats.cg_converged}}), flush=True)
+    if not stats.cg_converged or stats.mech_cg_iterations <= 0:
+        raise AssertionError(f"degree pair {DEGREE_PAIR}: {stats}")
+    del solver, disc
+    _free_opts()
+
+
+def structured_options_phase(dev, rows_step1, conv_step1, rows_ms) -> None:
+    """Phases (a)-(e) of the structured path's solver options, timed."""
+    t0 = time.perf_counter()
+    gmg_config_phase(dev, rows_step1, conv_step1, rows_ms)
+    refinement_check(dev)
+    block_jacobi_check(dev)
+    aniso_check(dev)
+    degree_pair_check(dev)
+    print(f"structured options phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 TENSOR_CORE_OP = re.compile(r"\b([DHIBQ]G?MMA)\b")
 
 
@@ -2212,8 +2592,11 @@ def main() -> int:
     slab_launches = sharded_path_phase(dev, states, stats, ms,
                                        (slab_rec["Lz"], slab_rec["nv"]))
     flat_apply_phase(dev)
-    launches["elasticity_grid_apply"] = conv_phase(dev, states)
-    del states
+    # the kernels line keeps the conv path's own K6 count; the GMG path's
+    # is in its "gmg_config" line
+    launches["elasticity_grid_apply"], conv_step1 = conv_phase(dev, states)
+    structured_options_phase(dev, states[0], conv_step1, ms)
+    del states, conv_step1
     phase_2d(dev)
     generic_phase(dev)
     amr_phase(dev)

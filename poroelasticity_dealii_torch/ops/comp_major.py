@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Callable
 
 import numpy as np
 import torch
@@ -45,6 +46,7 @@ from . import _cuda
 from .cell_products import N_VOIGT, PROJECTION_ROWS, rows_apply_plan, \
     sm_count
 from .elasticity import elasticity_grid_apply, make_grid_elasticity
+from .node_blocks import elasticity_node_blocks
 from .shape import node_lattice
 
 UNMASKED, FREE, CONSTRAINED = 0, 1, 2
@@ -85,6 +87,23 @@ def to_rows_np(v, n: int, fill: float = 0.0) -> np.ndarray:
     V = V.transpose(0, 1, 3, 5, 6, 2, 4)
     R = V.reshape((n + 1) * 24, (n + 1) * (n + 1))
     out = np.full(((n + 1) * 24, _width(n)), fill, dtype=np.float64)
+    out[:, :R.shape[1]] = R
+    return out
+
+
+def scalar_rows_np(v, n: int, fill: float = 0.0) -> np.ndarray:
+    """Nodal scalar grid ((2n+1)^3,) -> scalar row layout ((n+1)*8, W):
+    row = zh*8 + ((pz*2 + py)*2 + px), lane = yh*(n+1) + xh, the row
+    layout with its component factor dropped, so rows viewed as
+    ``(n+1, 8, 3, W)`` broadcast against it viewed as ``(n+1, 8, 1, W)``;
+    phantom nodes and padding lanes get ``fill``."""
+    g = 2 * n + 1
+    U = np.full((2 * n + 2,) * 3, fill, dtype=np.float64)
+    U[:g, :g, :g] = np.asarray(v, np.float64).reshape(g, g, g)
+    V = U.reshape(n + 1, 2, n + 1, 2, n + 1, 2)          # zh pz yh py xh px
+    V = V.transpose(0, 1, 3, 5, 2, 4)                    # zh pz py px yh xh
+    R = V.reshape((n + 1) * 8, (n + 1) * (n + 1))
+    out = np.full(((n + 1) * 8, _width(n)), fill, dtype=np.float64)
     out[:, :R.shape[1]] = R
     return out
 
@@ -332,6 +351,75 @@ def make_flat_apply(element_matrix: np.ndarray, n: int, dtype: torch.dtype,
 
 
 # ---------------------------------------------------------------------------
+# node-block (3x3) Jacobi in the row layout (plain torch, as the JAX
+# package's plain-jnp product)
+# ---------------------------------------------------------------------------
+
+def make_block_precond(block_inv: np.ndarray, n: int, dtype: torch.dtype,
+                       device, nz_pad: int = None, layers: slice = None):
+    """``R -> B^{-1} R`` nodewise in the row layout (counterpart of
+    ``make_block_precond``, ``pallas_comp_major.py:213-257``).
+
+    ``block_inv``: (g^3, 3, 3) inverted blocks of
+    :func:`.node_blocks.elasticity_node_blocks` (symmetric: six planes
+    are kept).  Phantom rows and lanes carry the identity, so z is zero
+    wherever r is and the free-subspace apply stays exact.  ``nz_pad``
+    (default n+1): z-half layers of the padded vectors, the extra ones
+    identity (the z-slab kit pads to ``n_dev * Lz``); ``layers``: the
+    z-half layers of those the vectors hold (a rank's slab; default all)."""
+    if nz_pad is None:
+        nz_pad = n + 1
+    planes = []
+    for c, d in ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2)):
+        fill = 1.0 if c == d else 0.0
+        plane = scalar_rows_np(block_inv[:, c, d], n, fill)
+        if nz_pad > n + 1:
+            plane = np.concatenate([plane, np.full(
+                ((nz_pad - (n + 1)) * 8, plane.shape[1]), fill)])
+        planes.append(plane.reshape(nz_pad, 8, -1))
+    M = np.stack(planes)
+    if layers is not None:
+        M = M[:, layers]
+    M = torch.as_tensor(np.ascontiguousarray(M), dtype=dtype, device=device)
+    m00, m01, m02, m11, m12, m22 = M
+    W = _width(n)
+
+    def block_precond(R):
+        R4 = R.reshape(M.shape[1], 8, 3, W)
+        r0, r1, r2 = R4[:, :, 0], R4[:, :, 1], R4[:, :, 2]
+        z0 = m00 * r0 + m01 * r1 + m02 * r2
+        z1 = m01 * r0 + m11 * r1 + m12 * r2
+        z2 = m02 * r0 + m12 * r1 + m22 * r2
+        return torch.stack([z0, z1, z2], dim=2).reshape(R.shape)
+
+    return block_precond
+
+
+def lazy_block_precond(element_matrix: np.ndarray, n: int, free_mask_u,
+                       dtype: torch.dtype, device, nz_pad: int = None,
+                       layers: slice = None):
+    """:func:`make_block_precond` built on first use (counterpart of
+    ``lazy_block_precond``, ``pallas_comp_major.py:1340``): the host
+    set-up (the 27-point block assembly and a 3x3 inverse per node, seconds
+    at 40^3) is paid only by ``Mechanics preconditioner = block`` runs.
+    ``.build()`` builds it ahead, outside any captured CUDA graph."""
+    cache = []
+
+    def build():
+        if not cache:
+            blocks = elasticity_node_blocks(element_matrix, n, free_mask_u)
+            cache.append(make_block_precond(np.linalg.inv(blocks), n, dtype,
+                                            device, nz_pad, layers))
+        return cache[0]
+
+    def block_precond(R):
+        return build()(R)
+
+    block_precond.build = build
+    return block_precond
+
+
+# ---------------------------------------------------------------------------
 # the persistent-row-layout solve kit
 # ---------------------------------------------------------------------------
 
@@ -350,6 +438,8 @@ class ElasticityRowOps:
     free_mask_rows: torch.Tensor  # Dirichlet mask in rows (padding = 0)
     diag_rows: torch.Tensor       # Jacobi diagonal in rows (padding = 1)
     plain: bool = False
+    # node-block Jacobi, rows -> rows (:func:`lazy_block_precond`)
+    block_precond: Callable = None
 
     def to_rows(self, u_flat):
         return to_rows(u_flat, self.n)
@@ -405,4 +495,5 @@ def make_row_ops(element_matrix: np.ndarray, n: int, free_mask_u,
         pe=dev(projection_matrix),
         free_mask_rows=dev(to_rows_np(free_mask_u, n, fill=0.0)),
         diag_rows=dev(to_rows_np(diag_elasticity, n, fill=1.0)),
-        plain=plain)
+        plain=plain, block_precond=lazy_block_precond(
+            element_matrix, n, free_mask_u, dtype, device))

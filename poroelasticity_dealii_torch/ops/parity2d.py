@@ -248,6 +248,7 @@ class ElasticityParityOps:
     projection_rows: object        # parity u -> (C, n_pdofs)
     free_mask_rows: torch.Tensor   # Dirichlet mask in parity (padding = 0)
     diag_rows: torch.Tensor        # Jacobi diagonal in parity (padding = 1)
+    block_precond: object = None   # none in 2D (JAX's parity kit has none)
 
     def to_rows(self, u_flat):
         return to_parity(u_flat, self.n, self.nc)

@@ -46,26 +46,33 @@ def _node_slices(k: int, ns):
 def cell_gather(x: torch.Tensor, k: int, ns, n_comp: int) -> torch.Tensor:
     """Flat dof vector ``[z][y][x][comp]`` on the degree-``k`` node grid ->
     per-cell local values ``(cells, n_local * n_comp)``, cells z-major,
-    columns ``node * n_comp + comp`` (the element-matrix order)."""
+    columns ``node * n_comp + comp`` (the element-matrix order).  Leading
+    batch dimensions of ``x`` are kept."""
+    batch = tuple(x.shape[:-1])
+    lead = (slice(None),) * len(batch)
     grid = tuple(k * n + 1 for n in reversed(ns))
-    X = x.reshape(grid + (n_comp,))
-    U = torch.stack([X[s] for s in _node_slices(k, ns)], dim=-2)
-    return U.reshape(-1, U.shape[-2] * n_comp)
+    X = x.reshape(batch + grid + (n_comp,))
+    U = torch.stack([X[lead + s] for s in _node_slices(k, ns)], dim=-2)
+    return U.reshape(batch + (-1, U.shape[-2] * n_comp))
 
 
 def cell_scatter(ye: torch.Tensor, k: int, ns, n_comp: int) -> torch.Tensor:
     """Inverse placement of :func:`cell_gather`: per-cell local values
     ``(cells, n_local * n_comp)`` summed onto the degree-``k`` node grid,
     returned as a flat ``[z][y][x][comp]`` vector.  One strided slice-add
-    per local node, in local-node order."""
+    per local node, in local-node order.  Leading batch dimensions of
+    ``ye`` are kept."""
+    batch = tuple(ye.shape[:-2])
+    lead = (slice(None),) * len(batch)
     rev = tuple(reversed(ns))
     grid = tuple(k * n + 1 for n in rev)
     slices = _node_slices(k, ns)
-    Ye = ye.reshape(rev + (len(slices), n_comp))
-    Y = torch.zeros(grid + (n_comp,), dtype=ye.dtype, device=ye.device)
+    Ye = ye.reshape(batch + rev + (len(slices), n_comp))
+    Y = torch.zeros(batch + grid + (n_comp,), dtype=ye.dtype,
+                    device=ye.device)
     for a, s in enumerate(slices):
-        Y[s] += Ye[..., a, :]
-    return Y.reshape(-1)
+        Y[lead + s] += Ye[..., a, :]
+    return Y.reshape(batch + (-1,))
 
 
 def make_stencil_apply(element_matrix: np.ndarray, k_in: int, k_out: int,
@@ -77,7 +84,8 @@ def make_stencil_apply(element_matrix: np.ndarray, k_in: int, k_out: int,
     rows and columns ``(node * n_comp + comp)`` with x-fastest local nodes;
     ``k_in``/``k_out``: the input/output polynomial degrees; ``n_cells``:
     int or per-axis counts in (x, y, z) order.  Flat vectors are
-    ``[z][y][x][comp]``."""
+    ``[z][y][x][comp]``, with any leading batch dimensions (the batched
+    projection solves)."""
     ns = (n_cells,) * dim if np.ndim(n_cells) == 0 else tuple(n_cells)
     if k_in == k_out == 1 and n_comp_in == n_comp_out == 1:
         return make_q1_slices_apply(element_matrix, dim, ns, dtype, device)

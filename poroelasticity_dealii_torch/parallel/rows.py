@@ -23,7 +23,9 @@ Collectives, one for one with JAX's:
 * ``from_rows`` and the projection right-hand side: ``dist.all_gather`` of
   the slabs (once per solve boundary and per FSS iteration);
 * ``to_rows`` and the coupling right-hand side: computed whole on every rank
-  from the replicated input, then sliced.
+  from the replicated input, then sliced;
+* the node-block Jacobi preconditioner (``Mechanics preconditioner =
+  block``): nodewise on the slab, no collective.
 
 The pressure side is not sharded: every rank computes the whole pressure
 solve identically (JAX partitions its stencils with GSPMD, which torch does
@@ -35,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Callable
 
 import numpy as np
 import torch
@@ -43,8 +46,8 @@ import torch.distributed as dist
 from ..ops.comp_major import (UNMASKED, coupling_rows, coupling_rows_plain,
                               elasticity_rows_apply,
                               elasticity_rows_apply_plain, from_rows,
-                              projection_rows, projection_rows_plain, to_rows,
-                              to_rows_np)
+                              lazy_block_precond, projection_rows,
+                              projection_rows_plain, to_rows, to_rows_np)
 from .sharding import SlabGroup
 
 
@@ -73,6 +76,8 @@ class ShardedRowOps:
     free_mask_rows: torch.Tensor  # the rank's slab (Lz*24, W), padding 0
     diag_rows: torch.Tensor       # the rank's slab, padding 1
     plain: bool = False
+    # node-block Jacobi on the rank's slab (nodewise: no collective)
+    block_precond: Callable = None
 
     @property
     def Lz(self) -> int:
@@ -211,7 +216,12 @@ def make_row_ops_sharded(element_matrix: np.ndarray, n: int, free_mask_u,
         n=n, group=group, ke=dev(element_matrix), ce=dev(coupling_matrix),
         pe=dev(projection_matrix),
         free_mask_rows=dev(slab_np(free_mask_u, 0.0)),
-        diag_rows=dev(slab_np(diag_elasticity, 1.0)), plain=plain)
+        diag_rows=dev(slab_np(diag_elasticity, 1.0)), plain=plain,
+        # identity blocks on the padding layers, as JAX's nz_pad planes
+        block_precond=lazy_block_precond(
+            element_matrix, n, free_mask_u, dtype, group.device,
+            nz_pad=group.size * Lz,
+            layers=slice(group.rank * Lz, (group.rank + 1) * Lz)))
     _check_agreement(ro)
     return ro
 

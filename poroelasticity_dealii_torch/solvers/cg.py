@@ -13,7 +13,8 @@ convergence change nothing, and the host reads one flag per chunk
 (:func:`.cuda_graphs.run_chunks`).  With a :class:`.cuda_graphs.ChunkGraphs`
 each chunk is the replay of a captured CUDA graph.  The batched form gives
 each right-hand side its own tolerance and count.  :func:`richardson_solve`
-keeps the same device-resident state and chunks.
+keeps the same device-resident state and chunks, on one right-hand side or
+a batch.
 """
 
 from __future__ import annotations
@@ -157,39 +158,52 @@ def richardson_solve(apply_a: Callable, b: torch.Tensor, x0: torch.Tensor,
     an iteration costs one preconditioner call and one apply.  ``tol``,
     ``norm``, ``chunk``, ``graphs`` and ``graph_key`` as in
     :func:`cg_solve`; a frozen iteration still runs its V-cycle, so chunks
-    are short."""
+    are short.
+
+    Batched (the reference's ``vmap`` of the solve): ``b``, ``x0``
+    (n_rhs, n), ``tol`` (n_rhs,) and ``norm`` taken over the last axis
+    (:func:`lane_norm`); ``apply_a`` and ``precond`` act on the last axis.
+    Each lane keeps its own count and exits, and a chunk runs while any
+    lane is active."""
     consts = (_tol64(tol, b), b)
 
     def init(inputs, consts):
         (x0,) = inputs
         r = consts[1] - apply_a(x0)
         rnorm = norm(r)
-        k = torch.zeros((), dtype=torch.int64, device=x0.device)
+        k = torch.zeros(rnorm.shape, dtype=torch.int64, device=x0.device)
         return (k, x0, r, rnorm, torch.full_like(rnorm, float("inf")))
 
-    def cond(state, consts):
+    def lanes(state, consts):
         k, _, _, rnorm, rprev = state
         return (k < max_iter) & (rnorm.double() > consts[0]) \
             & (rnorm < 0.98 * rprev)
 
     def step(state, consts):
         k, x, r, rnorm, rprev = state
-        active = cond(state, consts)
+        active = lanes(state, consts)
         x_new = x + precond(r)
         r_new = consts[1] - apply_a(x_new)
-        return (k + active.long(), torch.where(active, x_new, x),
-                torch.where(active, r_new, r),
+        a = active.unsqueeze(-1)
+        return (k + active.long(), torch.where(a, x_new, x),
+                torch.where(a, r_new, r),
                 torch.where(active, norm(r_new), rnorm),
                 torch.where(active, rnorm, rprev))
 
     key = None if graphs is None else (
         *graph_key, "richardson", b.dtype, tuple(b.shape), max_iter)
-    k, x, _, rnorm, rprev = run_chunks(init, step, cond, (x0,), consts,
-                                       max_iter, chunk, graphs, key)
+    k, x, _, rnorm, rprev = run_chunks(
+        init, step, lambda s, c: lanes(s, c).any(), (x0,), consts, max_iter,
+        chunk, graphs, key)
     converged = rnorm.double() <= consts[0]
     return CGResult(x=x, iterations=k, residual_norm=rnorm,
                     converged=converged,
                     stalled=~converged & (rnorm >= 0.98 * rprev))
+
+
+def lane_norm(x: torch.Tensor) -> torch.Tensor:
+    """The 2-norm of each lane (last axis) of a batch."""
+    return torch.linalg.norm(x, dim=-1)
 
 
 def cg_solve_batched(apply_a: Callable, b: torch.Tensor, x0: torch.Tensor,

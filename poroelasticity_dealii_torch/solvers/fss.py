@@ -27,8 +27,16 @@ rows kit (``disc.row_ops``: the comp-major row layout in 3D, the parity
 layout in 2D) and flat otherwise (the conv backend): ``State.u_rows`` is
 then None and ``State.mech_b`` flat.  With an elasticity V-cycle
 (``disc.gmg_precond_rows`` on the parity kit, ``disc.gmg_precond`` on flat
-vectors) the mechanics solve is GMG-Richardson in float32 and GMG-CG in
-float64, as in the reference; otherwise Jacobi-CG.
+vectors, 2D and 3D) the mechanics solve is GMG-Richardson in float32 and
+GMG-CG in float64, as in the reference; otherwise Jacobi-CG, on the rows
+kit with the node-block (3x3) Jacobi preconditioner when the deck's
+``Mechanics preconditioner`` is ``block``.  The pressure Jacobian is one
+stencil of the grid's pressure degree, preconditioned by the pressure GMG
+on equal cells per axis.  With ``Mixed precision refinement = on`` a
+float64 run on a structured grid refines float32 solves of a twin
+discretization (:meth:`FixedStressSolver._mixed_precision_inner`): the
+flat mechanics solve, the bc response, the pressure and the projection;
+the rows kit keeps its native f64 mechanics, as in the reference.
 With the z-slab kit of the sharded production path
 (:class:`..parallel.rows.ShardedRowOps`) ``State.u_rows`` and
 ``State.mech_b`` are the rank's slabs and ``State.u`` the gathered whole
@@ -69,10 +77,11 @@ from ..amr.constraints import empty_constraints
 from ..config import InputData
 from ..ops import dense
 from ..ops.operators import SHEAR_ENTRIES, VOIGT_PAIRS, VOLUMETRIC_ENTRIES
-from ..ops.stencil import make_q1_slices_apply
+from ..ops.stencil import make_stencil_apply
 from . import structured
 from ..parallel.rows import ShardedRowOps
-from .cg import LocalReductions, cg_solve, cg_solve_batched, richardson_solve
+from .cg import (LocalReductions, cg_solve, cg_solve_batched,
+                 lane_norm, richardson_solve)
 from .cuda_graphs import ChunkGraphs
 from .discretization import Discretization
 from .multigrid import build_gmg_pressure
@@ -90,11 +99,18 @@ from .structured import GridDiscretization, _single_cell_spaces
 # * projection: 20-45 batched mass-matrix iterations a solve, cheap ones: 8;
 # * bc response: one solve of about a hundred iterations, once: 16;
 # * mechanics with an elasticity V-cycle (GMG-Richardson in f32, GMG-CG in
-#   f64, the 2D path): 1-5 iterations a solve, and a frozen iteration costs
-#   a whole V-cycle (~3 ms of device time at 512^2 on the H100, more than a
-#   host read): 1.
+#   f64): 1-5 iterations a solve, and a frozen iteration costs a whole
+#   V-cycle (~3 ms of device time at 512^2 on the H100, more than a host
+#   read): 1;
+# * the float32 inner solves of mixed-precision refinement, as their f64
+#   call sites: mechanics 8, pressure 2, projection 8;
+# * refinement's f64 outer Richardson loops: each pass runs a whole inner
+#   solve, which reads its own chunk flags on the host, so a pass cannot be
+#   captured; the loop runs eagerly and reads its residual once per pass
+#   (2-4 passes a solve), as the pressure and FSS loops do: 1.
 CHUNK = {"mechanics": 8, "pressure": 2, "projection": 8, "bc_response": 16,
-         "mechanics_gmg": 1}
+         "mechanics_gmg": 1, "mechanics_f32": 8, "pressure_f32": 2,
+         "projection_f32": 8, "refinement": 1}
 
 # ``TPU / Debug NaNs``: the solves whose results a step records, by code
 # (StepStats.nan_site; 0: every result finite)
@@ -189,6 +205,19 @@ def numbered_steps(first: int):
             f"step {first + e.step_in_call}: {e}") from e
 
 
+def _refined_inner(solve32, dtype: torch.dtype, batched: bool = False):
+    """Mixed-precision refinement's inner step (the reference's
+    ``_refined_inner``, ``fss.py:73-84``): the f64 residual scaled to unit
+    norm (a zero residual is left as is), solved in float32 by ``solve32``,
+    scaled back; ``batched``: one norm per row (the projection's lanes)."""
+    def inner(r):
+        s = torch.linalg.norm(r, dim=-1, keepdim=True) if batched \
+            else torch.linalg.norm(r)
+        safe = torch.where(s > 0, s, torch.ones_like(s))
+        return solve32((r / safe).float()).to(dtype) * safe
+    return inner
+
+
 class FixedStressSolver:
     """The fixed-stress time step for one discretization and deck.
 
@@ -206,10 +235,6 @@ class FixedStressSolver:
         :meth:`multi_step` raise ``FloatingPointError`` naming it when they
         read the step's counts: no extra host read, and nothing added to
         the captured chunks.  Off, the step computes nothing extra."""
-        if data.mixed_precision_refinement == "on":
-            raise NotImplementedError(
-                "mixed-precision refinement is ROADMAP A11 (the H100 runs "
-                "float64 natively)")
         self.disc, self.data = disc, data
         ro = disc.row_ops
         self._rows = ro is not None
@@ -245,6 +270,13 @@ class FixedStressSolver:
         self._jac_stencils = {}
         self._p_gmg = {}
         self._bc_response_cache = None
+        # node-block Jacobi on the rows kit (the reference's rows branch
+        # only), its planes built now, outside any captured chunk
+        self._block = ro.block_precond if (
+            self._rows and data.mech_precond == "block") else None
+        if self._block is not None:
+            self._block.build()
+        self._ir = self._mixed_precision_inner()
 
     def release(self) -> None:
         """Free the captured graphs (the adaptive driver calls it before it
@@ -280,6 +312,107 @@ class FixedStressSolver:
         return richardson_solve(*args, chunk=CHUNK[site], graphs=self.graphs,
                                 graph_key=(site,), **kw)
 
+    @staticmethod
+    def _refine(apply, b, x0, inner, tol, max_iter, batched=False):
+        """Refinement's f64 outer loop: Richardson preconditioned by the
+        float32 solve ``inner``, run eagerly (see :data:`CHUNK`)."""
+        norm = lane_norm if batched else LocalReductions.norm
+        return richardson_solve(apply, b, x0, inner, tol, max_iter, norm=norm,
+                                chunk=CHUNK["refinement"])
+
+    # ---------------- mixed-precision refinement ----------------------------
+
+    def _mixed_precision_inner(self):
+        """``TPU / Mixed precision refinement = on`` (the reference's
+        ``_mixed_precision_inner``, ``fss.py:152-237``): for a float64 run
+        on a structured grid (not the slab kit), a float32 twin of the
+        discretization (``multigrid="off"``, the deck's elasticity backend:
+        rows CG on the kernels, or flat Jacobi-CG on the flat kernel) whose
+        whole solves, to 1e-5 of a unit-norm residual, precondition f64
+        Richardson loops: the flat mechanics solve and the bc response
+        (returned), the projection's mass solves (``_ir_mass``) and, per
+        dt, the pressure solve (:meth:`_ir_pressure`).  ``auto`` is off:
+        the reference turns it on only on a TPU.  Returns the mechanics
+        inner step, or None."""
+        d, data = self.disc, self.data
+        self._ir_mass = self._ir_disc32 = self._ir_solver32 = None
+        self._ir_press = {}
+        if not (data.mixed_precision_refinement == "on"
+                and d.dtype == torch.float64
+                and isinstance(d, GridDiscretization)
+                and not isinstance(d.row_ops, ShardedRowOps)):
+            return None
+        verts = d.pressure_space.mesh.vertices
+        disc32 = structured.build_grid_discretization(
+            dataclasses.replace(data, dtype="float32"),
+            cells_per_axis=d.info_u.cells_per_axis,
+            pressure_degree=d.info_p.degree,
+            displacement_degree=d.info_u.degree, lower=verts.min(axis=0),
+            upper=verts.max(axis=0), multigrid="off",
+            elasticity_backend=data.elasticity_backend, device=d.device,
+            kernels=d.kernels)
+        # relative to the unit-norm residual: each pass contracts by ~this
+        itol, cap = _as_dtype(1e-5, torch.float32), data.cg_max_iterations
+        ro32 = disc32.row_ops
+        if ro32 is not None:
+            bp32 = ro32.block_precond if data.mech_precond == "block" \
+                else None
+            if bp32 is not None:
+                bp32.build()
+
+            def solve32(r32):
+                return ro32.from_rows(self._cg(
+                    "mechanics_f32", ro32.constrained_apply,
+                    ro32.to_rows(r32), torch.zeros_like(ro32.diag_rows),
+                    ro32.diag_rows, tol=itol, max_iter=cap,
+                    apply_iter=ro32.free_apply, precond=bp32,
+                    flexible=False).x)
+        else:
+            def solve32(r32):
+                return self._cg("mechanics_f32",
+                                disc32.elasticity_constrained, r32,
+                                torch.zeros_like(r32),
+                                disc32.diag_elasticity, tol=itol,
+                                max_iter=cap).x
+
+        def mass32(r32):
+            return self._cg("projection_f32", disc32.mass, r32,
+                            torch.zeros_like(r32), disc32.diag_mass, itol,
+                            cap, batched=True).x
+
+        self._ir_mass = _refined_inner(mass32, d.dtype, batched=True)
+        self._ir_disc32 = disc32
+        return _refined_inner(solve32, d.dtype)
+
+    def _ir_pressure(self, dt):
+        """Refinement's inner pressure solve for ``dt`` (the reference's
+        ``_ir_pressure``, ``fss.py:239-277``): a float32 twin solver's fused
+        Jacobian and GMG-CG (Jacobi below the multigrid threshold); None
+        when refinement is off."""
+        if self._ir_disc32 is None:
+            return None
+        if dt not in self._ir_press:
+            if self._ir_solver32 is None:
+                self._ir_solver32 = FixedStressSolver(
+                    self._ir_disc32,
+                    dataclasses.replace(self.data, dtype="float32"),
+                    cuda_graphs=False)
+            s32 = self._ir_solver32
+            pre32, diag32 = s32._pressure_precond(dt), \
+                s32._pressure_jacobian_diag(dt)
+            itol = _as_dtype(1e-5, torch.float32)
+
+            def solve32(r32):
+                return self._cg(
+                    "pressure_f32",
+                    lambda x: s32._pressure_jacobian_apply(x, dt), r32,
+                    torch.zeros_like(r32), diag32, tol=itol,
+                    max_iter=self.data.cg_max_iterations, precond=pre32,
+                    graph_key=(dt,)).x
+
+            self._ir_press[dt] = _refined_inner(solve32, self.disc.dtype)
+        return self._ir_press[dt]
+
     # ---------------- pressure system pieces -------------------------------
 
     def _pressure_residual(self, p, p_old, eps_v, eps_v0, dt):
@@ -295,8 +428,8 @@ class FixedStressSolver:
         return self._hcp.condense_vec(-res) * d.free_mask_p
 
     def _fused_jacobian_stencil(self, dt):
-        """Pressure Jacobian mass/(M dt) + (k/mu) L as one Q1 stencil (on a
-        structured grid)."""
+        """Pressure Jacobian mass/(M dt) + (k/mu) L as one stencil (on a
+        structured grid; the Q1 slice stencil for Q1 pressure)."""
         if dt not in self._jac_stencils:
             d, data = self.disc, self.data
             verts = d.pressure_space.mesh.vertices
@@ -306,8 +439,10 @@ class FixedStressSolver:
             Me = dense.mass_element_matrices(sp1)[0]
             Le = dense.laplace_element_matrices(sp1)[0]
             J = Me / (data.m_modulus * dt) + (data.perm / data.visc) * Le
-            self._jac_stencils[dt] = make_q1_slices_apply(
-                J, d.dim, d.info_p.cells_per_axis, d.dtype, d.device)
+            kp = d.info_p.degree
+            self._jac_stencils[dt] = make_stencil_apply(
+                J, kp, kp, 1, 1, d.dim, d.info_p.cells_per_axis, d.dtype,
+                d.device)
         return self._jac_stencils[dt]
 
     def _pressure_jacobian_apply(self, x, dt):
@@ -330,9 +465,10 @@ class FixedStressSolver:
 
     def _pressure_precond(self, dt):
         """GMG V-cycle for the pressure Jacobian, or None (Jacobi) when the
-        grid is below the multigrid threshold or not structured."""
+        grid is below the multigrid threshold, not structured or has unequal
+        cells per axis."""
         d, data = self.disc, self.data
-        if not isinstance(d, GridDiscretization):
+        if not isinstance(d, GridDiscretization) or not d.info_p.isotropic:
             return None
         n = d.info_p.cells_per_axis[0]
         # module attribute, looked up per call (tests patch the threshold)
@@ -345,8 +481,8 @@ class FixedStressSolver:
             verts = d.pressure_space.mesh.vertices
             self._p_gmg[dt], _ = build_gmg_pressure(
                 data, n_fine=n, n_levels=n_levels, dtype=d.dtype,
-                device=d.device, dt=dt, lower=verts.min(axis=0),
-                upper=verts.max(axis=0))
+                device=d.device, dt=dt, pressure_degree=d.info_p.degree,
+                lower=verts.min(axis=0), upper=verts.max(axis=0))
         return self._p_gmg[dt]
 
     # ---------------- mechanics solve ---------------------------------------
@@ -391,7 +527,11 @@ class FixedStressSolver:
         else:
             apply, diag, gmg = d.elasticity_constrained, \
                 d.diag_elasticity, d.gmg_precond
-        if gmg is not None and d.dtype == torch.float32:
+        if not self._rows and self._ir is not None:
+            # f64 by mixed-precision refinement: each pass one f64 apply
+            # and one whole f32 solve, ~1e-5 contraction a pass
+            res = self._refine(apply, b, x0, self._ir, tol, 30)
+        elif gmg is not None and d.dtype == torch.float32:
             # a strong preconditioner in f32: CG's p.Ap sinks into the
             # apply's rounding noise, Richardson has no quadratic forms
             res = self._richardson("mechanics_gmg", apply, b, x0, gmg, tol,
@@ -403,12 +543,16 @@ class FixedStressSolver:
             res = self._cg("mechanics_gmg", apply, b, x0, diag, tol=tol,
                            max_iter=data.cg_max_iterations, precond=gmg)
         elif self._rows:
+            # node-block Jacobi when asked for: a fixed SPD preconditioner
+            # with identity blocks at constrained nodes, so the
+            # free-subspace apply stays exact and the update stays
+            # Fletcher-Reeves
             res = self._cg("mechanics", apply, b, x0, diag, tol=tol,
                            max_iter=data.cg_max_iterations,
-                           apply_iter=ro.free_apply, flexible=False,
-                           dot=self._reduce.dot, norm=self._reduce.norm)
+                           apply_iter=ro.free_apply, precond=self._block,
+                           flexible=False, dot=self._reduce.dot,
+                           norm=self._reduce.norm)
         else:
-            # mixed-precision refinement is not ported (ROADMAP item 7)
             res = self._cg("mechanics", apply, b, x0, diag, tol=tol,
                            max_iter=data.cg_max_iterations)
         return self._hcu.distribute(res.x), res.iterations, res.converged, \
@@ -421,10 +565,13 @@ class FixedStressSolver:
         the new boundary values."""
         if self._bc_response_cache is None:
             d = self.disc
-            m = self._free_mask
-            b = m * (-self._lift) + (1.0 - m) * self._dirichlet
             # seeds a warm start only: a few digits suffice
             rel = 1e-8 if d.dtype == torch.float64 else 2e-6
+            if self._ir is not None:
+                self._bc_response_cache = self._bc_response_refined(rel)
+                return self._bc_response_cache
+            m = self._free_mask
+            b = m * (-self._lift) + (1.0 - m) * self._dirichlet
             if self._rows:
                 apply, diag = d.row_ops.constrained_apply, d.row_ops.diag_rows
             else:
@@ -435,6 +582,20 @@ class FixedStressSolver:
                            norm=self._reduce.norm)
             self._bc_response_cache = self._hcu.distribute(res.x)
         return self._bc_response_cache
+
+    def _bc_response_refined(self, rel):
+        """:meth:`_bc_response` by refinement, on flat vectors as in the
+        reference (then into the kit's layout).  The start carries the
+        Dirichlet pattern, so the residual is zero at constrained rows,
+        which a rows inner (free-subspace apply) could not reduce."""
+        d = self.disc
+        ro = d.row_ops
+        m = d.free_mask_u
+        lift = ro.from_rows(self._lift) if self._rows else self._lift
+        b = m * (-lift) + (1.0 - m) * d.dirichlet_values
+        res = self._refine(d.elasticity_constrained, b, (1.0 - m) * b,
+                           self._ir, rel * torch.linalg.norm(b), 30)
+        return ro.to_rows(res.x) if self._rows else res.x
 
     # ---------------- strain projection -------------------------------------
 
@@ -453,9 +614,15 @@ class FixedStressSolver:
         d, hc = self.disc, self._hcp
         rhs = hc.condense_vec(rhs_all[entries])
         tol = self.data.projection_cg_tol * torch.linalg.norm(rhs, dim=1)
-        res = self._cg("projection", hc.constrained(d.mass), rhs,
-                       hc.zero_hanging(warm), d.diag_mass, tol,
-                       self.data.cg_max_iterations, batched=True)
+        if self._ir_mass is not None:
+            # refinement, one lane per component (the reference's vmap)
+            res = self._refine(hc.constrained(d.mass), rhs,
+                               hc.zero_hanging(warm), self._ir_mass, tol, 20,
+                               batched=True)
+        else:
+            res = self._cg("projection", hc.constrained(d.mass), rhs,
+                           hc.zero_hanging(warm), d.diag_mass, tol,
+                           self.data.cg_max_iterations, batched=True)
         return hc.distribute(res.x), res.iterations.sum(), \
             res.converged.all()
 
@@ -583,7 +750,9 @@ class FixedStressSolver:
         pressure_tol = self._cast(data.pressure_tol)
         fss_tol = self._cast(data.fss_tol)
         jac_diag = self._pressure_jacobian_diag(dt)
-        p_precond = self._pressure_precond(dt)
+        # with refinement the f32 inner replaces the f64 pressure GMG
+        irp = self._ir_pressure(dt)
+        p_precond = None if irp is not None else self._pressure_precond(dt)
 
         def jac(x):
             return self._pressure_jacobian_apply(x, dt)
@@ -606,10 +775,14 @@ class FixedStressSolver:
             k = 0
             while k < data.max_pressure_iterations and err > pressure_tol:
                 ptol = data.pressure_cg_tol * torch.linalg.norm(r)
-                res = self._cg("pressure", jac, r,
-                               self._hcp.zero_hanging(delta_p), jac_diag,
-                               tol=ptol, max_iter=data.cg_max_iterations,
-                               precond=p_precond, graph_key=(dt,))
+                if irp is not None:
+                    res = self._refine(jac, r, self._hcp.zero_hanging(delta_p),
+                                       irp, ptol, 20)
+                else:
+                    res = self._cg("pressure", jac, r,
+                                   self._hcp.zero_hanging(delta_p), jac_diag,
+                                   tol=ptol, max_iter=data.cg_max_iterations,
+                                   precond=p_precond, graph_key=(dt,))
                 delta_p = self._hcp.distribute(res.x)
                 nan = self._note_nan(nan, "pressure CG", delta_p)
                 p = p + delta_p

@@ -1,10 +1,12 @@
 """Geometric multigrid on structured grids (port of
-``poroelasticity_dealii_tpu/solvers/multigrid.py:51-69, 98-233, 266-580``),
-for the scalar Q1 pressure Jacobian and the Q2 vector elasticity operator.
+``poroelasticity_dealii_tpu/solvers/multigrid.py:51-69, 98-233, 266-607``),
+for the scalar Q_kp pressure Jacobian and the Q2 vector elasticity
+operator, in 2D and 3D.
 
 * level operators: that level's uniform element matrix as a stencil (the
   Q1 slice stencil for a scalar Q1 operator, the cell gather / product /
-  slice-add stencil otherwise), Dirichlet-masked;
+  slice-add stencil otherwise; on the card the 3D Q2 elasticity levels
+  above the coarsest use the flat kernel instead), Dirichlet-masked;
 * smoothers: Chebyshev-accelerated Jacobi, a fixed polynomial, with a
   Gershgorin upper bound on lmax(D^{-1}A) built on the host (no random
   numbers, no host read in a V-cycle);
@@ -35,6 +37,7 @@ from ..mesh.generator import hyper_rectangle
 from ..mesh.qk import build_fe_space
 from ..mesh.structured import build_structured_space, structured_mesh
 from ..ops import dense
+from ..ops.elasticity import make_grid_elasticity
 from ..ops.operators import constrained_apply
 from ..ops.parity2d import (from_parity, make_apply_parity,
                             make_parity_transfers, to_parity, to_parity_np)
@@ -222,7 +225,8 @@ class _Level:
 def build_gmg(data: InputData, n_fine: int, n_levels: int, dtype, device,
               element_matrix_fn: Callable[[int], np.ndarray],
               free_mask_fn: Callable, degree: int = 1, n_comp: int = 1,
-              lower=None, upper=None, parity_layout: bool = False):
+              lower=None, upper=None, parity_layout: bool = False,
+              level_apply_fn: Callable = None):
     """V-cycle preconditioner for a Q_degree operator on n_comp-vector
     fields on an ``n_fine``-cells-per-axis structured grid.
 
@@ -230,7 +234,9 @@ def build_gmg(data: InputData, n_fine: int, n_levels: int, dtype, device,
     (NL = (degree+1)^dim * n_comp, interleaved node*n_comp + comp);
     ``free_mask_fn``: (mesh, space) -> bool free-dof mask;
     ``parity_layout``: the 2D Q2 parity-resident levels, and
-    ``precond.rows``, the V-cycle from and to the parity layout.
+    ``precond.rows``, the V-cycle from and to the parity layout;
+    ``level_apply_fn``: (element matrix, cells per axis) -> a level's
+    unmasked operator apply (default the stencil).
     Returns ``(precond, levels)``."""
     dim = data.dim
     sizes = [n_fine // (2 ** lv) for lv in range(n_levels)]
@@ -255,7 +261,9 @@ def build_gmg(data: InputData, n_fine: int, n_levels: int, dtype, device,
         free_np = free_mask_fn(mesh, space)
         free = host(free_np)
         Ke = element_matrix_fn(n)
-        if scalar_q1:
+        if level_apply_fn is not None:
+            raw = level_apply_fn(Ke, n)
+        elif scalar_q1:
             raw = make_q1_slices_apply(Ke, dim, (n,) * dim, dtype, device)
         else:
             raw = make_stencil_apply(Ke, degree, degree, n_comp, n_comp,
@@ -409,10 +417,11 @@ def _uniform_cell_space(data: InputData, n: int, degree: int,
 
 
 def build_gmg_pressure(data: InputData, n_fine: int, n_levels: int, dtype,
-                       device, dt: float, lower=None, upper=None):
-    """V-cycle for the Q1 pressure Jacobian mass/(M dt) + (k/mu) L."""
+                       device, dt: float, pressure_degree: int = 1,
+                       lower=None, upper=None):
+    """V-cycle for the Q_kp pressure Jacobian mass/(M dt) + (k/mu) L."""
     def emat(n):
-        sp1 = _uniform_cell_space(data, n, 1, lower, upper)
+        sp1 = _uniform_cell_space(data, n, pressure_degree, lower, upper)
         Me = dense.mass_element_matrices(sp1)[0]
         Le = dense.laplace_element_matrices(sp1)[0]
         return Me / (data.m_modulus * dt) + (data.perm / data.visc) * Le
@@ -422,16 +431,28 @@ def build_gmg_pressure(data: InputData, n_fine: int, n_levels: int, dtype,
         return free
 
     return build_gmg(data, n_fine, n_levels, dtype, device, emat, fmask,
-                     lower=lower, upper=upper)
+                     degree=pressure_degree, lower=lower, upper=upper)
 
 
 def build_gmg_elasticity(data: InputData, n_fine: int, n_levels: int,
-                         dtype, device, lower=None, upper=None,
-                         parity_layout: bool = False):
+                         dtype, device, displacement_degree: int = 2,
+                         lower=None, upper=None, parity_layout: bool = False,
+                         kernels: str = "auto"):
     """V-cycle for the Dirichlet-masked Q2 elasticity operator; with
     ``parity_layout`` (2D) the returned preconditioner has ``.rows``, the
-    V-cycle from and to the parity layout."""
+    V-cycle from and to the parity layout.  In 3D on a CUDA device with
+    ``kernels="auto"`` every level above the coarsest applies its operator
+    through the flat kernel (:func:`..ops.elasticity.make_grid_elasticity`,
+    the conv backend's fine operator); on the CPU, or with ``"plain"``, the
+    stencil."""
+    if displacement_degree != 2:
+        raise NotImplementedError("GMG transfer assumes Q2 displacement")
     lam, mu = data.lame_constant, data.shear_modulus
+    level_apply = None
+    if data.dim == 3 and torch.device(device).type == "cuda" \
+            and kernels == "auto":
+        def level_apply(Ke, n):
+            return make_grid_elasticity(Ke, n, dtype, device)
 
     def emat(n):
         su1 = _uniform_cell_space(data, n, 2, lower, upper)
@@ -443,4 +464,4 @@ def build_gmg_elasticity(data: InputData, n_fine: int, n_levels: int,
 
     return build_gmg(data, n_fine, n_levels, dtype, device, emat, fmask,
                      degree=2, n_comp=data.dim, lower=lower, upper=upper,
-                     parity_layout=parity_layout)
+                     parity_layout=parity_layout, level_apply_fn=level_apply)

@@ -1,35 +1,41 @@
-"""Structured-grid discretization of the Q2/Q1 problem in 2D and 3D (port
-of ``poroelasticity_dealii_tpu/solvers/structured.py:77-120, 123-184,
-186-455``).
+"""Structured-grid discretization in 2D and 3D (port of
+``poroelasticity_dealii_tpu/solvers/structured.py:77-120, 123-184,
+186-455``): Q_ku displacement and Q_kp pressure (Q2/Q1 by default) on a
+uniform grid of any cells per axis.
 
 On a uniform grid every cell has the same element matrices, built once on
-the host in float64.  The pressure operators are Q1 slice stencils
-(:mod:`..ops.stencil`).  The mechanics backend is chosen by
-``elasticity_backend`` (or the deck's ``TPU / Elasticity backend``):
+the host in float64.  Every operator is a stencil (:mod:`..ops.stencil`:
+the Q1 slice stencil for a scalar Q1 operator, else cell gather, one
+product, slice-add scatter).  The mechanics backend is chosen by
+``elasticity_backend`` (or the deck's ``TPU / Elasticity backend``), by
+the JAX package's rules:
 
-* 3D ``auto``/``pallas`` (rows): the mechanics runs in the comp-major row
-  layout through :class:`..ops.comp_major.ElasticityRowOps`, whose
-  elasticity, coupling and projection operators are the hand-written CUDA
-  kernels on a CUDA device;
+* 3D ``auto``/``pallas`` on a Q2/Q1 grid with equal cells per axis
+  (rows): the mechanics runs in the comp-major row layout through
+  :class:`..ops.comp_major.ElasticityRowOps`, whose elasticity, coupling
+  and projection operators are the hand-written CUDA kernels on a CUDA
+  device;
 * 2D ``parity``, and 2D ``auto`` from :data:`PARITY_AUTO_MIN_UDOFS`
-  displacement dofs: the mechanics runs in the parity layout through
+  displacement dofs, on a Q2/Q1 grid with equal cells per axis: the
+  mechanics runs in the parity layout through
   :class:`..ops.parity2d.ElasticityParityOps` (plain torch products, as
   the JAX package's XLA einsums);
-* ``conv`` (flat), and 2D ``auto`` below that size: the mechanics runs on
-  flat dof vectors, JAX's ``ConvGridDiscretization``: in 3D the elasticity
-  apply is the hand-written flat CUDA kernel (``make_grid_elasticity``) on
-  a CUDA device, and otherwise the plain-torch stencil (gather, one
-  matmul, strided slice-add scatter; ``make_stencil_apply``); coupling and
-  projection are the stencils.  In 3D ``auto`` resolves to it in the JAX
-  package on every device but a TPU; in the port it must be asked for.
+* ``conv`` (flat), and ``auto`` elsewhere (anisotropic grids, other
+  degrees, small 2D grids): the mechanics runs on flat dof vectors, JAX's
+  ``ConvGridDiscretization``: on the 3D Q2 grid with equal counts the
+  elasticity apply is the hand-written flat CUDA kernel
+  (``make_grid_elasticity``) on a CUDA device, and otherwise the
+  plain-torch stencil.  In 3D ``auto`` resolves to it in the JAX package
+  on every device but a TPU; in the port it must be asked for (a
+  deliberate deviation: ``auto`` means rows at any dtype).
 
 Every backend keeps the stencils (``elasticity``, ``coupling_rhs``,
 ``strain_projection_rhs``), as JAX's conv discretization does under its
 rows kit.  Elasticity multigrid (:func:`..solvers.multigrid.
-build_gmg_elasticity`) is built in 2D where JAX builds it (``gmg_precond``,
-and ``gmg_precond_rows`` on the parity kit).  Other degrees, anisotropic
-grids and 3D elasticity multigrid raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+build_gmg_elasticity`, Q2 only) is built where JAX builds it, on equal
+cells per axis: ``gmg_precond`` on flat vectors (in 3D its level operators
+are the flat kernel on the card), and ``gmg_precond_rows`` on the parity
+kit.
 """
 
 from __future__ import annotations
@@ -56,7 +62,7 @@ from ..ops.comp_major import ElasticityRowOps, make_row_ops
 from ..ops.elasticity import make_grid_elasticity
 from ..ops.geometry import geometry_factors
 from ..ops.parity2d import ElasticityParityOps, make_parity_ops
-from ..ops.stencil import make_q1_slices_apply, make_stencil_apply
+from ..ops.stencil import make_stencil_apply
 from ..ops.structured import uniform_geometry_factors
 from .multigrid import build_gmg_elasticity
 from .discretization import (_body_force_vector, _dirichlet_constraints,
@@ -86,22 +92,24 @@ class GridDiscretization:
     lam: float
     mu: float
     diag_elasticity: torch.Tensor   # (n_udofs,) Jacobi, 1 on Dirichlet
-    mass: Callable                  # Q1 mass apply
-    laplace: Callable               # Q1 Laplace apply
-    stencil_elasticity: Callable    # flat Q2 elasticity apply (kernel on
-                                    # a CUDA device unless kernels="plain")
-    stencil_coupling: Callable      # flat Q1 p -> Q2 RHS, Biot folded in
+    mass: Callable                  # pressure mass apply
+    laplace: Callable               # pressure Laplace apply
+    stencil_elasticity: Callable    # flat elasticity apply (3D Q2: kernel
+                                    # on a CUDA device unless "plain")
+    stencil_coupling: Callable      # flat p -> u-space RHS, Biot folded in
     stencil_projection: Callable    # flat u -> (C, n_pdofs) strain RHS
     # the mechanics kit: rows (3D), parity (2D), None on flat vectors
     row_ops: Optional[Union[ElasticityRowOps, ElasticityParityOps]]
-    element_ke: np.ndarray          # (81, 81) elasticity, float64 (18 x 18
-    element_ce: np.ndarray          # in 2D); (81, 8) coupling, Biot folded
-    element_pe: np.ndarray          # in; (48, 81) strain projection
+    element_ke: np.ndarray          # (81, 81) elasticity, float64 (3D Q2;
+    element_ce: np.ndarray          # 18 x 18 in 2D); (81, 8) coupling, Biot
+    element_pe: np.ndarray          # folded in; (48, 81) strain projection
     # elasticity GMG V-cycle on flat vectors, and from/to the parity
     # layout on the parity kit (None where none is built)
     gmg_precond: Optional[Callable] = None
     gmg_precond_rows: Optional[Callable] = None
     gmg_setup_s: float = 0.0        # host seconds of the elasticity GMG build
+    gmg_levels: int = 0             # its levels (0: none built)
+    kernels: str = "auto"           # the build's ``kernels`` setting
 
     @property
     def n_pdofs(self) -> int:
@@ -194,48 +202,53 @@ def build_grid_discretization(data: InputData,
                               elasticity_backend: Optional[str] = None,
                               device="cuda",
                               kernels: str = "auto") -> GridDiscretization:
-    """The Q2/Q1 isotropic discretization (2D or 3D) on ``device``
-    (default the card; raises without one, pass ``device="cpu"`` for the
-    CPU).
+    """The Q_ku / Q_kp discretization (2D or 3D, any cells per axis) on
+    ``device`` (default the card; raises without one, pass
+    ``device="cpu"`` for the CPU).
 
     ``elasticity_backend`` (default: the deck's): ``auto``, ``pallas``,
-    ``parity`` or ``conv``, resolved as the module docstring says.
-    ``kernels="auto"`` sends each row-layout operator, and on a CUDA device
-    the 3D flat elasticity apply (``stencil_elasticity``, the conv
-    backend's mechanics operator), through its kernel wrapper (CUDA kernel
-    on a CUDA device, plain twin on the CPU); ``kernels="plain"`` forces the
-    plain twins and the plain stencil on any device, for comparing a run
-    against the kernels.  ``multigrid``: elasticity GMG, ``auto`` (from
-    150,000 displacement dofs, and never on the 3D rows backend), ``on``
-    or ``off``, JAX's rule; the port builds it in 2D and raises where JAX
-    would build it in 3D."""
+    ``parity`` or ``conv``, resolved as the module docstring says; the rows
+    and parity kits need equal cells per axis and Q2/Q1 (the JAX package's
+    errors).  ``kernels="auto"`` sends each row-layout operator, and on a
+    CUDA device the 3D Q2 flat elasticity apply (``stencil_elasticity``,
+    the conv backend's mechanics operator, and each level operator of the
+    elasticity V-cycle) through its kernel wrapper (CUDA kernel on a CUDA
+    device, plain twin on the CPU); ``kernels="plain"`` forces the plain
+    twins and the plain stencil on any device, for comparing a run against
+    the kernels.  ``multigrid``: elasticity GMG, ``auto`` (from 150,000
+    displacement dofs, and never on the 3D rows backend), ``on`` or
+    ``off``, JAX's rule; it is built on equal cells per axis only, and
+    ``on`` raises on an anisotropic grid."""
     dim = data.dim
     if cells_per_axis is None:
         cells_per_axis = getattr(data, "cells_per_axis", None) \
             or 2 ** data.initial_refinement_level
     cells_per_axis = normalize_cells_per_axis(cells_per_axis, dim)
-    if (dim not in (2, 3) or (pressure_degree, displacement_degree) != (1, 2)
-            or len(set(cells_per_axis)) != 1):
-        raise NotImplementedError(
-            "the torch port runs 2D and 3D Q2/Q1 grids with equal cells per "
-            f"axis; got dim={dim}, degrees={pressure_degree}/"
-            f"{displacement_degree}, cells={cells_per_axis} (anisotropic "
-            "grids and other degrees: ROADMAP A10)")
+    if dim not in (2, 3):
+        raise NotImplementedError(f"structured grids are 2D or 3D; got "
+                                  f"dim={dim}")
+    isotropic = len(set(cells_per_axis)) == 1
+    kp, ku = pressure_degree, displacement_degree
     eb = elasticity_backend or data.elasticity_backend
     if eb not in ("auto", "pallas", "parity", "conv"):
         raise ValueError(f"unknown elasticity backend {eb!r}")
-    if eb == "parity" and dim != 2:
+    # the JAX package's kit rules (structured.py:317-376): the parity kit
+    # for 2D Q2/Q1 on equal counts, the rows kit for 3D Q2 on equal counts;
+    # the rows kernels take Q1 pressure, so the port asks for it too
+    eligible2d = dim == 2 and (ku, kp) == (2, 1) and isotropic
+    eligible3d = dim == 3 and (ku, kp) == (2, 1) and isotropic
+    if eb == "parity" and not eligible2d:
         raise NotImplementedError(
-            "the parity elasticity backend needs a 2D Q2/Q1 grid with equal "
-            f"cells per axis; got dim={dim}")
-    if eb == "pallas" and dim != 3:
+            "parity elasticity backend needs a 2D Q2/Q1 space with equal "
+            f"cells per axis; got dim={dim}, degree={ku}/{kp}, "
+            f"cells={cells_per_axis}")
+    if eb == "pallas" and not eligible3d:
         raise NotImplementedError(
-            "the pallas (rows) elasticity backend needs a 3D Q2 grid; got "
-            f"dim={dim}")
+            "Pallas elasticity backend needs a 3D Q2 space with equal "
+            f"cells per axis; got dim={dim}, degree={ku}/{kp}, "
+            f"cells={cells_per_axis}")
     if multigrid not in ("auto", "on", "off", "false", False, None):
         raise ValueError(f"unknown multigrid setting {multigrid!r}")
-    if data.mech_precond != "jacobi":
-        raise NotImplementedError("node-block Jacobi is ROADMAP A10")
     if kernels not in ("auto", "plain"):
         raise ValueError(f"kernels must be 'auto' or 'plain', got {kernels!r}")
     if dtype is None:
@@ -244,19 +257,16 @@ def build_grid_discretization(data: InputData,
 
     mesh = structured_mesh(data.domain_size[:dim], cells_per_axis,
                            lower=lower, upper=upper)
-    p_space, info_p = build_structured_space(mesh, cells_per_axis,
-                                             pressure_degree)
-    u_space, info_u = build_structured_space(mesh, cells_per_axis,
-                                             displacement_degree)
-    pq_pts, pq_wts = gauss_tensor(pressure_degree + 1, dim)
-    uq_pts, uq_wts = gauss_tensor(displacement_degree + 1, dim)
+    p_space, info_p = build_structured_space(mesh, cells_per_axis, kp)
+    u_space, info_u = build_structured_space(mesh, cells_per_axis, ku)
+    pq_pts, pq_wts = gauss_tensor(kp + 1, dim)
+    uq_pts, uq_wts = gauss_tensor(ku + 1, dim)
     jinv_p, jxw_p = uniform_geometry_factors(mesh.vertices, cells_per_axis,
                                              pq_pts, pq_wts)
     jinv_u, jxw_u = uniform_geometry_factors(mesh.vertices, cells_per_axis,
                                              uq_pts, uq_wts)
-    psi_p_at_pq, dref_p_at_pq = shape_tables(pressure_degree, dim, pq_pts)
-    psi_u_at_uq, dref_u_at_uq = shape_tables(displacement_degree, dim,
-                                             uq_pts)
+    psi_p_at_pq, dref_p_at_pq = shape_tables(kp, dim, pq_pts)
+    psi_u_at_uq, dref_u_at_uq = shape_tables(ku, dim, uq_pts)
     conn_p = np.ascontiguousarray(p_space.cell_nodes.T)
     conn_u = np.ascontiguousarray(u_space.vector_cell_dofs(dim).T)
 
@@ -281,41 +291,48 @@ def build_grid_discretization(data: InputData,
     diag_el = np.where(free_np, diag_el, 1.0)
 
     span = mesh.vertices.max(axis=0) - mesh.vertices.min(axis=0)
-    cell_mesh, sp1, su1 = _single_cell_spaces(
-        data, cells_per_axis, pressure_degree, displacement_degree,
-        span=span)
+    cell_mesh, sp1, su1 = _single_cell_spaces(data, cells_per_axis, kp, ku,
+                                              span=span)
     Me = dense.mass_element_matrices(sp1)[0]
     Le = dense.laplace_element_matrices(sp1)[0]
     Ke = dense.elasticity_element_matrices(su1, lam, mu)[0]
     Ce = _coupling_element_matrix(cell_mesh, su1, sp1, data.biot_coef)
     Pe = _projection_element_matrix(cell_mesh, su1, sp1)
     n = cells_per_axis[0]
-    if dim == 3:
-        kit = "conv" if eb == "conv" else "rows"
+    if eb == "parity" or (eb == "auto" and eligible2d
+                          and n_udofs >= PARITY_AUTO_MIN_UDOFS):
+        kit = "parity"
+    elif eligible3d and eb != "conv":
+        kit = "rows"      # 3D 'auto' means rows here, at any dtype
     else:
-        kit = "parity" if eb == "parity" or (
-            eb == "auto" and n_udofs >= PARITY_AUTO_MIN_UDOFS) else "conv"
+        kit = "conv"
     # elasticity GMG where JAX builds it: never on the 3D rows kit with
-    # 'auto'; otherwise _gmg_levels decides
-    n_levels = 1 if (kit == "rows" and multigrid == "auto") \
-        else _gmg_levels(n, dim, n_udofs, multigrid)
-    if n_levels >= 2 and dim == 3:
-        raise NotImplementedError(
-            f"multigrid={multigrid!r} at {n_udofs} displacement dofs builds "
-            "3D elasticity GMG in the JAX package; the port has it in 2D "
-            "only (ROADMAP item 6): pass multigrid='off'")
+    # 'auto'; on equal counts _gmg_levels decides; 'on' with unequal ones
+    # raises (structured.py:391-411)
+    if kit == "rows" and multigrid == "auto":
+        n_levels = 1
+    elif isotropic:
+        n_levels = _gmg_levels(n, dim, n_udofs, multigrid)
+    elif multigrid == "on":
+        raise NotImplementedError("elasticity GMG needs equal cells per "
+                                  f"axis; got {cells_per_axis}")
+    else:
+        n_levels = 1
     C = len(ops.VOIGT_PAIRS[dim])
     mk = lambda M, kin, kout, ci, co: make_stencil_apply(  # noqa: E731
         M, kin, kout, ci, co, dim, cells_per_axis, dtype, device)
-    proj_raw = mk(Pe, displacement_degree, pressure_degree, dim, C)
+    proj_raw = mk(Pe, ku, kp, dim, C)
 
     def st_proj(u):
         return proj_raw(u).reshape(-1, C).T         # (C, n_pdofs)
 
-    if dim == 3 and device.type == "cuda" and kernels == "auto":
+    # the flat kernel takes the 3D Q2 grid with equal counts
+    flat_kernel = (dim == 3 and ku == 2 and isotropic
+                   and device.type == "cuda" and kernels == "auto")
+    if flat_kernel:
         st_el = make_grid_elasticity(Ke, n, dtype, device)
     else:
-        st_el = mk(Ke, displacement_degree, displacement_degree, dim, dim)
+        st_el = mk(Ke, ku, ku, dim, dim)
 
     if kit == "rows":
         row_ops = make_row_ops(Ke, n, free_np, diag_el, Ce, Pe, dtype,
@@ -331,8 +348,9 @@ def build_grid_discretization(data: InputData,
         t0 = time.perf_counter()
         gmg, _ = build_gmg_elasticity(
             data, n_fine=n, n_levels=n_levels, dtype=dtype, device=device,
-            lower=mesh.vertices.min(axis=0), upper=mesh.vertices.max(axis=0),
-            parity_layout=kit == "parity")
+            displacement_degree=ku, lower=mesh.vertices.min(axis=0),
+            upper=mesh.vertices.max(axis=0), parity_layout=kit == "parity",
+            kernels=kernels)
         gmg_rows = getattr(gmg, "rows", None)
         gmg_setup_s = time.perf_counter() - t0
 
@@ -347,13 +365,12 @@ def build_grid_discretization(data: InputData,
         free_mask_p=dev(free_p_np), dirichlet_values_p=dev(dirichlet_p_np),
         diag_mass=dev(diag_mass), diag_laplace=dev(diag_lap),
         diag_elasticity=dev(diag_el), lam=lam, mu=mu,
-        mass=make_q1_slices_apply(Me, dim, cells_per_axis, dtype, device),
-        laplace=make_q1_slices_apply(Le, dim, cells_per_axis, dtype, device),
-        stencil_elasticity=st_el,
-        stencil_coupling=mk(Ce, pressure_degree, displacement_degree, 1, dim),
+        mass=mk(Me, kp, kp, 1, 1), laplace=mk(Le, kp, kp, 1, 1),
+        stencil_elasticity=st_el, stencil_coupling=mk(Ce, kp, ku, 1, dim),
         stencil_projection=st_proj,
         row_ops=row_ops, element_ke=Ke, element_ce=Ce, element_pe=Pe,
-        gmg_precond=gmg, gmg_precond_rows=gmg_rows, gmg_setup_s=gmg_setup_s)
+        gmg_precond=gmg, gmg_precond_rows=gmg_rows, gmg_setup_s=gmg_setup_s,
+        gmg_levels=n_levels if gmg is not None else 0, kernels=kernels)
 
 
 # 'auto' switches the 2D mechanics to the parity layout from this many

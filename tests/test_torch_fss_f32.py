@@ -104,17 +104,26 @@ def test_runner_rejects_unported_features(field, value):
 
 
 def test_unported_discretizations_raise():
+    """Anisotropic grids build in 2D and 3D as JAX's conv backend does
+    (mass and elasticity applies against JAX's to 1e-12); the parity
+    backend stays 2D only (JAX's error)."""
     data = read_input_file("configs/golden_2d.data")
-    # 2D is ported (flat path below 150,000 displacement dofs); anisotropic
-    # 2D grids are not
     assert tst.build_grid_discretization(data, device="cpu").dim == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        tst.build_grid_discretization(data, cells_per_axis=(4, 8),
-                                      device="cpu")
     data3 = read_input_file(DECK)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        tst.build_grid_discretization(data3, cells_per_axis=(2, 2, 3),
-                                      device="cpu")
+    rng = np.random.default_rng(0)
+    for d, ns in ((data, (4, 8)), (data3, (2, 2, 3))):
+        td = tst.build_grid_discretization(d, cells_per_axis=ns,
+                                           device="cpu")
+        jd = jst.build_grid_discretization(d, cells_per_axis=ns)
+        assert td.info_u.cells_per_axis == ns and td.row_ops is None
+        p = rng.standard_normal(td.n_pdofs)
+        u = rng.standard_normal(td.n_udofs)
+        for got, want in ((td.mass(torch.tensor(p)), jd.mass(p)),
+                          (td.elasticity(torch.tensor(u)),
+                           jd.elasticity(u))):
+            want = np.asarray(want)
+            assert np.abs(got.numpy() - want).max() \
+                <= 1e-12 * np.abs(want).max()
     # the conv backend is ported; the parity backend is 2D only
     assert tst.build_grid_discretization(
         data3, elasticity_backend="conv", device="cpu").row_ops is None

@@ -5,8 +5,9 @@
 ``models/cryer.py``, ``models/scaling.py``, the AMR forests, Kelly
 indicator and transfer
 ``amr/{forest,octforest,kelly,transfer,multiroot,multiroot3d}.py``, the
-four hanging-node builders of ``amr/constraints.py``, and the scipy
-oracle ``validation.py``) and imports nothing of the JAX package.
+four hanging-node builders of ``amr/constraints.py``, the node-block
+assembly ``ops/node_blocks.py`` and the scipy oracle ``validation.py``)
+and imports nothing of the JAX package.
 
 * No import line of the port or ``chip_smoke.py`` names the JAX package
   (``tests/test_torch_nojax.py`` checks in a fresh interpreter that none
@@ -20,7 +21,9 @@ oracle ``validation.py``) and imports nothing of the JAX package.
   ``configs/`` to equal meshes; the AMR modules' sources equal the
   originals but for their relative imports (and the reference checkout's
   directory, left out of two docstrings), and the constraint builders'
-  and their helpers' sources equal the originals.
+  and their helpers' sources equal the originals; ``ops/node_blocks.py``
+  holds ``elasticity_node_blocks`` of ``ops/pallas_comp_major.py`` and
+  nothing else.
 """
 
 import dataclasses
@@ -151,7 +154,12 @@ MODELS = ("terzaghi", "mandel", "cryer")
 HOST_COPIES = ("mesh/gmsh_io.py", "utils/native.py", "amr/forest.py",
                "amr/octforest.py", "amr/kelly.py", "amr/transfer.py",
                "amr/multiroot.py", "amr/multiroot3d.py", "models/scaling.py",
-               "validation.py")
+               "validation.py", "ops/node_blocks.py")
+# copies of functions of a JAX module that imports jax: the port module
+# holds exactly these functions, each source-equal to the original
+FUNCTION_COPIES = {
+    "ops/node_blocks.py": ("ops/pallas_comp_major.py",
+                           ("elasticity_node_blocks",))}
 # the numpy functions of amr/constraints.py, copied as they are (the
 # tables' class, its empty instance and _pack_rows's return are the port's)
 CONSTRAINT_BUILDERS = (
@@ -178,9 +186,23 @@ def test_model_copies_equal_jax_source(name):
     assert _code_lines(got) == _code_lines(want)
 
 
+def _function_sources(path: Path) -> dict:
+    """{name: source} of the module's top-level functions."""
+    import ast
+    text = path.read_text()
+    return {node.name: ast.get_source_segment(text, node)
+            for node in ast.parse(text).body
+            if isinstance(node, ast.FunctionDef)}
+
+
 @pytest.mark.parametrize("rel", HOST_COPIES)
 def test_host_copies_equal_jax_source(rel):
     got = REPO / "poroelasticity_dealii_torch" / rel
+    if rel in FUNCTION_COPIES:
+        src, names = FUNCTION_COPIES[rel]
+        want = _function_sources(REPO / "poroelasticity_dealii_tpu" / src)
+        assert _function_sources(got) == {k: want[k] for k in names}
+        return
     want = REPO / "poroelasticity_dealii_tpu" / rel
     assert _code_lines(got) == _code_lines(want)
 
