@@ -24,7 +24,14 @@ just before and read just after:
 * the sharded production path: the same configuration through
   ``shard_production_discretization`` on a world-size-1 NCCL process group
   (one card), every mechanics apply the slab form of the row-layout kernel,
-  held against the main path's steps;
+  the pressure stencils and the fused Jacobian on gspmd slabs, held
+  against the main path's steps;
+* the gspmd form (``shard_grid_discretization``) of the conv backend at
+  40^3 float32 on a world-size-1 NCCL group: every stencil on its
+  node-plane slab and gathered, the elasticity slab the flat kernel's slab
+  mode (launched at least once per mechanics CG iteration), the fused
+  Jacobian through the hook; bit for bit against an eager unsharded conv
+  run;
 * the flat-apply path: ``tools/apply_bench`` at 40^3 float32, the flat
   elasticity kernel through both its entry points (``make_flat_apply``,
   ``make_grid_elasticity``) held against the conv backend's plain stencil;
@@ -53,7 +60,11 @@ just before and read just after:
   stagnation exit at the float32 floor of its true residual, as in the
   reference, never at the cap), captured against eager bit for bit, the
   parity apply timed against its bound, and the flat GMG-Richardson path
-  (``elasticity_backend="conv"``) on the evolving steps against it;
+  (``elasticity_backend="conv"``) on the evolving steps against it; then
+  the 2D production form (the y-slab parity kit, its V-cycle on gathered
+  slabs) on a world-size-1 NCCL group against that run: the same FSS and
+  pressure counts, every mechanics solve on the same exit, p and u within
+  1e-4 of max;
 * the generic path (``build_discretization``: gather, shape-table
   products and plan scatter in plain torch, flat Jacobi-CG): the bench
   configuration on the distorted 40^3 hex mesh (1,663,244 DOF, float32),
@@ -61,7 +72,10 @@ just before and read just after:
   against eager bit for bit; its five applies at 40^3 in float32 and
   float64 (two applies bitwise equal, timed beside their bounds, the
   scatter's share and the flat kernel); the generic build on the
-  undistorted 20^3 grid against the rows path;
+  undistorted 20^3 grid against the rows path; then the psum form
+  (``shard_discretization``, one all-reduce per apply) on a world-size-1
+  NCCL group against the captured generic run: counts equal, p and u
+  within 1e-4 of max;
 * the CLI on the 3D deck, on the rows backend, on a copy of the deck with
   ``Elasticity backend = conv``, and on a copy with ``Steps per dispatch =
   4``, ``Sync every = 2`` and no VTK output (blocks of 4 and 2 steps), on
@@ -83,7 +97,9 @@ just before and read just after:
   consistent, ``condense_vec`` bitwise repeatable, the old mesh's solver,
   graphs and discretization freed and their memory returned, each step's
   ms and the remesh's split, and padded against unpadded steps on the
-  final mesh (what ``AMR bucketing`` costs);
+  final mesh (what ``AMR bucketing`` costs); and the golden adaptive deck
+  with ``Sharding = psum`` through the adaptive runner on a world-size-1
+  NCCL group (every mesh sharded) against the same pin;
 * the runner's deck options (``runner_options_phase``): the 40^3 float32
   bench configuration through ``SimulationRunner`` with a checkpoint every
   2 steps, resumed by a fresh runner from step 2 (steps 3-4 bit for bit,
@@ -99,7 +115,14 @@ Before the paths, the slab form of the row-layout apply (K5's z-slab form,
 ``nz``/``nv``) is held against its plain twin on every slab of 2-, 4- and
 8-way splits at n = 40 and 7, and the slabs stitched against the whole-grid
 apply; the 4-way split at 40^3 float32 is timed beside its bound and its
-library yardstick.
+library yardstick.  The flat kernel's slab mode (K6's ``nz``, the gspmd
+elasticity slab) is held the same way on the slabs ``SlabStencil`` gives
+each rank of 1/2/4/8-way splits of the node planes at n = 40 and 7, the
+stitched slabs bit for bit equal to the whole-grid K6, slab 0 of the
+4-way split at 40^3 timed in both types.  Every sharded phase runs on one
+card (NCCL refuses two ranks on one GPU): the multi-rank split runs on
+gloo CPU ranks in the tests; each sharded phase prints its wall seconds,
+step ms and, from one more profiled steady step, its busy and idle share.
 
 The 2D, the generic and the adaptive paths reach no hand-written kernel
 (the JAX package computes them with XLA einsums, gathers and segment
@@ -112,6 +135,7 @@ It prints the kernel summary and, as its last line,
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -136,7 +160,9 @@ from poroelasticity_dealii_torch.ops import comp_major as cm
 from poroelasticity_dealii_torch.ops import elasticity as eg
 from poroelasticity_dealii_torch.ops.parity2d import ElasticityParityOps
 from poroelasticity_dealii_torch.parallel import rows as pr
-from poroelasticity_dealii_torch.parallel.sharding import make_slab_group
+from poroelasticity_dealii_torch.parallel.sharding import (
+    ShardedDiscretization, SlabGroup, SlabStencil, make_slab_group,
+    shard_discretization, shard_grid_discretization)
 from poroelasticity_dealii_torch.solvers.discretization import \
     build_discretization
 from poroelasticity_dealii_torch.solvers.fss import FixedStressSolver
@@ -209,10 +235,13 @@ def kernel_work(name: str, n: int, dtype, nnz: dict, nz: int = None,
     products counted as 2 flop per nonzero of the element matrix (``nnz``:
     {"ke", "ce", "pe"} counts) per cell, plus the masking ops.  The slab
     form (``elasticity_rows_apply[slab]``) moves ``(nz+1)*24`` rows in and
-    out and multiplies its ``nv`` real cell layers only."""
+    out and multiplies its ``nv`` real cell layers only; the flat apply's
+    slab mode (``elasticity_grid_apply[slab]``) moves the flat vectors of
+    ``nz`` cell layers in and out and multiplies all of them (pass
+    ``nv = nz``)."""
     nz = n if nz is None else nz
     rows = (nz + 1) * 24 * cm._width(n)       # row-layout array, padded
-    flat = (2 * n + 1) ** 3 * 3               # flat Q2 vector
+    flat = (2 * n + 1) ** 2 * (2 * nz + 1) * 3   # flat Q2 vector (slab)
     q1 = (n + 1) ** 3                         # flat Q1 vector
     cells = (n if nv is None else nv) * n * n
     mat = 2 * nnz["ke"] * cells
@@ -225,6 +254,7 @@ def kernel_work(name: str, n: int, dtype, nnz: dict, nz: int = None,
         "coupling_rows": (q1 + 81 * 8 + rows, 2 * nnz["ce"] * cells),
         "projection_rows": (rows + 48 * 81 + 6 * q1, 2 * nnz["pe"] * cells),
         "elasticity_grid_apply": (2 * flat + 81 * 81, mat),
+        "elasticity_grid_apply[slab]": (2 * flat + 81 * 81, mat),
     }[name]
     item = torch.tensor([], dtype=dtype).element_size()
     return elems * item, flop
@@ -640,6 +670,207 @@ def slab_timing(n, dtype, n_dev, Lz, nv, d, x, K, kern, plain, y, ref,
     return rec
 
 
+FLAT_SLAB_TIMED = 4          # the flat slab mode's timed split at 40^3
+
+
+def flat_slab_kernel_phase(dev, d) -> dict:
+    """K6's slab mode (``elasticity_grid_apply(..., nz=)``, the gspmd
+    elasticity slabs) on every slab of 1-, 2-, 4- and 8-way splits of the
+    node planes at n = 40 and 7, float64 and float32, each slab's sub-grid
+    the one :class:`..parallel.sharding.SlabStencil` gives its rank:
+    against its plain twin at the kernel phase's tolerances and bitwise
+    repeatable, and the slabs' owned planes stitched bitwise equal to the
+    whole-grid K6.  Slab 0 of the 4-way split at 40^3 is timed in both
+    types beside its bound and its library yardstick (one CSR SpMV of the
+    slab's operator).  Returns the timed records by type name."""
+    nnz = {"ke": nonzeros(d.element_ke), "ce": nonzeros(d.element_ce),
+           "pe": nonzeros(d.element_pe)}
+    timed = {}
+    for n in SLAB_SHAPES_N:
+        rng = np.random.default_rng(n)
+        g = 2 * n + 1
+        u = rng.standard_normal(g ** 3 * 3)
+        for dtype in (torch.float64, torch.float32):
+            spec = eg.make_grid_elasticity(d.element_ke, n, dtype, dev).spec
+            K = torch.as_tensor(d.element_ke, dtype=dtype, device=dev)
+            uf = torch.as_tensor(u, dtype=dtype, device=dev)
+            whole = eg.elasticity_grid_apply(uf, K, n).reshape(g, g, g, 3)
+            X = uf.reshape(g, g, g, 3)
+            for n_dev in SLAB_SPLITS:
+                stitched = torch.full_like(whole, float("nan"))
+                errs = []
+                for r in range(n_dev):
+                    st = SlabStencil(spec, SlabGroup(r, n_dev, None, dev),
+                                     "elasticity")
+                    if st.sub is None:
+                        continue
+                    nz = (st.n_in - 1) // 2
+                    xs = X[st.in0:st.in0 + st.n_in].reshape(-1).clone()
+                    kern = lambda: st.sub(xs)  # noqa: E731
+                    plain = lambda: eg.elasticity_grid_apply_plain(  # noqa
+                        xs, K, n, nz)
+                    y1, y2, ref = kern(), kern(), plain()
+                    torch.cuda.synchronize()
+                    err = _rel_err(y1, ref)
+                    errs.append(err)
+                    if not err <= TOL[dtype]:
+                        raise AssertionError(
+                            f"flat slab {r}/{n_dev} n={n} {dtype}: rel err "
+                            f"{err:.3e} vs plain twin > {TOL[dtype]:.0e}")
+                    if not torch.equal(y1, y2):
+                        raise AssertionError(f"flat slab {r}/{n_dev} n={n} "
+                                             f"{dtype}: repeat runs differ")
+                    stitched[st.Z0:st.Z1] = y1.reshape(-1, g, g, 3)[
+                        st.out0:st.out0 + st.Z1 - st.Z0]
+                    if (n, n_dev, r) == (N_MAIN, FLAT_SLAB_TIMED, 0):
+                        timed[str(dtype).split(".")[-1]] = flat_slab_timing(
+                            n, nz, dtype, xs, K, kern, plain, y1, ref, nnz)
+                bitwise = torch.equal(stitched, whole)
+                rec = {"flat_slab_split": n_dev, "n": n,
+                       "dtype": str(dtype).split(".")[-1],
+                       "max_rel_err_vs_twin": max(errs),
+                       "stitched_bitwise_vs_whole": bitwise}
+                print(json.dumps(rec), flush=True)
+                if not bitwise:
+                    raise AssertionError(f"{n_dev} flat slabs stitched, "
+                                         f"n={n} {dtype}: not the whole-grid "
+                                         "K6 bit for bit")
+    return timed
+
+
+def flat_slab_timing(n, nz, dtype, x, K, kern, plain, y, ref, nnz) -> dict:
+    """Device ms of one flat slab's kernel and twin, its bound, and its
+    library yardstick (assembled in float64 on the card, run in
+    ``dtype``)."""
+    rec = {"name": "elasticity_grid_apply[slab]",
+           "slab_split": FLAT_SLAB_TIMED, "slab": 0, "n": n, "nz": nz,
+           "dtype": str(dtype).split(".")[-1],
+           "max_abs_err": (y - ref).abs().max().item(),
+           "max_rel_err": _rel_err(y, ref)}
+    rec["ms"], rec["host_ms"] = device_and_host_ms(kern)
+    rec["plain_ms"] = cuda_time_ms(plain)
+    rec["bound_ms"], rec["bound_by"] = bound(
+        "elasticity_grid_apply[slab]", n, dtype, nnz, nz=nz, nv=nz)
+    M64 = apply_bench.library_csr("elasticity_grid_apply", n, K.double(),
+                                  None, None, None, nz=nz)
+    M = torch.sparse_csr_tensor(M64.crow_indices(), M64.col_indices(),
+                                M64.values().to(dtype), M64.shape)
+    rec["library_ms"], yl = apply_bench.spmv_ms(M, x)
+    rec["library_nnz"] = M64._nnz()
+    rec["library_rel_err_vs_kernel"] = _rel_err(yl.view_as(y), y)
+    del M, M64, yl
+    torch.cuda.empty_cache()
+    print(json.dumps(rec), flush=True)
+    if not rec["library_rel_err_vs_kernel"] <= TOL[torch.float32]:
+        raise AssertionError(f"flat slab: CSR SpMV vs kernel rel err "
+                             f"{rec['library_rel_err_vs_kernel']:.3e}")
+    return rec
+
+
+@contextlib.contextmanager
+def world_of_one():
+    """A world-size-1 NCCL process group on card 0 (one card: NCCL
+    refuses two ranks on one GPU), destroyed at the end."""
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
+                                rank=0, world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def device_busy(fn) -> tuple:
+    """``(fn(), busy ms)``: ``fn`` under ``torch.profiler`` with the
+    device's activity only (the union of its kernel and copy intervals;
+    no host events, whose processing takes seconds for an eager step)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+    cuda = torch.autograd.DeviceType.CUDA
+    return out, profile_step._busy_ms(
+        [(e.time_range.start, e.time_range.end) for e in prof.events()
+         if e.device_type == cuda])
+
+
+def phase_record(tag, t0, ms, solver, state, bc_prev) -> dict:
+    """A sharded phase's line: its wall seconds since ``t0``, its steps'
+    ms, and one more steady step under the profiler (device busy and idle
+    share, :func:`device_busy`)."""
+    wall = time.perf_counter() - t0
+    (_, _, pms), busy = device_busy(
+        lambda: profile_step._step(solver, state, bc_prev, bc_prev))
+    rec = {f"{tag}_phase": {
+        "wall_s": wall, "step_ms": ms, "profiled_steady_ms": pms,
+        "busy_ms": busy, "busy_share": busy / pms,
+        "idle_share": 1.0 - busy / pms,
+        "gpu": torch.cuda.get_device_name()}}
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def _last_scale(n_evolving) -> float:
+    return 1.0 + BC_RATE * n_evolving
+
+
+def gspmd_phase(dev) -> int:
+    """The gspmd form of the conv backend at 40^3 float32 (1,663,244 DOF,
+    ``multigrid="off"``) on a world-size-1 NCCL group: 2 evolving + 1
+    steady steps, every stencil on its node-plane slab and gathered, the
+    elasticity slab K6's slab mode, the fused pressure Jacobian through the
+    hook; held bit for bit against an eager unsharded conv run of the same
+    steps; K6's slab mode launched at least once per mechanics CG
+    iteration.  Returns its slab launches."""
+    data = bench_data()
+    t0 = time.perf_counter()
+    disc = build_grid_discretization(data, cells_per_axis=N_MAIN,
+                                     multigrid="off",
+                                     elasticity_backend="conv", device=dev)
+    ref = run_steps(FixedStressSolver(disc, data, cuda_graphs=False),
+                    N_CONV_EVOLVING, N_CONV_STEADY, log=False)
+    with world_of_one():
+        t1 = time.perf_counter()
+        sdisc = shard_grid_discretization(disc, make_slab_group(dev))
+        solver = FixedStressSolver(sdisc, data)
+        if solver.graphs is not None or sdisc.row_ops is not None:
+            raise AssertionError("gspmd: graphs captured or a rows kit")
+        cm.reset_launch_counts()
+        SlabStencil.calls.clear()
+        states, stats, ms = run_steps(solver, N_CONV_EVOLVING, N_CONV_STEADY,
+                                      log=True)
+        torch.cuda.synchronize()
+        slab = eg.elasticity_grid_apply.slab_launches
+        whole = eg.elasticity_grid_apply.launches - slab
+        calls = dict(SlabStencil.calls)
+        phase_record("gspmd", t1, ms, solver, states[-1],
+                     _last_scale(N_CONV_EVOLVING))
+    check_steps(states, stats, sdisc, N_CONV_EVOLVING)
+    mech = sum(s.mech_cg_iterations for s in stats)
+    rec = {"gspmd": {"setup_and_reference_s": t1 - t0,
+                     "flat_slab_launches": slab, "whole_grid_launches": whole,
+                     "mech_cg_iterations": mech, "slab_stencil_calls": calls,
+                     "bitwise_vs_unsharded": [
+                         torch.equal(a.p, b.p) and torch.equal(a.u, b.u)
+                         for a, b in zip(states, ref[0])],
+                     "counts": [_counts(s) for s in stats],
+                     "reference_counts": [_counts(s) for s in ref[1]],
+                     "reference_ms": ref[2]}}
+    print(json.dumps(rec), flush=True)
+    r = rec["gspmd"]
+    if not all(r["bitwise_vs_unsharded"]) or r["counts"] != \
+            r["reference_counts"]:
+        raise AssertionError(f"gspmd vs the unsharded conv run: {r}")
+    if slab < mech or whole:
+        raise AssertionError(f"gspmd: K6 slab launches {slab} for {mech} "
+                             f"mechanics CG iterations, whole-grid {whole}")
+    if not calls.get("jacobian") or set(calls) != {
+            "mass", "laplace", "elasticity", "coupling", "projection",
+            "jacobian"}:
+        raise AssertionError(f"gspmd: wrapped stencils {calls}")
+    return slab
+
+
 def sharded_path_phase(dev, rows_states, rows_stats, rows_ms,
                        slab_shape) -> int:
     """The bench configuration at 40^3 float32 through
@@ -650,42 +881,45 @@ def sharded_path_phase(dev, rows_states, rows_stats, rows_ms,
     against the main path's (equal FSS and pressure counts, p and u within
     CROSS_TOL of their max).  ``slab_shape``: the (Lz, nv) at which
     ``slab_kernel_phase`` held and timed the kernel; the path's must be the
-    same.  Returns the slab form's launches in the steps."""
+    same.  Since the pressure stencils and the fused Jacobian run on gspmd
+    slabs (``shard_grid_discretization`` under the slab kit), each of them
+    must run too.  Returns the slab form's launches in the steps."""
     data = bench_data()
-    torch.cuda.set_device(0)
-    with tempfile.TemporaryDirectory() as tmp:
-        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
-                                rank=0, world_size=1)
-        try:
-            t0 = time.perf_counter()
-            disc = build_grid_discretization(data, cells_per_axis=N_MAIN,
-                                             multigrid="off", device=dev)
-            group = make_slab_group(dev)
-            sdisc = pr.shard_production_discretization(disc, group)
-            solver = FixedStressSolver(sdisc, data)
-            torch.cuda.synchronize()
-            print(f"sharded path setup: {time.perf_counter() - t0:.2f} s, "
-                  f"{group.size} rank(s), slab Lz={sdisc.row_ops.Lz} "
-                  f"nv={sdisc.row_ops.nv}", flush=True)
-            if (sdisc.row_ops.Lz, sdisc.row_ops.nv) != tuple(slab_shape):
-                raise AssertionError(f"sharded path slab (Lz, nv) != the "
-                                     f"checked shape {slab_shape}")
-            cm.reset_launch_counts()
-            t0 = time.perf_counter()
-            states, stats, ms = run_steps(solver, N_SHARDED_EVOLVING,
-                                          N_SHARDED_STEADY, log=True)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = launch_counts()
-            slab = cm.elasticity_rows_apply.slab_launches
-            modes = cm.elasticity_rows_apply.mode_launches
-        finally:
-            dist.destroy_process_group()
+    with world_of_one():
+        t0 = time.perf_counter()
+        disc = build_grid_discretization(data, cells_per_axis=N_MAIN,
+                                         multigrid="off", device=dev)
+        group = make_slab_group(dev)
+        sdisc = pr.shard_production_discretization(disc, group)
+        solver = FixedStressSolver(sdisc, data)
+        torch.cuda.synchronize()
+        print(f"sharded path setup: {time.perf_counter() - t0:.2f} s, "
+              f"{group.size} rank(s), slab Lz={sdisc.row_ops.Lz} "
+              f"nv={sdisc.row_ops.nv}", flush=True)
+        if (sdisc.row_ops.Lz, sdisc.row_ops.nv) != tuple(slab_shape):
+            raise AssertionError(f"sharded path slab (Lz, nv) != the "
+                                 f"checked shape {slab_shape}")
+        cm.reset_launch_counts()
+        SlabStencil.calls.clear()
+        t0 = time.perf_counter()
+        states, stats, ms = run_steps(solver, N_SHARDED_EVOLVING,
+                                      N_SHARDED_STEADY, log=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        slab = cm.elasticity_rows_apply.slab_launches
+        modes = cm.elasticity_rows_apply.mode_launches
+        calls = dict(SlabStencil.calls)
+        phase_record("sharded", t0, ms, solver, states[-1],
+                     _last_scale(N_SHARDED_EVOLVING))
     print(f"sharded path: initial_state + {N_SHARDED_EVOLVING} evolving + "
           f"{N_SHARDED_STEADY} steady steps in {wall:.2f} s, launches "
-          f"{launches}, slab form {slab}, whole-grid modes {modes}",
-          flush=True)
+          f"{launches}, slab form {slab}, whole-grid modes {modes}, gspmd "
+          f"pressure stencils {calls}", flush=True)
     check_steps(states, stats, sdisc, N_SHARDED_EVOLVING)
+    if not all(calls.get(k) for k in ("mass", "laplace", "jacobian")):
+        raise AssertionError(f"sharded path: the pressure stencils did not "
+                             f"run on gspmd slabs: {calls}")
     if slab <= 0 or launches["coupling_rows"] <= 0 or \
             launches["projection_rows"] <= 0:
         raise AssertionError("sharded path: a kernel of the path never "
@@ -968,7 +1202,7 @@ def cli_phase():
 # the 2D structured path: the golden deck, and the 512^2 at-scale point
 # ---------------------------------------------------------------------------
 
-N_2D = 512               # 512^2 cells: 1025^2*2 + 513^2 = 2,365,955 DOF
+N_2D = 512               # 512^2 cells: 1025^2*2 + 513^2 = 2,364,419 DOF
 N_2D_EVOLVING, N_2D_STEADY = 2, 1
 N_FLAT_EVOLVING = 2
 PARITY_VS_FLAT_TOL = 1e-4   # parity vs flat GMG path: p, u rel to max |field|
@@ -1095,12 +1329,13 @@ def check_solves_2d(k, solves, stats, data, tag="2D") -> dict:
 
 
 def run_steps_2d(solver, log, n_evolving, n_steady, tag="2d",
-                 launches=None):
+                 launches=None, mech_records=None):
     """:func:`run_steps` with every linear solve checked
     (:func:`check_solves_2d`), and the graph replays, the port's kernel
     launches and the mechanics solves of each step printed beside its
     counts; ``log``: the solver's :class:`SolveLog`; ``launches``: a dict
-    the steps' kernel launches are added into."""
+    the steps' kernel launches are added into; ``mech_records``: a list
+    each step's mechanics solves are appended to."""
     data = solver.data
     dt = data.time_step
     state = solver.initial_state()
@@ -1119,6 +1354,8 @@ def run_steps_2d(solver, log, n_evolving, n_steady, tag="2d",
         ms = (time.perf_counter() - t0) * 1e3
         bc_prev = bc
         mech = check_solves_2d(k, log.take(), stats, data, tag)
+        if mech_records is not None:
+            mech_records.append(mech)
         print(json.dumps({
             f"{tag}_step": k,
             "kind": "evolving" if k <= n_evolving else "steady",
@@ -1201,7 +1438,7 @@ def parity_apply_timing(disc, dev) -> dict:
     return rec
 
 
-def phase_2d(dev) -> None:
+def phase_2d(dev) -> tuple:
     """The 2D path at the at-scale point on the card: the parity kit with
     the parity-resident GMG (asserted selected), 2 evolving + 1 steady
     captured steps (every solve converged, no mechanics solve at the cap,
@@ -1209,14 +1446,18 @@ def phase_2d(dev) -> None:
     eager (counts, p and u bit for bit), and the flat GMG-Richardson path
     (``elasticity_backend="conv"``) on the evolving steps against them
     (FSS and pressure counts equal, p and u within
-    :data:`PARITY_VS_FLAT_TOL`); products at full float32 (TF32 off)."""
+    :data:`PARITY_VS_FLAT_TOL`); products at full float32 (TF32 off).
+    Returns the captured parity run's states, stats and mechanics
+    solves."""
     check_tf32_off()
     data, disc, solver, log, _ = build_2d(dev)
     if not isinstance(disc.row_ops, ElasticityParityOps) or \
             disc.gmg_precond_rows is None:
         raise AssertionError(f"512^2 'auto' did not select the parity kit "
                              f"with gmg_precond_rows: {type(disc.row_ops)}")
-    run = run_steps_2d(solver, log, N_2D_EVOLVING, N_2D_STEADY)
+    mech = []
+    run = run_steps_2d(solver, log, N_2D_EVOLVING, N_2D_STEADY,
+                       mech_records=mech)
     states, stats, ms = run
     captured_vs_eager("2d", solver, disc, data, captured_run=run)
     parity_apply_timing(disc, dev)
@@ -1249,6 +1490,62 @@ def phase_2d(dev) -> None:
             if not rec[f"{name}_max_rel_err"] <= PARITY_VS_FLAT_TOL:
                 raise AssertionError(f"2D step {k + 1} {name}: parity vs "
                                      f"flat rel err "
+                                     f"{rec[f'{name}_max_rel_err']:.3e}")
+    return states, stats, mech
+
+
+def production_2d_phase(dev, ref_states, ref_stats, ref_mech) -> None:
+    """The 2D production form at 512^2 float32 (2,364,419 DOF,
+    ``build_2d``'s configuration) on a world-size-1 NCCL group: the y-slab
+    parity kit with the parity V-cycle on gathered slabs, the pressure
+    stencils on gspmd slabs, 2 evolving + 1 steady steps (every solve
+    checked as :func:`run_steps_2d` checks them), against the unsharded
+    captured 512^2 run of :func:`phase_2d`: the same FSS and pressure
+    counts, each mechanics solve on the same exit (converged or the
+    stagnation exit, never the cap), p and u within :data:`CROSS_TOL` of
+    their max."""
+    data = data_2d()
+    with world_of_one():
+        t0 = time.perf_counter()
+        disc = build_grid_discretization(data, cells_per_axis=N_2D,
+                                         multigrid="auto", device=dev)
+        sdisc = pr.shard_production_discretization(disc,
+                                                   make_slab_group(dev))
+        if not isinstance(sdisc.row_ops, pr.ShardedParityOps) or \
+                sdisc.gmg_precond_rows is None:
+            raise AssertionError("2D production: no y-slab parity kit with "
+                                 "its V-cycle")
+        solver = FixedStressSolver(sdisc, data)
+        log = SolveLog(solver)
+        mech = []
+        states, stats, ms = run_steps_2d(solver, log, N_2D_EVOLVING,
+                                         N_2D_STEADY, tag="2d_sharded",
+                                         mech_records=mech)
+        phase_record("2d_sharded", t0, ms, solver, states[-1],
+                     _last_scale(N_2D_EVOLVING))
+        comm = dataclasses.asdict(sdisc.row_ops.comm)
+    print(json.dumps({"2d_sharded_comm": comm}), flush=True)
+    for k in range(N_2D_EVOLVING + N_2D_STEADY):
+        a, b = stats[k], ref_stats[k]
+        exits = [list(zip(m["converged"], m["stalled"]))
+                 for m in (mech[k], ref_mech[k])]
+        rec = {"2d_sharded_vs_unsharded_step": k + 1,
+               "fss": [a.fss_iterations, b.fss_iterations],
+               "pressure": [a.pressure_iterations, b.pressure_iterations],
+               "cg_mechanics": [a.mech_cg_iterations, b.mech_cg_iterations],
+               "mechanics_exits": exits, "tol": CROSS_TOL}
+        for name in ("p", "u"):
+            rec[f"{name}_max_rel_err"] = _rel_err(
+                getattr(states[k], name), getattr(ref_states[k], name))
+        print(json.dumps(rec), flush=True)
+        if rec["fss"][0] != rec["fss"][1] or \
+                rec["pressure"][0] != rec["pressure"][1] or \
+                exits[0] != exits[1]:
+            raise AssertionError(f"2D production step {k + 1}: {rec}")
+        for name in ("p", "u"):
+            if not rec[f"{name}_max_rel_err"] <= CROSS_TOL:
+                raise AssertionError(f"2D production step {k + 1} {name}: "
+                                     f"rel err "
                                      f"{rec[f'{name}_max_rel_err']:.3e}")
 
 
@@ -1318,7 +1615,7 @@ def check_tf32_off() -> None:
         raise AssertionError("TF32 is on for float32 matmuls")
 
 
-def generic_phase(dev) -> None:
+def generic_phase(dev) -> tuple:
     """The generic path at the at-scale point: the bench configuration on
     the distorted 40^3 hex mesh (``profile_step.generic_mesh``, 1,663,244
     DOF, float32) through ``build_discretization``, 2 evolving + 1 steady
@@ -1327,7 +1624,8 @@ def generic_phase(dev) -> None:
     (``apply_bench.generic_run``, float32 and float64: two applies bitwise
     equal, timed beside their bounds, the scatter's share and the flat
     kernel K6); the generic build on the undistorted 20^3 grid against the
-    rows path (:func:`generic_vs_rows`).  TF32 off throughout."""
+    rows path (:func:`generic_vs_rows`).  TF32 off throughout.  Returns
+    the discretization and the captured run's states and stats."""
     check_tf32_off()
     data = bench_data()
     torch.cuda.synchronize()
@@ -1350,7 +1648,8 @@ def generic_phase(dev) -> None:
         "replays": dict(solver.graphs.replays)}}), flush=True)
     check_steps(run[0], run[1], disc, N_GENERIC_EVOLVING)
     captured_vs_eager("generic", solver, disc, data, captured_run=run)
-    del solver, disc, run
+    states, stats = run[0], run[1]
+    del solver, run
     gc.collect()
     torch.cuda.empty_cache()
     for rec in apply_bench.generic_run(N_MAIN, dev):
@@ -1360,6 +1659,50 @@ def generic_phase(dev) -> None:
                                  f"({rec['dtype']}): {rec}")
     check_tf32_off()
     generic_vs_rows(dev, data)
+    return disc, states, stats
+
+
+def psum_phase(dev, disc, ref_states, ref_stats) -> None:
+    """The psum form on the generic path at scale: the distorted 40^3 hex
+    mesh (``profile_step.generic_mesh``, 1,663,244 DOF, float32) through
+    ``shard_discretization`` on a world-size-1 NCCL group (the rank's
+    chunk all 64,000 cells, one all-reduce per apply), 2 evolving + 1
+    steady steps against the unsharded captured run of
+    :func:`generic_phase` on ``disc`` (its discretization): counts equal,
+    p and u within :data:`CROSS_TOL` of their max (and whether bit for
+    bit)."""
+    data = bench_data()
+    with world_of_one():
+        t0 = time.perf_counter()
+        sdisc = shard_discretization(disc, make_slab_group(dev))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        del disc
+        solver = FixedStressSolver(sdisc, data)
+        if not isinstance(sdisc, ShardedDiscretization) or \
+                solver.graphs is not None:
+            raise AssertionError("psum: not sharded, or graphs captured")
+        states, stats, ms = run_steps(solver, N_GENERIC_EVOLVING,
+                                      N_GENERIC_STEADY, log=True)
+        phase_record("psum", t0, ms, solver, states[-1],
+                     _last_scale(N_GENERIC_EVOLVING))
+    check_steps(states, stats, sdisc, N_GENERIC_EVOLVING)
+    print(json.dumps({"psum_setup": {"shard_s": t1 - t0,
+                                     "cells": list(sdisc.cells)}}),
+          flush=True)
+    for k in range(N_GENERIC_EVOLVING + N_GENERIC_STEADY):
+        rec = {"psum_vs_generic_step": k + 1,
+               "counts": [_counts(stats[k]), _counts(ref_stats[k])],
+               "bitwise": torch.equal(states[k].p, ref_states[k].p)
+               and torch.equal(states[k].u, ref_states[k].u),
+               "tol": CROSS_TOL}
+        for name in ("p", "u"):
+            rec[f"{name}_max_rel_err"] = _rel_err(
+                getattr(states[k], name), getattr(ref_states[k], name))
+        print(json.dumps(rec), flush=True)
+        if rec["counts"][0] != rec["counts"][1] or not all(
+                rec[f"{x}_max_rel_err"] <= CROSS_TOL for x in ("p", "u")):
+            raise AssertionError(f"psum step {k + 1}: {rec}")
 
 
 def _grid_order(space, n: int) -> np.ndarray:
@@ -1501,9 +1844,9 @@ def amr_pin_check(name: str, hist: list, pin: list) -> None:
         "max_rel_err_vs_pin": worst, "rtol": AMR_PIN_RTOL}}), flush=True)
 
 
-def amr_golden_check(cwd: Path) -> None:
-    """The CLI's run of ``configs/golden_2d_adaptive.data`` (float64, 17
-    steps, 256 -> 376 -> 724 -> 1000 cells) against
+def amr_golden_check(cwd: Path, tag: str = "amr_golden_cli") -> None:
+    """A run of ``configs/golden_2d_adaptive.data`` (float64, 17 steps,
+    256 -> 376 -> 724 -> 1000 cells; the CLI's, or ``tag``'s) against
     ``tests/data/adaptive_golden_history.json``: cells, pressure dofs, FSS
     and pressure counts exactly, ``pressure_error`` within
     :data:`AMR_GOLDEN_RTOL`; 18 VTK files."""
@@ -1523,7 +1866,7 @@ def amr_golden_check(cwd: Path) -> None:
             raise AssertionError(f"adaptive golden step {a['step']}: {a} "
                                  f"vs pin {r}")
     vtks = sorted((cwd / "solution").glob("solution-*.vtk"))
-    rec = {"amr_golden_cli": {
+    rec = {tag: {
         "steps": len(log), "cells": [a["n_cells"] for a in log],
         "pressure": [a["pressure_iterations"] for a in log],
         "wall_ms": [a["wall_s"] * 1e3 for a in log],
@@ -1532,6 +1875,46 @@ def amr_golden_check(cwd: Path) -> None:
     print(json.dumps(rec), flush=True)
     if len(vtks) != len(ref) + 1:
         raise AssertionError(f"adaptive golden run VTK output: {rec}")
+
+
+def amr_psum_check(dev) -> None:
+    """The golden adaptive deck with ``Sharding = psum`` through the
+    adaptive runner on a world-size-1 NCCL group (every mesh's
+    discretization sharded after its padding, one all-reduce per apply),
+    float64, 17 steps and 3 remeshes, held against the pin as the CLI run
+    (:func:`amr_golden_check`); its last step under ``torch.profiler``."""
+    from poroelasticity_dealii_torch.amr.driver import AMRSimulationRunner
+    from poroelasticity_dealii_torch import read_input_file
+    base = read_input_file(str(AMR_GOLDEN_DECK))
+    n_steps = int(np.ceil(base.t_max / base.time_step - 1e-12))
+    with tempfile.TemporaryDirectory() as tmp, world_of_one():
+        cwd = Path(tmp)
+        data = dataclasses.replace(base, sharding="psum",
+                                   output_directory=str(cwd / "solution"))
+        t0 = time.perf_counter()
+        runner = AMRSimulationRunner(data, device=dev, run_log=True)
+        sharded = [isinstance(runner.disc, ShardedDiscretization)]
+        busy = None
+        events = runner.steps()
+        for kind, _, info in events:
+            if kind == "before":
+                sharded.append(isinstance(runner.disc,
+                                          ShardedDiscretization))
+                if info == n_steps:
+                    _, busy = device_busy(lambda: next(events))
+        runner.logger.close()
+        wall = time.perf_counter() - t0
+        log = _run_log(cwd / "solution" / "run_log.jsonl")
+        last_ms = log[-1]["wall_s"] * 1e3
+        print(json.dumps({"amr_psum_phase": {
+            "wall_s": wall, "step_ms": [a["wall_s"] * 1e3 for a in log],
+            "profiled_last_step_ms": last_ms, "busy_ms": busy,
+            "busy_share": busy / last_ms, "idle_share": 1.0 - busy / last_ms,
+            "gpu": torch.cuda.get_device_name()}}), flush=True)
+        if not all(sharded):
+            raise AssertionError(f"adaptive psum: a mesh ran unsharded "
+                                 f"{sharded}")
+        amr_golden_check(cwd, "amr_psum_golden")
 
 
 def _memory(dev) -> dict:
@@ -2552,6 +2935,14 @@ def library_phase(dev, d, records):
     return out
 
 
+def timed_phase(name: str, fn, *args):
+    """``fn(*args)``, its wall seconds printed (the sharded phases)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"{name} phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2583,6 +2974,10 @@ def main() -> int:
             library_phase(dev, d, records)
             # the shape the sharded path launches on one card: a 1-way split
             slab_rec = slab_kernel_phase(dev, d)[(1, "float32")]
+            # K6's slab mode at n = 40 and 7; the 4-way split timed
+            flat_slab_rec = timed_phase("flat slab kernel",
+                                        flat_slab_kernel_phase, dev,
+                                        d)["float32"]
 
     launches, states, stats, ms, solver = main_path(dev)
     captured_vs_eager("rows", solver, solver.disc, solver.data)
@@ -2591,15 +2986,17 @@ def main() -> int:
     cross_check(dev, states, stats)
     slab_launches = sharded_path_phase(dev, states, stats, ms,
                                        (slab_rec["Lz"], slab_rec["nv"]))
+    flat_slab_launches = timed_phase("gspmd", gspmd_phase, dev)
     flat_apply_phase(dev)
     # the kernels line keeps the conv path's own K6 count; the GMG path's
     # is in its "gmg_config" line
     launches["elasticity_grid_apply"], conv_step1 = conv_phase(dev, states)
     structured_options_phase(dev, states[0], conv_step1, ms)
     del states, conv_step1
-    phase_2d(dev)
-    generic_phase(dev)
+    timed_phase("2D production", production_2d_phase, dev, *phase_2d(dev))
+    timed_phase("psum", psum_phase, dev, *generic_phase(dev))
     amr_phase(dev)
+    timed_phase("adaptive psum", amr_psum_check, dev)
     runner_options_phase(dev)
     cli_phase()
 
@@ -2623,6 +3020,19 @@ def main() -> int:
         "ms": slab_rec["ms"], "plain_ms": slab_rec["plain_ms"],
         "bound_ms": slab_rec["bound_ms"], "bound_by": slab_rec["bound_by"],
         "library_ms": slab_rec["library_ms"]})
+    summary.append({
+        "name": "elasticity_grid_apply[slab]", "route": "cuda",
+        "source": "poroelasticity_dealii_torch/csrc/comp_major.cu",
+        "replaces": "poroelasticity_dealii_tpu/ops/pallas_comp_major.py:1363; "
+                    "poroelasticity_dealii_tpu/ops/pallas_elasticity.py:108",
+        # the gspmd 40^3 run's launches; 40^3 float32 slab 0 of a 4-way
+        # split (nz = 11 cell layers)
+        "launches": flat_slab_launches,
+        "max_abs_err": flat_slab_rec["max_abs_err"],
+        "ms": flat_slab_rec["ms"], "plain_ms": flat_slab_rec["plain_ms"],
+        "bound_ms": flat_slab_rec["bound_ms"],
+        "bound_by": flat_slab_rec["bound_by"],
+        "library_ms": flat_slab_rec["library_ms"]})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
           flush=True)
     print(json.dumps({"kernels": summary}), flush=True)

@@ -19,6 +19,13 @@ Checkpoints (``TPU / Checkpoint every``) carry the real-sized fields and
 the forest, so a run resumes on its refined mesh
 (``run(resume_from=...)``); a step whose FSS residual is not finite is
 logged and the run goes on, as in the reference's adaptive driver.
+
+``TPU / Sharding = psum`` is the one decomposition an adaptive run takes
+(the others need conforming or structured meshes, as in the reference):
+every rank remeshes identically on the host, and each new discretization
+is sharded after the padding (:func:`..parallel.sharding.
+shard_discretization`); rank 0 alone writes the run log, the VTK files
+and the checkpoints.
 """
 
 from __future__ import annotations
@@ -129,8 +136,16 @@ class AMRSimulationRunner:
     graphs and its discretization were freed."""
 
     def __init__(self, data: InputData, device="cuda", logger=None,
-                 cuda_graphs: bool = True, scales=None):
-        from ..models.runner import _check_supported
+                 cuda_graphs: bool = True, scales=None,
+                 run_log: bool = False):
+        """``run_log``: with no ``logger``, write ``run_log.jsonl`` in the
+        deck's output directory (rank 0 of a sharded run only)."""
+        from ..models.runner import _check_supported, _slab_group
+        if data.sharding not in ("none", "psum"):
+            raise NotImplementedError(
+                f"'TPU / Sharding = {data.sharding}' with AMR — only 'psum' "
+                "supports hanging-node constraints (ghost/gspmd/production "
+                "require conforming/structured meshes)")
         _check_supported(data)
         if data.dim not in (2, 3):
             raise NotImplementedError("AMR needs dim 2 or 3")
@@ -145,6 +160,15 @@ class AMRSimulationRunner:
             self._fused = False
         self.data, self.scales = data, scales
         self.device = resolve_device(device)
+        self.group, self._own_group = None, False
+        if data.sharding == "psum":
+            self.group, self._own_group = _slab_group(data, self.device)
+            self.device = self.group.device
+        self.is_root = self.group is None or self.group.rank == 0
+        if logger is None and run_log and self.is_root:
+            from ..utils.logging_utils import RunLogger
+            logger = RunLogger(os.path.join(data.output_directory,
+                                            "run_log.jsonl"))
         self.cuda_graphs = cuda_graphs
         if data.mesh_file:
             # forest-of-roots over the imported coarse mesh — the deal.II
@@ -185,6 +209,10 @@ class AMRSimulationRunner:
             disc = pad_amr_discretization(disc)
         t1 = time.perf_counter()
         disc = disc.to(self.device)
+        if self.group is not None:
+            # after the padding (the reference's order), on every remesh
+            from ..models.runner import _apply_sharding
+            disc = _apply_sharding(disc, self.data, self.group)
         _sync(self.device)
         t2 = time.perf_counter()
         self.disc = disc
@@ -286,7 +314,7 @@ class AMRSimulationRunner:
         return new
 
     def _output(self, state: State, step: int):
-        if not self.data.output_vtk:
+        if not (self.data.output_vtk and self.is_root):
             return
         from ..models.runner import write_state_vtk
         write_state_vtk(os.path.join(self.data.output_directory,
@@ -311,6 +339,9 @@ class AMRSimulationRunner:
                 history.extend(rec for rec, _ in info)
         if self.logger:
             self.logger.close()
+        if self._own_group:
+            import torch.distributed as dist
+            dist.destroy_process_group()
         # callers see REAL-sized fields; bucket padding stays internal
         return self._real_state(state), history
 
@@ -396,7 +427,7 @@ class AMRSimulationRunner:
                                   RuntimeWarning)
             self._output(state, step)
             every = data.checkpoint_every
-            if every and step % every == 0:
+            if every and step % every == 0 and self.is_root:
                 # real-sized fields: mesh-portable and bucketing-agnostic
                 # (a resume re-pads for its own buckets)
                 save_checkpoint(os.path.join(data.checkpoint_directory,

@@ -13,8 +13,9 @@ every ``TPU / Refine every`` steps.  ``--resume`` continues from an
 LOGDIR.  ``check DECK`` parses and prints it; ``devices`` lists the
 visible CUDA devices.
 
-A deck with ``TPU / Sharding = production`` runs sharded under ``torchrun``
-(one process per device; rank 0 writes the output), e.g. on the CPU::
+A deck with ``TPU / Sharding = psum``, ``gspmd`` or ``production`` runs
+sharded under ``torchrun`` (one process per device; rank 0 writes the
+output; an adaptive deck with psum only), e.g. on the CPU::
 
     torchrun --standalone --nproc-per-node 2 -m poroelasticity_dealii_torch \
         run DECK --device cpu

@@ -137,6 +137,9 @@ __device__ __forceinline__ RowPos decode_row(int idx, int n, int nz,
 // and knows its count on the host; _kernel v1
 // (make_pallas_apply, K6) and ops/pallas_elasticity.py _kernel
 // (make_pallas_elasticity, K7): y = A u on flat ((2n+1)^3 * 3,) vectors,
+// with a slab mode for the gspmd z-slabs of parallel/sharding.py (nz cell
+// layers of n x n cells, (2n+1)^2 (2nz+1) nodes in and out, every cell
+// real: the same launch with nz in place of n on the z axis),
 // which the TPU kernels take through comp-major rows and a host stitch of
 // z-slab overlaps (K6) or 8 parity subgrids and a recomputed halo layer
 // (K7), layouts that give Mosaic contiguous 2-D slices; and
@@ -537,20 +540,22 @@ elasticity_rows_sum_kernel(const T* __restrict__ ye, const T* __restrict__ x,
   }
 }
 
-// Pass 2 of the flat apply (y = A u): one thread per Q2 node in [z][y][x]
-// order sums its three components (q2_node_sum) and writes them to y.
+// Pass 2 of the flat apply (y = A u): one thread per Q2 node of the
+// 2nz + 1 node planes in [z][y][x] order sums its three components
+// (q2_node_sum) and writes them to y.  nz: the cell layers along z (n on a
+// whole grid; the slab mode's depth, its planes (2n+1) x (2n+1) nodes).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 elasticity_flat_sum_kernel(const T* __restrict__ ye, T* __restrict__ y,
-                           int n, int stride) {
+                           int n, int nz, int stride) {
   const int g = 2 * n + 1;
   const int node = blockIdx.x * blockDim.x + threadIdx.x;
-  if (node >= g * g * g) return;
+  if (node >= g * g * (2 * nz + 1)) return;
   const int Z = node / (g * g);
   const int rem = node - Z * g * g;
   const int Y = rem / g, X = rem - Y * g;
   T acc[3] = {T(0), T(0), T(0)};
-  q2_node_sum(ye, n, n, stride, Z >> 1, Z & 1, Y >> 1, Y & 1, X >> 1,
+  q2_node_sum(ye, n, nz, stride, Z >> 1, Z & 1, Y >> 1, Y & 1, X >> 1,
               X & 1, acc);
 #pragma unroll
   for (int c = 0; c < 3; ++c) y[3 * node + c] = acc[c];
@@ -813,18 +818,25 @@ int launch_projection(const void* x, const void* pe, void* out, void* ye,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The flat apply on nz layers of n x n cells ((2n+1)^2 (2nz+1) nodes in
+// and out): nz = n on a whole grid; the slab mode (a z-slab of the node
+// grid, every cell of it real) passes its depth.
 template <typename T>
 int launch_flat(const void* u, const void* ke, void* y, void* ye, int n,
-                int stride, int grid, int smem, void* stream) {
+                int nz, int stride, int grid, int smem, void* stream) {
+  if (n < 1 || nz < 1 ||
+      static_cast<long long>(stride) < static_cast<long long>(nz) * n * n)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   T* ep = static_cast<T*>(ye);
   const cudaError_t err = launch_products<T, kLocal, false, FlatLayout>(
-      static_cast<const T*>(u), nullptr, static_cast<const T*>(ke), ep, n, n,
-      0, stride, grid, smem, s);
+      static_cast<const T*>(u), nullptr, static_cast<const T*>(ke), ep, n,
+      nz, 0, stride, grid, smem, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long g = 2 * n + 1;
-  elasticity_flat_sum_kernel<T><<<blocks_for(g * g * g), kThreads, 0, s>>>(
-      ep, static_cast<T*>(y), n, stride);
+  elasticity_flat_sum_kernel<T>
+      <<<blocks_for(g * g * (2 * nz + 1)), kThreads, 0, s>>>(
+          ep, static_cast<T*>(y), n, nz, stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -878,18 +890,21 @@ int projection_rows_f64(const void* x, const void* pe, void* out, void* ye,
                                    smem, stream);
 }
 
-// y = A u on flat ((2n+1)^3 * 3,) vectors; ye: the (81, stride) product
-// scratch; grid, smem: pass 1's launch plan (the row-layout apply's).
+// y = A u on flat ((2n+1)^2 (2nz+1) * 3,) vectors, nz cell layers along z
+// (n on a whole grid); ye: the (81, stride) product scratch; grid, smem:
+// pass 1's launch plan (the row-layout apply's).
 int elasticity_grid_apply_f32(const void* u, const void* ke, void* y,
-                              void* ye, int n, int stride, int grid,
+                              void* ye, int n, int nz, int stride, int grid,
                               int smem, void* stream) {
-  return launch_flat<float>(u, ke, y, ye, n, stride, grid, smem, stream);
+  return launch_flat<float>(u, ke, y, ye, n, nz, stride, grid, smem,
+                            stream);
 }
 
 int elasticity_grid_apply_f64(const void* u, const void* ke, void* y,
-                              void* ye, int n, int stride, int grid,
+                              void* ye, int n, int nz, int stride, int grid,
                               int smem, void* stream) {
-  return launch_flat<double>(u, ke, y, ye, n, stride, grid, smem, stream);
+  return launch_flat<double>(u, ke, y, ye, n, nz, stride, grid, smem,
+                             stream);
 }
 
 }  // extern "C"

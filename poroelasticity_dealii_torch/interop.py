@@ -41,9 +41,9 @@ def state_from_numpy(fields: Mapping[str, np.ndarray], device="cuda",
     None).
 
     ``row_ops``: the discretization's rows kit (3D rows or 2D parity):
-    ``u_rows`` is built from ``u`` in its layout.  With the z-slab kit of a
-    sharded discretization (:class:`..parallel.rows.ShardedRowOps`),
-    ``u_rows`` is the rank's slab of the whole ``u`` (the kit's
+    ``u_rows`` is built from ``u`` in its layout.  With the slab kit of a
+    sharded discretization (:class:`..parallel.rows.ShardedKit`: z-slab
+    rows, y-slab parity), ``u_rows`` is the rank's slab of the whole ``u`` (the kit's
     ``to_rows``) and ``mech_b`` the rank's slab of the whole rows."""
     device = resolve_device(device)
     def conv(a):

@@ -5,7 +5,8 @@
 :class:`SimulationRunner`, which builds the
 problem (on the deck's gmsh mesh, ``Mesh / Mesh file``, through the generic
 discretization, else on its structured grid), shards it when the deck asks
-for ``TPU / Sharding = production``, steps time in blocks of up to ``TPU /
+for ``TPU / Sharding = psum | gspmd | production`` (:func:`_apply_sharding`),
+steps time in blocks of up to ``TPU /
 Steps per dispatch`` steps
 (:meth:`..solvers.fss.FixedStressSolver.multi_step`), writes the JSONL run
 log, the VTK files and the ``.npz`` checkpoints (``TPU / Checkpoint every``,
@@ -20,7 +21,9 @@ The sharded run is one process per device in a ``torch.distributed``
 process group (``torchrun``, or a group the caller initialised): every
 rank runs this time loop and reads the same checkpoint on a resume, and
 rank 0 alone writes the run log, the VTK files and the checkpoints (from
-the whole state, which every rank holds)."""
+the whole state, which every rank holds).  ``Sharding = psum`` on a deck
+without a mesh file runs the generic discretization of its structured grid
+(:func:`structured_generic_mesh`), on one process too."""
 
 from __future__ import annotations
 
@@ -36,8 +39,12 @@ import torch.distributed as dist
 
 from ..config import InputData, read_input_file
 from ..mesh import read_msh
+from ..mesh.generator import normalize_cells_per_axis
+from ..mesh.structured import structured_mesh
 from ..parallel.rows import shard_production_discretization
-from ..parallel.sharding import SlabGroup, init_from_env
+from ..parallel.sharding import (SlabGroup, init_from_env,
+                                 shard_discretization,
+                                 shard_grid_discretization)
 from ..utils.logging_utils import RunLogger
 from ..solvers.discretization import build_discretization
 from ..solvers.fss import (FixedStressSolver, State, StepStats,
@@ -53,26 +60,15 @@ def _check_supported(data: InputData) -> None:
     ``Checkpoint format = orbax``, which it does not take on."""
     if data.checkpoint_format == "orbax":
         refuse_orbax("'Checkpoint format = orbax'")
-    unsupported = [
-        (data.amr and data.sharding != "none",
-         f"AMR with 'Sharding = {data.sharding}' (ROADMAP item 9.3, A13: "
-         "psum is the one decomposition the reference runs with "
-         "hanging-node constraints)"),
-        (data.sharding in ("psum", "ghost", "gspmd"),
-         f"'Sharding = {data.sharding}' (ROADMAP item 9, A13: only "
-         "production is ported)"),
-        (data.sharding == "production" and data.dim != 3,
-         "'Sharding = production' on a 2D deck (the y-slab parity form, "
-         "ROADMAP item 9.2, A13)"),
-    ]
-    for bad, what in unsupported:
-        if bad:
-            raise NotImplementedError(f"the torch port does not run {what} "
-                                      "yet")
+    if data.sharding == "ghost":
+        raise NotImplementedError(
+            "the torch port does not run 'Sharding = ghost' yet (ROADMAP "
+            "item 9.3, A13: sharded dof vectors with halo windows, and a "
+            "solver whose every CG reduces across the group)")
 
 
 def _slab_group(data: InputData, device) -> tuple:
-    """``(slab group, created)`` of a ``Sharding = production`` run (see
+    """``(slab group, created)`` of a sharded run (see
     :func:`..parallel.sharding.init_from_env`); ``TPU / Devices`` must be 0
     (all ranks) or the group's size."""
     group, created = init_from_env(device)
@@ -85,17 +81,40 @@ def _slab_group(data: InputData, device) -> tuple:
     return group, created
 
 
+def structured_generic_mesh(data: InputData):
+    """The structured grid of a deck without a mesh file, as a mesh for the
+    generic discretization (what ``Sharding = psum`` shards: JAX's psum
+    shards the generic cell arrays of its grid discretization)."""
+    cells = getattr(data, "cells_per_axis", None) \
+        or 2 ** data.initial_refinement_level
+    return structured_mesh(data.domain_size[:data.dim],
+                           normalize_cells_per_axis(cells, data.dim))
+
+
 def _apply_sharding(disc, data: InputData, group: SlabGroup):
-    """``Sharding = production``: the z-slab kit over ``group``; with one
-    process, a warning and the unsharded discretization (as the JAX runner
-    does on one visible device).  A discretization without the rows kit (a
-    2D grid, a gmsh mesh) raises ``ValueError`` on more than one process,
-    as in the JAX runner."""
-    if group.size < 2:
-        warnings.warn(f"'TPU / Sharding = {data.sharding}' with a single "
-                      "process: running unsharded", RuntimeWarning)
+    """``TPU / Sharding = psum | gspmd | production`` over ``group`` (JAX's
+    ``_apply_sharding``, ``models/runner.py:101-126``): psum on a generic
+    discretization (cells chunked, one all-reduce per apply), gspmd on a
+    structured one (stencils on node-plane slabs), production on the rows
+    (3D) or parity (2D) kit (slab kits plus the gspmd stencils).  One
+    process without a process group: a warning and the unsharded
+    discretization, as the JAX runner does on one visible device (an
+    initialised group of one rank, e.g. ``torchrun --nproc-per-node 1`` or
+    one card's NCCL group, runs the sharded form on that rank).  A
+    discretization the mode cannot take raises (``TypeError`` or
+    ``ValueError``, as in the JAX runner)."""
+    mode = data.sharding
+    if group.size < 2 and group.group is None:
+        warnings.warn(f"'TPU / Sharding = {mode}' with a single process: "
+                      "running unsharded", RuntimeWarning)
         return disc
-    return shard_production_discretization(disc, group)
+    if mode == "psum":
+        return shard_discretization(disc, group)
+    if mode == "gspmd":
+        return shard_grid_discretization(disc, group)
+    if mode == "production":
+        return shard_production_discretization(disc, group)
+    raise ValueError(f"unknown sharding mode {mode!r}")
 
 
 def write_state_vtk(path: str, disc, solver, state: State,
@@ -129,7 +148,7 @@ class SimulationRunner:
                              "AMRSimulationRunner")
         self.data, self.scales = data, scales
         self.group, self._own_group = None, False
-        if data.sharding == "production":
+        if data.sharding != "none":
             self.group, self._own_group = _slab_group(data, device)
             device = self.group.device
         self.is_root = self.group is None or self.group.rank == 0
@@ -138,6 +157,9 @@ class SimulationRunner:
             if scales is not None:          # the same L as the deck rescale
                 mesh = scale_mesh(mesh, scales)
             self.disc = build_discretization(mesh, data, device=device)
+        elif data.sharding == "psum":
+            self.disc = build_discretization(structured_generic_mesh(data),
+                                             data, device=device)
         else:
             self.disc = build_grid_discretization(data, device=device)
         if self.group is not None:
@@ -260,18 +282,17 @@ def run_from_data(data: InputData, resume_from: Optional[str] = None,
     :class:`..amr.driver.AMRSimulationRunner` (its run log
     ``run_log.jsonl`` in the output directory), any other through
     :class:`SimulationRunner`.  Under ``torchrun`` (or in an initialised
-    process group) a ``Sharding = production`` deck runs sharded, one
-    rank per device (``cuda:{LOCAL_RANK}`` on CUDA); every rank returns
-    the whole state."""
+    process group) a deck with ``Sharding = psum``, ``gspmd`` or
+    ``production`` runs sharded, one rank per device (``cuda:{LOCAL_RANK}``
+    on CUDA; an adaptive deck with psum only); every rank returns the whole
+    state."""
     scales = None
     if data.nondimensionalize:
         data, scales = nondimensionalize(data)
     if data.amr:
         from ..amr.driver import AMRSimulationRunner
-        runner = AMRSimulationRunner(
-            data, device=device, logger=RunLogger(
-                os.path.join(data.output_directory, "run_log.jsonl")),
-            scales=scales)
+        runner = AMRSimulationRunner(data, device=device, run_log=True,
+                                     scales=scales)
         state, _ = runner.run(resume_from=resume_from)
         return state
     return SimulationRunner(data, device=device, scales=scales).run(

@@ -42,8 +42,9 @@ _SIGNATURES = {
     "coupling_rows": (_P, _P, _P, _I, _I, _P),
     # x, pe, out, product scratch, n, W, scratch stride, grid, shared bytes
     "projection_rows": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # u, ke, y, product scratch, n, scratch stride, grid, shared bytes
-    "elasticity_grid_apply": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # u, ke, y, product scratch, n, cell layers along z (nz), scratch
+    # stride, grid, shared bytes
+    "elasticity_grid_apply": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 

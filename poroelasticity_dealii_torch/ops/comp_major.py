@@ -313,16 +313,19 @@ def reset_launch_counts() -> None:
     elasticity_rows_apply.mode_launches = dict.fromkeys(
         elasticity_rows_apply.mode_launches, 0)
     elasticity_rows_apply.slab_launches = 0
+    elasticity_grid_apply.slab_launches = 0
 
 
 def launch_counts() -> dict:
     """Every launch counter of the kernel wrappers: each wrapper's
     ``launches`` by its name, ``elasticity_rows_apply``'s by mode
-    (``("mode", m)``) and its slab form's (``"slab"``)."""
+    (``("mode", m)``) and its slab form's (``"slab"``), and the flat
+    apply's slab mode's (``"grid_slab"``)."""
     out = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
     out.update({("mode", m): v
                 for m, v in elasticity_rows_apply.mode_launches.items()})
     out["slab"] = elasticity_rows_apply.slab_launches
+    out["grid_slab"] = elasticity_grid_apply.slab_launches
     return out
 
 
@@ -335,6 +338,7 @@ def add_launch_counts(delta: dict) -> None:
     for m in elasticity_rows_apply.mode_launches:
         elasticity_rows_apply.mode_launches[m] += delta[("mode", m)]
     elasticity_rows_apply.slab_launches += delta["slab"]
+    elasticity_grid_apply.slab_launches += delta["grid_slab"]
 
 
 def make_flat_apply(element_matrix: np.ndarray, n: int, dtype: torch.dtype,

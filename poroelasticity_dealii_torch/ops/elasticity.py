@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from . import _cuda
 from . import dense
 from .cell_products import rows_apply_plan, sm_count
-from .stencil import stencil_apply
+from .stencil import StencilSpec, stencil_apply
 
 
 def elasticity_element_matrix(data, n: int, dim: int = 3) -> np.ndarray:
@@ -66,37 +66,52 @@ def merge_parities(parts: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def elasticity_grid_apply_plain(u: torch.Tensor, ke: torch.Tensor,
-                                n: int) -> torch.Tensor:
+                                n: int, nz: int = None) -> torch.Tensor:
     """Plain twin of :func:`elasticity_grid_apply`: the conv backend's
     stencil apply for Q2 -> Q2 with 3 components (a gather over the 27
     local node offsets, one (81, 81) product over all cells and a strided
-    slice-add scatter; deterministic: no atomics)."""
-    return stencil_apply(u, ke.T, 2, 2, (n, n, n), 3, 3)
+    slice-add scatter; deterministic: no atomics), on ``nz`` cell layers
+    along z (default n)."""
+    return stencil_apply(u, ke.T, 2, 2, (n, n, n if nz is None else nz), 3,
+                         3)
 
 
-def elasticity_grid_apply(u: torch.Tensor, ke: torch.Tensor,
-                          n: int) -> torch.Tensor:
+def elasticity_grid_apply(u: torch.Tensor, ke: torch.Tensor, n: int,
+                          nz: int = None) -> torch.Tensor:
     """``y = A u`` on the flat Q2 grid with ``n`` cells per axis; ``ke``:
     the (81, 81) element matrix, x-fastest ``(node, comp)`` order.  CPU
     tensors take the plain twin; CUDA tensors launch the kernel: two CUDA
-    launches, the cell product pass into an (81, n^3) scratch (the
+    launches, the cell product pass into an (81, n^2 nz) scratch (the
     row-layout apply's plan, :func:`.cell_products.rows_apply_plan`), then
-    the node sums."""
+    the node sums.
+
+    The slab mode (``nz`` given; the gspmd z-slabs of
+    :func:`..parallel.sharding.shard_grid_discretization`): ``u`` and the
+    result are the ``(2n+1)^2 (2nz+1) * 3`` values of ``nz`` layers of
+    n x n cells, every cell real; counted in ``slab_launches`` too."""
+    slab = nz is not None
+    nz = n if nz is None else nz
     if u.device.type == "cpu":
-        return elasticity_grid_apply_plain(u, ke, n)
+        return elasticity_grid_apply_plain(u, ke, n, nz)
     _cuda.require_cuda(u)
-    _cuda.check("u", u, ((2 * n + 1) ** 3 * 3,), u.dtype, u.device)
+    if nz < 1:
+        raise ValueError(f"slab depth nz={nz} < 1")
+    _cuda.check("u", u, ((2 * n + 1) ** 2 * (2 * nz + 1) * 3,), u.dtype,
+                u.device)
     _cuda.check("ke", ke, (81, 81), u.dtype, u.device)
-    plan = rows_apply_plan(n, u.dtype, sm_count(u.device))
+    plan = rows_apply_plan(n, u.dtype, sm_count(u.device), nz=nz)
     y = torch.empty_like(u)
     ye = torch.empty(plan.scratch_numel, dtype=u.dtype, device=u.device)
-    _cuda.launch("elasticity_grid_apply", u, u, ke, y, ye, n, plan.stride,
-                 plan.grid, plan.smem_bytes)
+    _cuda.launch("elasticity_grid_apply", u, u, ke, y, ye, n, nz,
+                 plan.stride, plan.grid, plan.smem_bytes)
     elasticity_grid_apply.launches += 1
+    if slab:
+        elasticity_grid_apply.slab_launches += 1
     return y
 
 
 elasticity_grid_apply.launches = 0
+elasticity_grid_apply.slab_launches = 0
 
 
 def make_grid_elasticity(element_matrix: np.ndarray, n: int,
@@ -110,4 +125,6 @@ def make_grid_elasticity(element_matrix: np.ndarray, n: int,
     def apply(u_flat):
         return elasticity_grid_apply(u_flat, ke, n)
 
+    apply.spec = StencilSpec(element_matrix, 2, 2, 3, 3, (n, n, n), dtype,
+                             device, flat_kernel=True)
     return apply

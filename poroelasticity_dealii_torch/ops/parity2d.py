@@ -1,6 +1,8 @@
 """The 2D parity-resident operator layout, the 2D production mechanics
-path (port of ``poroelasticity_dealii_tpu/ops/parity2d.py:54-141, 212-461``;
-the sharded y-slab form, ``make_apply_parity_local``, is ROADMAP item 9.2).
+path (port of ``poroelasticity_dealii_tpu/ops/parity2d.py:54-461``), with
+the per-rank apply of its y-slab sharded form
+(:func:`make_apply_parity_local`, which
+:func:`..parallel.rows.make_parity_ops_sharded` drives).
 
 The layout ("parity" classes, degree 2): the node index along an axis is
 ``i = 2*cell + o`` with offset ``o`` in {0, 1, 2}; offsets 0 and 2 share
@@ -118,6 +120,35 @@ def make_apply_parity(element_matrix: np.ndarray, n: int, nc: int, dtype,
         return _scatter_q2(Ye.reshape(nc, 9, n, n), n, nc)
 
     return apply_p
+
+
+def make_apply_parity_local(element_matrix: np.ndarray, n: int, Ly: int,
+                            nc: int, dtype, device):
+    """``apply_local(xl, nv)``: one rank's y-slab apply of the sharded
+    parity kit (``make_apply_parity_local`` of the reference).
+
+    ``xl``: ``(nc, 2, 2, Ly + 1, n + 1)``, the rank's ``Ly`` iy-rows plus
+    one halo row (the y+ neighbour's first row); ``nv``: the rank's count
+    of real cell rows (tail ranks own padding rows).  Cell rows at or past
+    ``nv`` contribute nothing, whatever the halo row holds.  Returns
+    ``(nc, 2, 2, Ly + 1, n + 1)``: the slab's contributions, row ``Ly``
+    the band for the y+ neighbour's first row.  The gather, the (18, 18)
+    product and the slice-add scatter of :func:`make_apply_parity`,
+    restricted to the slab's real cell rows."""
+    Kr = _const(_comp_major(element_matrix, nc, nc), dtype, device)
+
+    def apply_local(xl, nv: int):
+        out = xl.new_zeros((nc, 2, 2, Ly + 1, n + 1))
+        if nv <= 0:
+            return out
+        U = torch.stack([xl[:, cy, cx, sy:sy + nv, sx:sx + n]
+                         for cy, sy, cx, sx in _Q2_SLOTS], 1)
+        Ye = (Kr @ U.reshape(nc * 9, nv * n)).reshape(nc, 9, nv, n)
+        for node, (cy, sy, cx, sx) in enumerate(_Q2_SLOTS):
+            out[:, cy, cx, sy:sy + nv, sx:sx + n] += Ye[:, node]
+        return out
+
+    return apply_local
 
 
 # ---------------------------------------------------------------------------

@@ -23,10 +23,48 @@ the pressure multigrid level operators.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from .shape import node_lattice
+
+
+@dataclasses.dataclass(frozen=True)
+class StencilSpec:
+    """What an apply of :func:`make_stencil_apply` (or the flat elasticity
+    kernel's, ``flat_kernel``) computes: its element matrix, degrees and
+    components in and out, and its grid ``ns`` (cells per axis, (x, y, z)
+    order).  The gspmd slabs (:mod:`..parallel.sharding`) rebuild the same
+    operator on sub-grids from it (:meth:`on_cells`)."""
+    element_matrix: np.ndarray
+    k_in: int
+    k_out: int
+    n_comp_in: int
+    n_comp_out: int
+    ns: tuple
+    dtype: torch.dtype
+    device: torch.device
+    flat_kernel: bool = False
+
+    def on_cells(self, ns) -> callable:
+        """The same operator on a grid of ``ns`` cells per axis: the flat
+        kernel's slab mode (``nz`` cell layers along z, the other counts
+        this spec's) or :func:`make_stencil_apply`."""
+        ns = tuple(ns)
+        if self.flat_kernel:
+            from .elasticity import elasticity_grid_apply
+            if ns[:2] != self.ns[:2]:
+                raise ValueError(f"the flat kernel's slab mode keeps x and "
+                                 f"y: {self.ns} -> {ns}")
+            ke = torch.as_tensor(np.asarray(self.element_matrix, np.float64),
+                                 dtype=self.dtype,
+                                 device=self.device).contiguous()
+            return lambda u: elasticity_grid_apply(u, ke, ns[0], nz=ns[2])
+        return make_stencil_apply(self.element_matrix, self.k_in, self.k_out,
+                                  self.n_comp_in, self.n_comp_out, len(ns),
+                                  ns, self.dtype, self.device)
 
 
 def _node_slices(k: int, ns):
@@ -88,13 +126,17 @@ def make_stencil_apply(element_matrix: np.ndarray, k_in: int, k_out: int,
     projection solves)."""
     ns = (n_cells,) * dim if np.ndim(n_cells) == 0 else tuple(n_cells)
     if k_in == k_out == 1 and n_comp_in == n_comp_out == 1:
-        return make_q1_slices_apply(element_matrix, dim, ns, dtype, device)
-    KT = torch.as_tensor(np.asarray(element_matrix, np.float64).T,
-                         dtype=dtype, device=device)
+        apply = make_q1_slices_apply(element_matrix, dim, ns, dtype, device)
+    else:
+        KT = torch.as_tensor(np.asarray(element_matrix, np.float64).T,
+                             dtype=dtype, device=device)
 
-    def apply(x):
-        return stencil_apply(x, KT, k_in, k_out, ns, n_comp_in, n_comp_out)
+        def apply(x):
+            return stencil_apply(x, KT, k_in, k_out, ns, n_comp_in,
+                                 n_comp_out)
 
+    apply.spec = StencilSpec(element_matrix, k_in, k_out, n_comp_in,
+                             n_comp_out, ns, dtype, device)
     return apply
 
 

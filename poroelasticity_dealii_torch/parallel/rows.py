@@ -1,36 +1,47 @@
-"""Z-slab sharded form of the production mechanics (port of
-``poroelasticity_dealii_tpu/parallel/rows.py:57-144, 249-304``) over
+"""Sharded forms of the production mechanics (port of
+``poroelasticity_dealii_tpu/parallel/rows.py:57-304``) over
 ``torch.distributed``: one process per device, each running the same
 program on its slab.
 
-The row layout is z-half-major, so a z-slab of the displacement grid is a
-contiguous row range: rank d of ``n_dev`` holds ``Lz = ceil((n+1)/n_dev)``
-z-half layers (``Lz*24`` rows) of every mechanics row-layout vector, and
-the mechanics CG's axpys and masks run on those slabs unchanged.  The
-global padded shape is ``(n_dev*Lz*24, W)``; padding rows carry
-``free_mask = 0`` and ``diag = 1``, so the solver treats them as
-constrained dofs with zero value and they stay exactly zero.
+3D, the z-slab row layout.  The row layout is z-half-major, so a z-slab of
+the displacement grid is a contiguous row range: rank d of ``n_dev`` holds
+``Lz = ceil((n+1)/n_dev)`` z-half layers (``Lz*24`` rows) of every
+mechanics row-layout vector, and the mechanics CG's axpys and masks run on
+those slabs unchanged.  The global padded shape is ``(n_dev*Lz*24, W)``.
 
+2D, the y-slab parity layout (:class:`ShardedParityOps`): parity tensors
+``(nc, 2, 2, n+1, n+1)`` split along iy, rank d holding ``Ly =
+ceil((n+1)/n_dev)`` iy-rows ``(nc, 2, 2, Ly, n+1)``; the global padded
+shape has ``n_dev*Ly`` rows.
+
+In both, padding carries ``free_mask = 0`` and ``diag = 1``, so the solver
+treats it as constrained dofs with zero value and it stays exactly zero.
 Collectives, one for one with JAX's:
 
-* one elasticity apply: the rank's slab plus one 24-row halo band from rank
-  d+1 goes through the slab form of the row-layout kernel
-  (:func:`..ops.comp_major.elasticity_rows_apply` with ``nz=Lz`` and the
-  rank's count ``nv`` of real cell layers), and its last 24 rows go back to
-  rank d+1, added into that rank's first z-half layer: one
+* one elasticity apply: the rank's slab plus one halo band from rank d+1
+  (24 rows in 3D, one iy-row of ``nc*2*2*(n+1)`` values in 2D) goes through
+  the slab apply (3D: the slab form of the row-layout kernel,
+  :func:`..ops.comp_major.elasticity_rows_apply` with ``nz=Lz`` and the
+  rank's count ``nv`` of real cell layers; 2D:
+  :func:`..ops.parity2d.make_apply_parity_local`), and its last band goes
+  back to rank d+1, added into that rank's first layer: one
   ``dist.batch_isend_irecv`` per direction, each message one band;
 * a CG dot or norm: ``dist.all_reduce`` of the local partial;
 * ``from_rows`` and the projection right-hand side: ``dist.all_gather`` of
   the slabs (once per solve boundary and per FSS iteration);
 * ``to_rows`` and the coupling right-hand side: computed whole on every rank
   from the replicated input, then sliced;
-* the node-block Jacobi preconditioner (``Mechanics preconditioner =
-  block``): nodewise on the slab, no collective.
+* the node-block Jacobi preconditioner (3D ``Mechanics preconditioner =
+  block``): nodewise on the slab, no collective;
+* the 2D parity V-cycle (``gmg_precond_rows``): the slabs gathered, the
+  unpadded V-cycle run whole on every rank, the correction sliced back.
 
-The pressure side is not sharded: every rank computes the whole pressure
-solve identically (JAX partitions its stencils with GSPMD, which torch does
-not have).  Every rank takes the same branch at every loop test, because
-each test reads a replicated or all-reduced value.
+Each kit counts what it sends (:class:`CommCounter`, ``kit.comm``).
+:func:`shard_production_discretization` puts the kit on top of the gspmd
+discretization (:func:`.sharding.shard_grid_discretization`), so the
+pressure stencils and the fused pressure Jacobian run on node-plane slabs
+too.  Every rank takes the same branch at every loop test, because each
+test reads a replicated or all-reduced value.
 """
 
 from __future__ import annotations
@@ -48,7 +59,10 @@ from ..ops.comp_major import (UNMASKED, coupling_rows, coupling_rows_plain,
                               elasticity_rows_apply_plain, from_rows,
                               lazy_block_precond, projection_rows,
                               projection_rows_plain, to_rows, to_rows_np)
-from .sharding import SlabGroup
+from ..ops.parity2d import (from_parity, make_apply_parity_local,
+                            make_coupling_parity, make_projection_parity,
+                            to_parity, to_parity_np)
+from .sharding import SlabGroup, shard_grid_discretization
 
 
 def slab_layers(n: int, n_dev: int) -> int:
@@ -62,8 +76,119 @@ def real_layers(n: int, n_dev: int, rank: int) -> int:
     return min(max(n - rank * Lz, 0), Lz)
 
 
+@dataclasses.dataclass
+class CommCounter:
+    """What a sharded kit sent, by kind (``"p2p"``, ``"all_reduce"``,
+    ``"all_gather"``): messages, bytes and the largest message's values."""
+    messages: dict = dataclasses.field(default_factory=dict)
+    bytes: dict = dataclasses.field(default_factory=dict)
+    largest: dict = dataclasses.field(default_factory=dict)
+
+    def record(self, kind: str, t: torch.Tensor) -> None:
+        self.messages[kind] = self.messages.get(kind, 0) + 1
+        self.bytes[kind] = self.bytes.get(kind, 0) \
+            + t.numel() * t.element_size()
+        self.largest[kind] = max(self.largest.get(kind, 0), t.numel())
+
+    def reset(self) -> None:
+        self.messages.clear()
+        self.bytes.clear()
+        self.largest.clear()
+
+
+class ShardedKit:
+    """The collectives of a sharded mechanics kit over ``self.group`` (a
+    :class:`.sharding.SlabGroup`), each counted in ``self.comm``: the
+    halo exchange, the gather of slabs along ``self.slab_axis``, and the
+    reductions the fixed-stress solver takes from the kit (``dot``,
+    ``norm``, ``all_equal``: the three of
+    :class:`..solvers.cg.LocalReductions`, across the group).  A subclass
+    sets ``group``, ``comm`` and ``slab_axis`` and its layout's
+    ``local_rows``."""
+
+    def _p2p(self, send, to: int, recv, frm: int) -> None:
+        """Send ``send`` to rank ``to`` and receive ``recv`` from rank
+        ``frm`` (either may be None) in one batch; wait for both."""
+        ops = []
+        if send is not None:
+            self.comm.record("p2p", send)
+            ops.append(dist.P2POp(dist.isend, send, to, self.group.group))
+        if recv is not None:
+            ops.append(dist.P2POp(dist.irecv, recv, frm, self.group.group))
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+
+    def _halo_apply(self, x, band: int, apply_ext):
+        """One sharded apply: ``x``'s slab extended by ``band`` layers
+        along the slab axis from rank d+1 (zeros past the last rank),
+        ``apply_ext`` on it, and the result's last ``band`` layers returned
+        to rank d+1 and added into its first ones."""
+        g, ax = self.group, self.slab_axis
+        L = x.shape[ax]
+        first, last = g.rank == 0, g.rank == g.size - 1
+        shape = list(x.shape)
+        shape[ax] = band
+        halo = x.new_zeros(shape) if last else x.new_empty(shape)
+        # the last rank's halo is never read: its layers past nv
+        self._p2p(None if first else x.narrow(ax, 0, band).contiguous(),
+                  g.rank - 1, None if last else halo, g.rank + 1)
+        y = apply_ext(torch.cat([x, halo], dim=ax))
+        ret = None if first else x.new_empty(shape)
+        self._p2p(None if last else y.narrow(ax, L, band).contiguous(),
+                  g.rank + 1, ret, g.rank - 1)
+        if ret is not None:
+            y.narrow(ax, 0, band).add_(ret)
+        return y.narrow(ax, 0, L).contiguous()
+
+    def gather_rows(self, R):
+        """The whole padded tensor from every rank's slab ``R``, on every
+        rank."""
+        g = self.group
+        if g.group is None:
+            return R
+        R = R.contiguous()
+        self.comm.record("all_gather", R)
+        parts = [torch.empty_like(R) for _ in range(g.size)]
+        dist.all_gather(parts, R, group=g.group)
+        return torch.cat(parts, dim=self.slab_axis)
+
+    def _all_reduce(self, t, op=dist.ReduceOp.SUM):
+        if self.group.group is not None:
+            self.comm.record("all_reduce", t)
+            dist.all_reduce(t, op=op, group=self.group.group)
+        return t
+
+    def dot(self, a, b):
+        return self._all_reduce(torch.dot(a.reshape(-1), b.reshape(-1)))
+
+    def norm(self, x):
+        return torch.sqrt(self.dot(x, x))
+
+    def all_equal(self, a, b) -> torch.Tensor:
+        """Whether every rank's slabs are equal, as a 0-d bool device
+        tensor (the same on all ranks): the all-reduced MIN of each rank's
+        ``(a == b).all()``, with no host read."""
+        flag = (a == b).all().to(torch.int32)
+        return self._all_reduce(flag, dist.ReduceOp.MIN).bool()
+
+    def _check_agreement(self, *shape) -> None:
+        """Every rank of the group builds the same kit: the group's first
+        collective, which every rank joins."""
+        if self.group.group is None:
+            return
+        mine = torch.tensor([*shape, self.group.size], dtype=torch.float64,
+                            device=self.group.device)
+        lo = self._all_reduce(mine.clone(), dist.ReduceOp.MIN)
+        hi = self._all_reduce(mine.clone(), dist.ReduceOp.MAX)
+        if not (torch.equal(lo, mine) and torch.equal(hi, mine)):
+            raise ValueError(f"ranks disagree on the slab kit "
+                             f"({type(self).__name__} shape, size): min "
+                             f"{lo.tolist()}, max {hi.tolist()}")
+
+
 @dataclasses.dataclass(frozen=True)
-class ShardedRowOps:
+class ShardedRowOps(ShardedKit):
     """The row-layout mechanics kit on one rank's z-slab: the methods of
     :class:`..ops.comp_major.ElasticityRowOps` on ``(Lz*24, W)`` slabs,
     with the reductions taken across the group.  ``plain=True`` routes the
@@ -78,6 +203,8 @@ class ShardedRowOps:
     plain: bool = False
     # node-block Jacobi on the rank's slab (nodewise: no collective)
     block_precond: Callable = None
+    comm: CommCounter = dataclasses.field(default_factory=CommCounter)
+    slab_axis = 0
 
     @property
     def Lz(self) -> int:
@@ -99,16 +226,6 @@ class ShardedRowOps:
         out[:real] = R[r0:r0 + real]
         return out
 
-    def gather_rows(self, R):
-        """The whole padded rows ``(n_dev*Lz*24, W)`` from every rank's
-        slab ``R``, on every rank."""
-        g = self.group
-        if g.group is None:
-            return R
-        parts = [torch.empty_like(R) for _ in range(g.size)]
-        dist.all_gather(parts, R.contiguous(), group=g.group)
-        return torch.cat(parts)
-
     def to_rows(self, u_flat):
         return self.local_rows(to_rows(u_flat, self.n))
 
@@ -117,40 +234,15 @@ class ShardedRowOps:
 
     # ---------------- operators ---------------------------------------------
 
-    def _p2p(self, send, to: int, recv, frm: int) -> None:
-        """Send ``send`` to rank ``to`` and receive ``recv`` from rank
-        ``frm`` (either may be None) in one batch; wait for both."""
-        ops = []
-        if send is not None:
-            ops.append(dist.P2POp(dist.isend, send, to, self.group.group))
-        if recv is not None:
-            ops.append(dist.P2POp(dist.irecv, recv, frm, self.group.group))
-        if ops:
-            for work in dist.batch_isend_irecv(ops):
-                work.wait()
-
     def apply_rows(self, x):
         """Unconstrained ``A x`` on the slab: the halo band (rank d+1's
         first z-half layer) in, the slab kernel over ``Lz`` cell layers of
         which ``nv`` are real, the returned band (this slab's last cell
         layer's share of rank d+1's first z-half layer) out."""
-        g = self.group
-        L = self.Lz * 24
-        first, last = g.rank == 0, g.rank == g.size - 1
-        xe = torch.empty((L + 24, x.shape[1]), dtype=x.dtype, device=x.device)
-        xe[:L] = x
-        if last:
-            xe[L:].zero_()                  # never read: layers past nv
-        self._p2p(None if first else x[:24].contiguous(), g.rank - 1,
-                  None if last else xe[L:], g.rank + 1)
         fn = elasticity_rows_apply_plain if self.plain \
             else elasticity_rows_apply
-        y = fn(xe, None, self.ke, self.n, UNMASKED, nz=self.Lz, nv=self.nv)
-        ret = None if first else torch.empty_like(y[L:])
-        self._p2p(None if last else y[L:], g.rank + 1, ret, g.rank - 1)
-        if ret is not None:
-            y[:24] += ret
-        return y[:L]
+        return self._halo_apply(x, 24, lambda xe: fn(
+            xe, None, self.ke, self.n, UNMASKED, nz=self.Lz, nv=self.nv))
 
     def constrained_apply(self, x):
         """``m * A(m x) + (1 - m) x``, the masks outside the kernel (JAX's
@@ -171,26 +263,6 @@ class ShardedRowOps:
         """The strain-projection RHS on the gathered rows (replicated)."""
         fn = projection_rows_plain if self.plain else projection_rows
         return fn(self.gather_rows(x)[:(self.n + 1) * 24], self.pe, self.n)
-
-    # ---------------- reductions --------------------------------------------
-
-    def _all_reduce(self, t, op=dist.ReduceOp.SUM):
-        if self.group.group is not None:
-            dist.all_reduce(t, op=op, group=self.group.group)
-        return t
-
-    def dot(self, a, b):
-        return self._all_reduce(torch.dot(a.reshape(-1), b.reshape(-1)))
-
-    def norm(self, x):
-        return torch.sqrt(self.dot(x, x))
-
-    def all_equal(self, a, b) -> torch.Tensor:
-        """Whether every rank's slabs are equal, as a 0-d bool device
-        tensor (the same on all ranks): the all-reduced MIN of each rank's
-        ``(a == b).all()``, with no host read."""
-        flag = (a == b).all().to(torch.int32)
-        return self._all_reduce(flag, dist.ReduceOp.MIN).bool()
 
 
 def make_row_ops_sharded(element_matrix: np.ndarray, n: int, free_mask_u,
@@ -222,40 +294,158 @@ def make_row_ops_sharded(element_matrix: np.ndarray, n: int, free_mask_u,
             element_matrix, n, free_mask_u, dtype, group.device,
             nz_pad=group.size * Lz,
             layers=slice(group.rank * Lz, (group.rank + 1) * Lz)))
-    _check_agreement(ro)
+    ro._check_agreement(n, Lz)
     return ro
 
 
-def _check_agreement(ro: ShardedRowOps) -> None:
-    """Every rank of the group builds the same kit: the group's first
-    collective, which every rank joins."""
-    if ro.group.group is None:
-        return
-    mine = torch.tensor([ro.n, ro.Lz, ro.group.size], dtype=torch.float64,
-                        device=ro.group.device)
-    lo = ro._all_reduce(mine.clone(), dist.ReduceOp.MIN)
-    hi = ro._all_reduce(mine.clone(), dist.ReduceOp.MAX)
-    if not (torch.equal(lo, mine) and torch.equal(hi, mine)):
-        raise ValueError(f"ranks disagree on the slab kit (n, Lz, size): "
-                         f"min {lo.tolist()}, max {hi.tolist()}")
+@dataclasses.dataclass(frozen=True)
+class ShardedParityOps(ShardedKit):
+    """The 2D parity mechanics kit on one rank's y-slab
+    ``(nc, 2, 2, Ly, n+1)``: the methods of
+    :class:`..ops.parity2d.ElasticityParityOps` with the reductions taken
+    across the group (the 2D twin of :class:`ShardedRowOps`)."""
+    n: int
+    nc: int
+    group: SlabGroup
+    apply_local: Callable          # (xl (..., Ly+1, n+1), nv) -> same
+    coupling_whole: Callable       # flat p -> whole parity RHS
+    projection_whole: Callable     # whole parity u -> (C, n_pdofs)
+    free_mask_rows: torch.Tensor   # the rank's slab, padding 0
+    diag_rows: torch.Tensor        # the rank's slab, padding 1
+    block_precond: Callable = None  # none in 2D (JAX's parity kit has none)
+    comm: CommCounter = dataclasses.field(default_factory=CommCounter)
+    slab_axis = 3
+
+    @property
+    def Ly(self) -> int:
+        return slab_layers(self.n, self.group.size)
+
+    @property
+    def nv(self) -> int:
+        return real_layers(self.n, self.group.size, self.group.rank)
+
+    def local_rows(self, R):
+        """The rank's slab of a whole parity tensor ``R``: zero-padded to
+        ``n_dev*Ly`` iy-rows, then sliced."""
+        Ly = self.Ly
+        r0 = self.group.rank * Ly
+        out = R.new_zeros(R.shape[:3] + (Ly, R.shape[4]))
+        real = max(0, min(Ly, R.shape[3] - r0))
+        out[:, :, :, :real] = R[:, :, :, r0:r0 + real]
+        return out
+
+    def whole(self, R):
+        """The whole unpadded parity tensor from every rank's slab."""
+        return self.gather_rows(R)[:, :, :, :self.n + 1]
+
+    def to_rows(self, u_flat):
+        return self.local_rows(to_parity(u_flat, self.n, self.nc))
+
+    def from_rows(self, R):
+        return from_parity(self.whole(R), self.n, self.nc)
+
+    def apply_rows(self, x):
+        """Unconstrained ``A x`` on the slab: one halo iy-row in, the slab
+        apply over ``nv`` real cell rows, one band row back."""
+        return self._halo_apply(x, 1, lambda xe: self.apply_local(xe,
+                                                                  self.nv))
+
+    def constrained_apply(self, x):
+        m = self.free_mask_rows
+        return self.apply_rows(x * m) * m + x * (1.0 - m)
+
+    def free_apply(self, x):
+        return self.apply_rows(x) * self.free_mask_rows
+
+    def coupling_rows(self, p):
+        """The coupling RHS computed whole from the replicated p, sliced."""
+        return self.local_rows(self.coupling_whole(p))
+
+    def projection_rows(self, x):
+        """The strain-projection RHS on the gathered slabs (replicated)."""
+        return self.projection_whole(self.whole(x))
+
+
+def make_parity_ops_sharded(element_matrix: np.ndarray, n: int, free_mask_u,
+                            diag_elasticity, group: SlabGroup,
+                            coupling_matrix: np.ndarray,
+                            projection_matrix: np.ndarray,
+                            dtype: torch.dtype, nc: int = 2
+                            ) -> ShardedParityOps:
+    """The y-slab parity kit on ``group.device``: constants built in numpy,
+    whole parity tensors padded (mask 0, diagonal 1) and sliced to the
+    rank's slab (``make_parity_ops_sharded`` of the reference)."""
+    dev = group.device
+    Ly = slab_layers(n, group.size)
+    rows = slice(group.rank * Ly, (group.rank + 1) * Ly)
+    pad = ((0, 0),) * 3 + ((0, group.size * Ly - (n + 1)), (0, 0))
+    free_np = np.asarray(free_mask_u, np.float64)
+    ones_p = to_parity_np(np.ones_like(free_np), n, nc)
+    diag_p = to_parity_np(diag_elasticity, n, nc) + (1.0 - ones_p)
+
+    def slab(a, fill):
+        a = np.pad(a, pad, constant_values=fill)[:, :, :, rows]
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=dev)
+
+    ko = ShardedParityOps(
+        n=n, nc=nc, group=group,
+        apply_local=make_apply_parity_local(element_matrix, n, Ly, nc, dtype,
+                                            dev),
+        coupling_whole=make_coupling_parity(coupling_matrix, n, nc, dtype,
+                                            dev),
+        projection_whole=make_projection_parity(projection_matrix, n, nc,
+                                                dtype, dev),
+        free_mask_rows=slab(to_parity_np(free_np, n, nc), 0.0),
+        diag_rows=slab(diag_p, 1.0))
+    ko._check_agreement(n, Ly)
+    return ko
+
+
+def _sharded_parity_gmg(kit: ShardedParityOps, gmg_rows: Callable):
+    """The parity V-cycle on y-slabs: the slabs gathered and unpadded, the
+    V-cycle run whole on every rank (it is the per-FSS-iteration
+    preconditioner, not on the per-CG-iteration halo path), the correction
+    padded (zero: the padding rows are constrained dofs) and sliced back
+    to the rank's slab."""
+    def gmg_rows_sharded(r):
+        return kit.local_rows(gmg_rows(kit.whole(r)))
+    return gmg_rows_sharded
 
 
 def shard_production_discretization(disc, group: SlabGroup):
-    """The production discretization with its rows kit replaced by the
-    z-slab kit over ``group``; the pressure side stays as it is
-    (replicated).  Needs the rows kit (a 3D equal-axis Q2 grid on the rows
-    backend) and a discretization on the group's device."""
+    """The production discretization over ``group``: the gspmd slabs of
+    the structured stencils and the fused pressure Jacobian
+    (:func:`.sharding.shard_grid_discretization`), plus the mechanics kit
+    on slabs: the z-slab rows kit in 3D, the y-slab parity kit in 2D (with
+    the parity V-cycle on gathered slabs when the discretization has one).
+    Needs the rows or parity kit (an equal-axis Q2/Q1 grid on the rows or
+    parity backend) and a discretization on the group's device."""
     if getattr(disc, "row_ops", None) is None:
-        raise ValueError("production sharding needs the rows kit (3D "
-                         "equal-axis Q2 grid, elasticity backend "
-                         "auto/pallas)")
+        raise ValueError("production sharding needs the rows kit in 3D or "
+                         "the parity kit in 2D (equal-axis Q2 grid, "
+                         "elasticity backend auto/pallas in 3D, parity (or "
+                         "auto at size) in 2D)")
     if disc.device != group.device:
         raise ValueError(f"discretization on {disc.device}, slab group on "
                          f"{group.device}")
+    base = shard_grid_discretization(disc, group)
     n = disc.info_u.cells_per_axis[0]
+    if disc.dim == 2:
+        kit = make_parity_ops_sharded(
+            disc.element_ke, n, disc.free_mask_u.cpu().numpy(),
+            disc.diag_elasticity.cpu().numpy(), group,
+            coupling_matrix=disc.element_ce,
+            projection_matrix=disc.element_pe, dtype=disc.dtype,
+            nc=disc.row_ops.nc)
+        gmg = disc.gmg_precond_rows
+        return dataclasses.replace(
+            base, row_ops=kit, gmg_precond=None,
+            gmg_precond_rows=None if gmg is None
+            else _sharded_parity_gmg(kit, gmg))
     row_ops = make_row_ops_sharded(
         disc.element_ke, n, disc.free_mask_u.cpu().numpy(),
         disc.diag_elasticity.cpu().numpy(), group,
         coupling_matrix=disc.element_ce, projection_matrix=disc.element_pe,
         dtype=disc.dtype, plain=disc.row_ops.plain)
-    return dataclasses.replace(disc, row_ops=row_ops)
+    return dataclasses.replace(base, row_ops=row_ops)

@@ -40,9 +40,9 @@ class CGResult:
 
 class LocalReductions:
     """The reductions of vectors this process holds whole, and
-    :func:`cg_solve`'s defaults.  The sharded mechanics kit
-    (:class:`..parallel.rows.ShardedRowOps`) has the same three, taken
-    across its group.  Each returns a device tensor."""
+    :func:`cg_solve`'s defaults.  The sharded mechanics kits
+    (:class:`..parallel.rows.ShardedKit`) have the same three, taken
+    across their group.  Each returns a device tensor."""
 
     @staticmethod
     def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -37,11 +37,16 @@ float64 run on a structured grid refines float32 solves of a twin
 discretization (:meth:`FixedStressSolver._mixed_precision_inner`): the
 flat mechanics solve, the bc response, the pressure and the projection;
 the rows kit keeps its native f64 mechanics, as in the reference.
-With the z-slab kit of the sharded production path
-(:class:`..parallel.rows.ShardedRowOps`) ``State.u_rows`` and
-``State.mech_b`` are the rank's slabs and ``State.u`` the gathered whole
-vector; the mechanics norms, dots and the bitwise-skip test go through the
-kit's reductions, so every rank takes the same branch.
+With a slab kit of the sharded production path
+(:class:`..parallel.rows.ShardedKit`: the 3D z-slab rows, the 2D y-slab
+parity) ``State.u_rows`` and ``State.mech_b`` are the rank's slabs and
+``State.u`` the gathered whole vector; the mechanics norms, dots and the
+bitwise-skip test go through the kit's reductions, so every rank takes the
+same branch.  The gspmd and psum discretizations
+(:mod:`..parallel.sharding`) keep every vector whole; the gspmd hook
+``wrap_pressure_stencil`` puts the fused pressure Jacobian on slabs too.
+Every sharded discretization runs its CG chunks eagerly (they hold
+collectives).
 On a generic discretization with hanging nodes (an adaptive mesh,
 :mod:`..amr`) the reference's constraint hooks run where it runs them:
 the pressure residual and the projection RHS are condensed, the pressure
@@ -79,7 +84,7 @@ from ..ops import dense
 from ..ops.operators import SHEAR_ENTRIES, VOIGT_PAIRS, VOLUMETRIC_ENTRIES
 from ..ops.stencil import make_stencil_apply
 from . import structured
-from ..parallel.rows import ShardedRowOps
+from ..parallel.rows import ShardedKit
 from .cg import (LocalReductions, cg_solve, cg_solve_batched,
                  lane_norm, richardson_solve)
 from .cuda_graphs import ChunkGraphs
@@ -223,7 +228,7 @@ class FixedStressSolver:
 
     ``cuda_graphs``: on the card, run each CG chunk as a captured CUDA
     graph (the default); False runs the same chunks eagerly, for
-    comparisons.  The z-slab sharded kit always runs them eagerly: its
+    comparisons.  A sharded discretization always runs them eagerly: its
     chunks hold NCCL collectives."""
 
     def __init__(self, disc: Union[GridDiscretization, Discretization],
@@ -240,11 +245,11 @@ class FixedStressSolver:
         self._rows = ro is not None
         # the mechanics vector's reductions: across the group on a slab
         # kit, else local
-        self._reduce = ro if isinstance(ro, ShardedRowOps) \
-            else LocalReductions
+        self._reduce = ro if isinstance(ro, ShardedKit) else LocalReductions
+        sharded = getattr(disc, "slab_group", None) is not None
         self.graphs = ChunkGraphs() if (
-            cuda_graphs and disc.device.type == "cuda"
-            and not isinstance(ro, ShardedRowOps)) else None
+            cuda_graphs and disc.device.type == "cuda" and not sharded) \
+            else None
         # hanging-node constraints: a generic (adaptive) mesh's own, empty
         # tables (identity hooks) on every other discretization
         if isinstance(disc, Discretization):
@@ -325,7 +330,7 @@ class FixedStressSolver:
     def _mixed_precision_inner(self):
         """``TPU / Mixed precision refinement = on`` (the reference's
         ``_mixed_precision_inner``, ``fss.py:152-237``): for a float64 run
-        on a structured grid (not the slab kit), a float32 twin of the
+        on a structured grid (not a sharded one), a float32 twin of the
         discretization (``multigrid="off"``, the deck's elasticity backend:
         rows CG on the kernels, or flat Jacobi-CG on the flat kernel) whose
         whole solves, to 1e-5 of a unit-norm residual, precondition f64
@@ -340,7 +345,7 @@ class FixedStressSolver:
         if not (data.mixed_precision_refinement == "on"
                 and d.dtype == torch.float64
                 and isinstance(d, GridDiscretization)
-                and not isinstance(d.row_ops, ShardedRowOps)):
+                and d.wrap_pressure_stencil is None):
             return None
         verts = d.pressure_space.mesh.vertices
         disc32 = structured.build_grid_discretization(
@@ -429,7 +434,9 @@ class FixedStressSolver:
 
     def _fused_jacobian_stencil(self, dt):
         """Pressure Jacobian mass/(M dt) + (k/mu) L as one stencil (on a
-        structured grid; the Q1 slice stencil for Q1 pressure)."""
+        structured grid; the Q1 slice stencil for Q1 pressure), through the
+        discretization's ``wrap_pressure_stencil`` hook when it has one
+        (the gspmd slabs)."""
         if dt not in self._jac_stencils:
             d, data = self.disc, self.data
             verts = d.pressure_space.mesh.vertices
@@ -440,9 +447,12 @@ class FixedStressSolver:
             Le = dense.laplace_element_matrices(sp1)[0]
             J = Me / (data.m_modulus * dt) + (data.perm / data.visc) * Le
             kp = d.info_p.degree
-            self._jac_stencils[dt] = make_stencil_apply(
-                J, kp, kp, 1, 1, d.dim, d.info_p.cells_per_axis, d.dtype,
-                d.device)
+            st = make_stencil_apply(J, kp, kp, 1, 1, d.dim,
+                                    d.info_p.cells_per_axis, d.dtype,
+                                    d.device)
+            if d.wrap_pressure_stencil is not None:
+                st = d.wrap_pressure_stencil(st)
+            self._jac_stencils[dt] = st
         return self._jac_stencils[dt]
 
     def _pressure_jacobian_apply(self, x, dt):
@@ -535,13 +545,15 @@ class FixedStressSolver:
             # a strong preconditioner in f32: CG's p.Ap sinks into the
             # apply's rounding noise, Richardson has no quadratic forms
             res = self._richardson("mechanics_gmg", apply, b, x0, gmg, tol,
-                                   data.cg_max_iterations)
+                                   data.cg_max_iterations,
+                                   norm=self._reduce.norm)
         elif gmg is not None:
             # f64: GMG-CG (the reference's tolerances lie below the true
             # residual's roundoff floor, which only the recurred CG
             # residual passes)
             res = self._cg("mechanics_gmg", apply, b, x0, diag, tol=tol,
-                           max_iter=data.cg_max_iterations, precond=gmg)
+                           max_iter=data.cg_max_iterations, precond=gmg,
+                           dot=self._reduce.dot, norm=self._reduce.norm)
         elif self._rows:
             # node-block Jacobi when asked for: a fixed SPD preconditioner
             # with identity blocks at constrained nodes, so the

@@ -110,6 +110,12 @@ class GridDiscretization:
     gmg_setup_s: float = 0.0        # host seconds of the elasticity GMG build
     gmg_levels: int = 0             # its levels (0: none built)
     kernels: str = "auto"           # the build's ``kernels`` setting
+    # a hook wrapping stencils built after construction (the solver's
+    # per-dt fused pressure Jacobian): the gspmd slabs
+    # (parallel/sharding.py) install it to compute those on slabs too
+    wrap_pressure_stencil: Optional[Callable] = None
+    # the process group of a sharded discretization (gspmd, production)
+    slab_group: Optional[object] = None
 
     @property
     def n_pdofs(self) -> int:
@@ -325,6 +331,8 @@ def build_grid_discretization(data: InputData,
 
     def st_proj(u):
         return proj_raw(u).reshape(-1, C).T         # (C, n_pdofs)
+
+    st_proj.raw = proj_raw          # the node-grid apply the gspmd slabs take
 
     # the flat kernel takes the 3D Q2 grid with equal counts
     flat_kernel = (dim == 3 and ku == 2 and isotropic

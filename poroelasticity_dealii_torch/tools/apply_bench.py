@@ -94,12 +94,14 @@ LIBRARY_CASES = ("elasticity_rows_apply[unmasked]",
                  "coupling_rows", "projection_rows", "elasticity_grid_apply")
 
 
-def _flat_index(n: int, device) -> torch.Tensor:
-    """(81, n^3): flat Q2 dof index (((z*g + y)*g + x)*3 + c) of local
-    (node, comp) a*3+c of every cell, cells in z, y, x order."""
+def _flat_index(n: int, device, nz: int = None) -> torch.Tensor:
+    """(81, n^2 nz): flat Q2 dof index (((z*g + y)*g + x)*3 + c) of local
+    (node, comp) a*3+c of every cell of nz layers (default n) of n x n
+    cells, cells in z, y, x order."""
     from ..ops.shape import node_lattice
     g = 2 * n + 1
-    iz, iy, ix = np.meshgrid(*(np.arange(n),) * 3, indexing="ij")
+    iz, iy, ix = np.meshgrid(np.arange(n if nz is None else nz),
+                             np.arange(n), np.arange(n), indexing="ij")
     cell = ((2 * iz * g + 2 * iy) * g + 2 * ix).reshape(-1)
     off = [((int(oz) * g + int(oy)) * g + int(ox)) * 3 + c
            for (ox, oy, oz) in node_lattice(2, 3) for c in range(3)]
@@ -132,12 +134,19 @@ def library_csr(name: str, n: int, ke, ce, pe, mask_rows, nz: int = None,
     in (CONSTRAINED adds the identity on the constrained rows), zero entries
     left out, duplicates summed (COO coalesce).  ``nz``, ``nv``: the slab
     form of the UNMASKED apply (``((nz+1)*24, W)`` rows, the first ``nv``
-    of ``nz`` cell layers)."""
+    of ``nz`` cell layers), or the flat apply's slab mode (``nz`` layers
+    of n x n cells, ``(2n+1)^2 (2nz+1) * 3`` values in and out)."""
     from ..ops import comp_major as cm
     dev = ke.device
+    if name == "elasticity_grid_apply":
+        F = _flat_index(n, dev, nz)
+        shape = (3 * (2 * n + 1) ** 2 * (2 * (n if nz is None else nz)
+                                         + 1),) * 2
+        return _csr(list(_cell_entries(F, F, ke)), shape)
     if nz is not None or nv is not None:
         if name != "elasticity_rows_apply[unmasked]":
-            raise ValueError("the slab form is the UNMASKED apply's")
+            raise ValueError("the slab form is the UNMASKED apply's or the "
+                             "flat apply's")
         nz, nv = cm._slab_depth(n, cm.UNMASKED, nz, nv)
     else:
         nz = nv = n
@@ -164,12 +173,20 @@ def library_csr(name: str, n: int, ke, ce, pe, mask_rows, nz: int = None,
              + g3 * torch.arange(C, device=dev).repeat(8)[:, None])
         rows, cols, vals = _cell_entries(R, G, pe)
         shape = (C * g3, N)
-    elif name == "elasticity_grid_apply":
-        F = _flat_index(n, dev)
-        rows, cols, vals = _cell_entries(F, F, ke)
-        shape = (3 * (2 * n + 1) ** 3,) * 2
     else:
         raise ValueError(f"no library operator for {name!r}")
+    entries = [rows, cols, vals]
+    del rows, cols, vals
+    return _csr(entries, shape, diag)
+
+
+def _csr(entries: list, shape, diag=None) -> torch.Tensor:
+    """CSR of the ``[rows, cols, vals]`` entries (the list is emptied, so
+    the caller's references go as they are used), zeros left out,
+    duplicates summed, plus ``diag`` on the diagonal where it is
+    nonzero."""
+    rows, cols, vals = entries
+    entries.clear()
     keep = vals != 0
     idx = torch.stack([rows[keep], cols[keep]])
     vals = vals[keep]

@@ -6,18 +6,24 @@ runs the bench configuration (:func:`bench_data`) at ``n`` cells per axis
 (default 40) on the card, on the rows backend (default), the conv backend
 (``backend`` ``conv``) or the sharded production path on a world-size-1
 NCCL process group (``sharded``: the rows kit replaced by the z-slab kit,
-every mechanics apply the slab kernel), or the 2D configuration
-(:func:`data_2d`, ``backend`` ``2d``, e.g. ``512 2d``: the parity kit
-with the parity-resident elasticity GMG from 150,000 displacement dofs,
-GMG-Richardson in float32), or the bench configuration on the distorted
-hex mesh of the generic path (``generic``: :func:`generic_mesh`, the
-generic discretization's gather and plan-scatter applies, flat Jacobi-CG
-mechanics and Jacobi pressure CG), or the adaptive octree run (``amr``:
+every mechanics apply the slab kernel, the pressure stencils on gspmd
+slabs), or the gspmd form of the conv backend on that group (``gspmd``:
+every stencil on node-plane slabs, the elasticity slab the flat kernel's
+slab mode), or the 2D configuration (:func:`data_2d`, ``backend`` ``2d``,
+e.g. ``512 2d``: the parity kit with the parity-resident elasticity GMG
+from 150,000 displacement dofs, GMG-Richardson in float32; ``2d_sharded``:
+the same through the 2D production form on the world-size-1 group, the
+y-slab parity kit), or the bench configuration on the distorted hex mesh
+of the generic path (``generic``: :func:`generic_mesh`, the generic
+discretization's gather and plan-scatter applies, flat Jacobi-CG
+mechanics and Jacobi pressure CG; ``psum``: the same through the psum form
+on the world-size-1 group, one all-reduce per apply), or the adaptive
+octree run (``amr``:
 :func:`amr_data`, ``n`` the ``Max refinement level``, 5 or 6: 6 or 10
 steps from the uniform level-4 mesh with a remesh before every 5th, the
 hanging-node constrained generic path), with the solver's CG chunks
 captured as CUDA graphs (``loop`` ``captured``, the default; the sharded
-path always runs them eagerly) or run eagerly (``eager``), each call
+forms always run them eagerly) or run eagerly (``eager``), each call
 site's chunk size from ``solvers/fss.py::CHUNK`` unless a ``site=C``
 argument sets it (e.g. ``mechanics_gmg=1``):
 ``initial_state``, evolving steps with the Dirichlet load ramp, then steady
@@ -191,7 +197,10 @@ def _step(solver, state, bc, bc_prev):
     return state, stats, (time.perf_counter() - t0) * 1e3
 
 
-BACKENDS = ("rows", "conv", "sharded", "2d", "generic", "amr")
+BACKENDS = ("rows", "conv", "sharded", "gspmd", "2d", "2d_sharded",
+            "generic", "psum", "amr")
+# the backends that run on a world-size-1 process group
+SHARDED = ("sharded", "gspmd", "2d_sharded", "psum")
 LOOPS = ("captured", "eager")
 
 
@@ -199,12 +208,12 @@ def run(n: int = 40, n_evolving: int = 5, n_steady: int = 3,
         device="cuda", backend: str = "rows", loop: str = "captured") -> list:
     """Profile the last evolving and the last steady step on ``backend``
     (:data:`BACKENDS`) with the CG chunks ``loop`` (:data:`LOOPS`);
-    returns their records.  ``sharded`` initialises a world-size-1 process
-    group here (NCCL on CUDA, gloo on the CPU) and destroys it at the
-    end."""
+    returns their records.  The sharded backends (:data:`SHARDED`)
+    initialise a world-size-1 process group here (NCCL on CUDA, gloo on
+    the CPU) and destroy it at the end."""
     if backend == "amr":
         return _run_amr(n, device, loop)
-    if backend != "sharded":
+    if backend not in SHARDED:
         return _run(n, n_evolving, n_steady, device, backend, loop)
     import torch.distributed as dist
     with tempfile.TemporaryDirectory() as tmp:
@@ -219,15 +228,17 @@ def run(n: int = 40, n_evolving: int = 5, n_steady: int = 3,
 
 def _run(n, n_evolving, n_steady, device, backend, loop) -> list:
     from ..ops import comp_major as cm
-    from ..parallel import make_slab_group, shard_production_discretization
+    from ..parallel import (make_slab_group, shard_discretization,
+                            shard_grid_discretization,
+                            shard_production_discretization)
     from ..solvers.discretization import build_discretization
     from ..solvers.fss import CHUNK, FixedStressSolver
     from ..solvers.structured import build_grid_discretization
 
-    if backend == "generic":
+    if backend in ("generic", "psum"):
         data = bench_data()
         disc = build_discretization(generic_mesh(n), data, device=device)
-    elif backend == "2d":
+    elif backend in ("2d", "2d_sharded"):
         data = data_2d()
         disc = build_grid_discretization(data, cells_per_axis=n,
                                          multigrid="auto", device=device)
@@ -235,10 +246,14 @@ def _run(n, n_evolving, n_steady, device, backend, loop) -> list:
         data = bench_data()
         disc = build_grid_discretization(
             data, cells_per_axis=n, multigrid="off", device=device,
-            elasticity_backend="conv" if backend == "conv" else "auto")
-    if backend == "sharded":
-        disc = shard_production_discretization(disc,
-                                               make_slab_group(disc.device))
+            elasticity_backend="conv" if backend in ("conv", "gspmd")
+            else "auto")
+    shard = {"sharded": shard_production_discretization,
+             "2d_sharded": shard_production_discretization,
+             "gspmd": shard_grid_discretization,
+             "psum": shard_discretization}.get(backend)
+    if shard is not None:
+        disc = shard(disc, make_slab_group(disc.device))
     solver = FixedStressSolver(disc, data,
                                cuda_graphs=loop == "captured")
     graphs = solver.graphs
@@ -258,6 +273,8 @@ def _run(n, n_evolving, n_steady, device, backend, loop) -> list:
         bc_prev = bc
         for wrapper in WRAPPERS:
             dev[wrapper]["calls"] = getattr(cm, wrapper).launches
+        dev["elasticity_grid_apply"]["slab_calls"] = \
+            cm.elasticity_grid_apply.slab_launches
         records.append({
             "step": k, "kind": kind, "n": n, "backend": backend,
             "loop": "captured" if graphs else "eager",

@@ -23,8 +23,9 @@ float64 on the CPU:
   run through its first remesh; a padded run against an
   unpadded one; ``Steps per dispatch = 3`` against the per-step run, bit
   for bit;
-* the entry points: the CLI on an adaptive deck, and AMR decks with
-  ``Sharding = psum`` refused with their ROADMAP item.
+* the entry points: the CLI on an adaptive deck, an AMR deck with
+  ``Sharding = psum`` on one process, and AMR decks with ghost, gspmd or
+  production sharding refused with the reference's error.
 """
 
 import dataclasses
@@ -643,10 +644,25 @@ def test_cli_runs_an_adaptive_deck(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("sharding", "psum", "ROADMAP item 9.3")])
+    ("sharding", "psum", None),
+    ("sharding", "ghost", "only 'psum' supports hanging-node constraints"),
+    ("sharding", "gspmd", "only 'psum' supports hanging-node constraints"),
+    ("sharding", "production",
+     "only 'psum' supports hanging-node constraints")])
 def test_adaptive_decks_refuse_unported_options(field, value, item):
+    """AMR with psum runs (one process: a warning at each remesh, then
+    unsharded); with ghost, gspmd or production both entry points raise
+    the reference's ``NotImplementedError``."""
     data = dataclasses.replace(read_input_file(ADAPTIVE), output_vtk=False,
                                **{field: value})
+    if item is None:
+        data = dataclasses.replace(data, t_max=2 * data.time_step,
+                                   refine_every=2)
+        with pytest.warns(RuntimeWarning, match="single process"):
+            state, hist = AMRSimulationRunner(data, device="cpu").run()
+        assert hist[1]["n_cells"] > hist[0]["n_cells"]
+        assert bool(torch.isfinite(state.p).all())
+        return
     for entry in (lambda: run_from_data(data, device="cpu"),
                   lambda: AMRSimulationRunner(data, device="cpu")):
         with pytest.raises(NotImplementedError, match=item):

@@ -93,13 +93,14 @@ def test_runner_writes_vtk_and_run_log(tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [("amr", True),
-                                         ("sharding", "psum")])
+                                         ("sharding", "ghost")])
 def test_runner_rejects_unported_features(field, value):
-    # AMR itself runs (tests/test_torch_amr.py); AMR with psum does not
-    extra = {"sharding": "psum"} if field == "amr" else {}
+    # AMR itself runs (tests/test_torch_amr.py), with psum too; ghost
+    # sharding does not, with AMR or without
+    extra = {"sharding": "ghost"} if field == "amr" else {}
     data = dataclasses.replace(read_input_file(DECK), **{field: value},
                                **extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 9.3"):
         SimulationRunner(data, device="cpu")
 
 

@@ -6,8 +6,9 @@ flat vectors, one step of the generic path on ``configs/irregular_3d.msh``
 (the gmsh reader, ``build_discretization``), an adaptive run with one
 remesh on the 2D quadtree (Kelly, marking, refining, the constraint
 builders, the transfer, a step on the hanging mesh), a checkpointed run
-with Debug NaNs resumed from its checkpoint, a nondimensional run and the
-CLI ``check``, and
+with Debug NaNs resumed from its checkpoint, a nondimensional run, one
+step each of psum, gspmd and 2D production on a world-size-1 gloo group,
+and the CLI ``check``, and
 finds no module of ``jax``, ``jaxlib`` or
 ``poroelasticity_dealii_tpu`` loaded (the port keeps its own copies of the
 host modules it needs; ``tests/test_torch_vendored.py`` holds them equal to
@@ -81,6 +82,31 @@ with tempfile.TemporaryDirectory() as tmp:
     nd = run_from_data(dataclasses.replace(ck, nondimensionalize=True,
                                            checkpoint_every=0), device="cpu")
     assert torch.allclose(nd.p * data2.youngs_modulus, full.p, rtol=1e-8)
+import torch.distributed as dist
+from poroelasticity_dealii_torch.models.runner import structured_generic_mesh
+from poroelasticity_dealii_torch.parallel import (
+    make_slab_group, shard_discretization, shard_grid_discretization,
+    shard_production_discretization)
+with tempfile.TemporaryDirectory() as tmp:
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/pg", rank=0,
+                            world_size=1)
+    g = make_slab_group("cpu")
+    small = dataclasses.replace(data, initial_refinement_level=1)
+    for d, shard in (
+            (build_discretization(structured_generic_mesh(small), small,
+                                  device="cpu"), shard_discretization),
+            (build_grid_discretization(data, cells_per_axis=4, device="cpu"),
+             shard_grid_discretization),
+            (build_grid_discretization(data2, cells_per_axis=8,
+                                       elasticity_backend="parity",
+                                       device="cpu"),
+             shard_production_discretization)):
+        dd = data2 if d.dim == 2 else data
+        s = FixedStressSolver(shard(d, g), dd)
+        assert s.graphs is None
+        state, stats = s.time_step(s.initial_state(), dd.time_step)
+        assert stats.cg_converged and stats.fss_iterations >= 1, stats
+    dist.destroy_process_group()
 assert main(["check", "configs/consolidation_3d.data"]) == 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib",

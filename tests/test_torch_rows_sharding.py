@@ -567,16 +567,37 @@ def test_runner_warns_and_runs_unsharded_on_one_process(tmp_path):
 
 @pytest.mark.parametrize("mode", ["psum", "ghost", "gspmd"])
 def test_runner_refuses_other_sharding_modes(mode, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        SimulationRunner(_runner_data(tmp_path, mode), device="cpu")
+    """``ghost`` is still refused, naming its ROADMAP item; psum and gspmd
+    run: on one process each warns and runs unsharded (psum on the
+    generic discretization of the deck's grid, gspmd on the grid)."""
+    if mode == "ghost":
+        with pytest.raises(NotImplementedError, match="item 9.3"):
+            SimulationRunner(_runner_data(tmp_path, mode), device="cpu")
+        return
+    data = dataclasses.replace(_runner_data(tmp_path, mode),
+                               initial_refinement_level=1,
+                               t_max=read_input_file(DECK).time_step,
+                               output_vtk=False)
+    with pytest.warns(RuntimeWarning, match="single process"):
+        runner = SimulationRunner(data, device="cpu")
+    assert (runner.disc.row_ops is None) == (mode == "psum")
+    assert bool(torch.isfinite(runner.run().u).all())
 
 
 def test_runner_refuses_production_on_2d_deck(tmp_path):
+    """2D production (the y-slab parity form) runs: on one process the
+    golden deck on the parity kit warns and runs unsharded."""
     data = dataclasses.replace(read_input_file("configs/golden_2d.data"),
                                sharding="production",
+                               elasticity_backend="parity",
+                               t_max=read_input_file(
+                                   "configs/golden_2d.data").time_step,
+                               output_vtk=False,
                                output_directory=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 9.2"):
-        SimulationRunner(data, device="cpu")
+    with pytest.warns(RuntimeWarning, match="single process"):
+        runner = SimulationRunner(data, device="cpu")
+    assert type(runner.disc.row_ops).__name__ == "ElasticityParityOps"
+    assert bool(torch.isfinite(runner.run().u).all())
 
 
 def test_runner_refuses_devices_other_than_world_size(tmp_path):
