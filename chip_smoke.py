@@ -76,9 +76,22 @@ just before and read just after:
   (``shard_discretization``, one all-reduce per apply) on a world-size-1
   NCCL group against the captured generic run: counts equal, p and u
   within 1e-4 of max;
+* the ghost form (``parallel/ghost.py``: first-touch renumbering, every
+  vector sharded, halo windows) on the same distorted 40^3 mesh: its halo
+  arithmetic at full size in one process (``ghost_split_phase``: 1-, 2-,
+  4- and 8-way splits, every rank's window-local applies with the windows
+  and returns through an in-process transport, stitched, against the
+  unsharded applies in float64 and float32; C, H and the halo values per
+  apply; rank 0's window elasticity apply timed for the 4-way split),
+  then ``shard_discretization_ghost`` on a world-size-1 NCCL group
+  (``ghost_phase``: 2 evolving + 1 steady eager steps, the solver on
+  sharded vectors with every reduction all-reduced, against the captured
+  generic run mapped through the renumbering);
 * the CLI on the 3D deck, on the rows backend, on a copy of the deck with
   ``Elasticity backend = conv``, and on a copy with ``Steps per dispatch =
   4``, ``Sync every = 2`` and no VTK output (blocks of 4 and 2 steps), on
+  a copy with ``Sharding = ghost`` under ``torchrun`` on one rank against
+  the same copy on one process (unsharded), on
   the golden 2D deck (float64, 17 steps) against
   ``tests/data/golden_history.json``, and on the gmsh deck
   ``configs/irregular_2d.data`` (the generic path, float64, 17 steps)
@@ -159,6 +172,7 @@ from poroelasticity_dealii_torch.ops import cell_products as cp
 from poroelasticity_dealii_torch.ops import comp_major as cm
 from poroelasticity_dealii_torch.ops import elasticity as eg
 from poroelasticity_dealii_torch.ops.parity2d import ElasticityParityOps
+from poroelasticity_dealii_torch.parallel import ghost as gh
 from poroelasticity_dealii_torch.parallel import rows as pr
 from poroelasticity_dealii_torch.parallel.sharding import (
     ShardedDiscretization, SlabGroup, SlabStencil, make_slab_group,
@@ -1042,11 +1056,55 @@ CLI_CKPT = "  set Checkpoint every = 3\n  set Output VTK = false\n"
 CLI_RESUME_STEP = 3
 
 
-def _cli(path: Path, cwd: Path, env: dict, *extra) -> subprocess.Popen:
+CLI_GHOST = ("  set Sharding = ghost\n  set Mechanics CG relative = true\n"
+             "  set Mechanics CG tolerance = 1e-10\n")
+
+
+def _cli(path: Path, cwd: Path, env: dict, *extra,
+         launcher=()) -> subprocess.Popen:
     return subprocess.Popen(
-        [sys.executable, "-m", "poroelasticity_dealii_torch", "run",
-         str(path), "--device", "cuda", *extra], cwd=cwd, env=env,
+        [sys.executable, *launcher, "-m", "poroelasticity_dealii_torch",
+         "run", str(path), "--device", "cuda", *extra], cwd=cwd, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+# one rank through torchrun (NCCL on card 0)
+TORCHRUN_ONE = ("-m", "torch.distributed.run", "--standalone",
+                "--nproc-per-node", "1")
+
+
+def cli_ghost_check(ghost: list, single: list) -> None:
+    """The 8^3 deck with ``Sharding = ghost`` (and a relative mechanics
+    tolerance, :data:`CLI_GHOST`) under ``torchrun`` on one rank against
+    the same deck on one process (a warning, then the unsharded generic
+    discretization): per step FSS, pressure and pressure-CG counts
+    equal, mechanics and projection CG within :data:`GHOST_CG_SLACK` a
+    solve, ``pressure_error`` within :data:`CLI_PRESSURE_RTOL`."""
+    for a, b in zip(ghost, single):
+        ca, cb = a["cg_iterations"], b["cg_iterations"]
+        fss = b["fss_iterations"]
+        rec = {"cli_ghost_step": a["step"],
+               "fss": [a["fss_iterations"], fss],
+               "pressure": [a["pressure_iterations"],
+                            b["pressure_iterations"]],
+               "cg": [ca, cb], "counts_equal": [
+                   a[k] == b[k] for k in ("fss_iterations",
+                                          "pressure_iterations",
+                                          "cg_iterations")],
+               "pressure_error": [a["pressure_error"], b["pressure_error"]]}
+        print(json.dumps(rec), flush=True)
+        if a["fss_iterations"] != fss or a["pressure_iterations"] != \
+                b["pressure_iterations"] or ca["pressure"] != cb["pressure"] \
+                or abs(ca["mechanics"] - cb["mechanics"]) > \
+                GHOST_CG_SLACK * fss or abs(
+                    ca["projection"] - cb["projection"]) > \
+                GHOST_CG_SLACK * (fss + 1) or not abs(
+                    a["pressure_error"] - b["pressure_error"]) \
+                <= CLI_PRESSURE_RTOL * abs(b["pressure_error"]):
+            raise AssertionError(f"CLI ghost run differs: {rec}")
+    if len(ghost) != len(single) or not ghost:
+        raise AssertionError(f"CLI ghost run logged {len(ghost)} steps, "
+                             f"the one-process run {len(single)}")
 
 
 def _finish(runs: dict) -> None:
@@ -1115,7 +1173,9 @@ def cli_phase():
     with ``Elasticity backend = conv``, on a copy with blocks of 4 steps
     and a sync every 2 (:data:`CLI_BLOCKS`; no VTK output, which would
     read every step's state and so cut every block to one step), on a copy
-    with a checkpoint every 3 steps (:data:`CLI_CKPT`), and on the golden
+    with a checkpoint every 3 steps (:data:`CLI_CKPT`), on a copy with
+    ``Sharding = ghost`` under ``torchrun`` on one rank and on one process
+    (:func:`cli_ghost_check`), and on the golden
     2D deck (:func:`golden_check`), all at once; the conv run log
     must agree with the rows one in FSS counts and pressure_error, the
     blocks run log in its steps, times and counts; then the resume from
@@ -1134,6 +1194,9 @@ def cli_phase():
         ckpt_deck = Path(tmp) / "consolidation_3d_ckpt.data"
         ckpt_deck.write_text(deck.read_text() + "\nsubsection TPU\n"
                              + CLI_CKPT + "end\n")
+        ghost_deck = Path(tmp) / "consolidation_3d_ghost.data"
+        ghost_deck.write_text(deck.read_text() + "\nsubsection TPU\n"
+                              + CLI_GHOST + "end\n")
         # the gmsh deck names its mesh relative to the repository's root
         irregular_deck = Path(tmp) / IRREGULAR_DECK.name
         irregular_deck.write_text(IRREGULAR_DECK.read_text() + (
@@ -1144,10 +1207,12 @@ def cli_phase():
         for name, path in (("rows", deck), ("conv", conv_deck),
                            ("blocks", blocks_deck), ("ckpt", ckpt_deck),
                            ("golden_2d", GOLDEN_DECK),
-                           ("irregular_2d", irregular_deck)):
+                           ("irregular_2d", irregular_deck),
+                           ("ghost", ghost_deck), ("ghost_one", ghost_deck)):
             cwd = Path(tmp) / name
             cwd.mkdir()
-            runs[name] = (cwd, _cli(path, cwd, env))
+            runs[name] = (cwd, _cli(path, cwd, env, launcher=(
+                TORCHRUN_ONE if name == "ghost" else ())))
         _finish(runs)
         logs = {}
         for name, (cwd, _) in runs.items():
@@ -1167,6 +1232,7 @@ def cli_phase():
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         golden_check(Path(tmp) / "golden_2d")
         irregular_check(Path(tmp) / "irregular_2d")
+        cli_ghost_check(logs["ghost"], logs["ghost_one"])
         cli_resume_and_profile(Path(tmp), env, ckpt_deck)
     rows, conv, blocks = logs["rows"], logs["conv"], logs["blocks"]
     key = lambda r: (r["step"], r["time"], r["fss_iterations"],  # noqa: E731
@@ -1703,6 +1769,159 @@ def psum_phase(dev, disc, ref_states, ref_stats) -> None:
         if rec["counts"][0] != rec["counts"][1] or not all(
                 rec[f"{x}_max_rel_err"] <= CROSS_TOL for x in ("p", "u")):
             raise AssertionError(f"psum step {k + 1}: {rec}")
+
+
+GHOST_SPLITS = (1, 2, 4, 8)
+GHOST_TIMED = 4            # the split whose rank 0 window apply is timed
+GHOST_CG_SLACK = 2         # CG iterations a solve that the float32 dot order
+#                            of the renumbered vectors may move
+
+
+def _apply_args(name: str) -> tuple:
+    return (apply_bench.BIOT,) if name == "coupling_rhs" else ()
+
+
+def ghost_split_phase(dev, disc) -> None:
+    """The ghost form's halo arithmetic at full size on one card: the
+    distorted 40^3 generic discretization ``disc`` (1,663,244 DOF)
+    renumbered first-touch, and for each split of :data:`GHOST_SPLITS`
+    every rank's window-local mass, Laplace, elasticity, coupling and
+    projection apply computed in this process
+    (``parallel/ghost.py::split_apply``: each window cut from the whole
+    renumbered vector as the exchange would deliver it, the returns
+    through the same code with an in-process transport, the chunks
+    stitched), in float64 and float32, held against the unsharded generic
+    apply (permuted) within :data:`TOL` of its max.  Prints each split's
+    C, H, the halo values exchanged per apply against the vector's
+    length, and for the :data:`GHOST_TIMED`-way split rank 0's window
+    elasticity apply in ms (both types) beside the whole apply's."""
+    t0 = time.perf_counter()
+    renumbered = gh.renumber_discretization(disc)
+    rd, order_p, order_u = renumbered
+    torch.cuda.synchronize()
+    renumber_s = time.perf_counter() - t0
+    orders = {"p": torch.as_tensor(order_p, device=dev),
+              "u": torch.as_tensor(order_u, device=dev)}
+    rng = np.random.default_rng(0)
+    xs = {"p": rng.standard_normal(rd.n_pdofs),
+          "u": rng.standard_normal(rd.n_udofs)}
+    whole = {torch.float32: disc,
+             torch.float64: apply_bench._cast(disc, torch.float64)}
+    for n_dev in GHOST_SPLITS:
+        t1 = time.perf_counter()
+        ranks32 = [gh.shard_renumbered(renumbered,
+                                       SlabGroup(d, n_dev, None, dev))
+                   for d in range(n_dev)]
+        r0 = ranks32[0]
+        rec = {"ghost_split": n_dev, "C_p": r0.C_p, "H_p": r0.H_p,
+               "C_u": r0.C_u, "H_u": r0.H_u, "n_p": rd.n_pdofs,
+               "n_u": rd.n_udofs, "build_s": time.perf_counter() - t1,
+               "renumber_s": renumber_s, "tol": {}, "max_rel_err": {},
+               "halo_values_per_apply": {}}
+        for dtype in (torch.float64, torch.float32):
+            tag = str(dtype).split(".")[-1]
+            ranks = ranks32 if dtype == torch.float32 else \
+                [apply_bench._cast(r, dtype) for r in ranks32]
+            src = whole[dtype]
+            rec["tol"][tag] = TOL[dtype]
+            for name, (kin, kout) in gh.WINDOW_APPLIES.items():
+                x = torch.as_tensor(xs[kin], dtype=dtype, device=dev)
+                unp = torch.empty_like(x)
+                unp[orders[kin]] = x        # x in the source numbering
+                ref = getattr(src, name)(unp, *_apply_args(name))
+                ref = ref[..., orders[kout]]
+                got, values = gh.split_apply(ranks, name, x,
+                                             *_apply_args(name))
+                rec["max_rel_err"][f"{name}_{tag}"] = _rel_err(got, ref)
+                rec["halo_values_per_apply"][name] = values
+                if not rec["max_rel_err"][f"{name}_{tag}"] <= TOL[dtype]:
+                    raise AssertionError(f"ghost {n_dev}-way {name} "
+                                         f"({tag}): {rec}")
+            if n_dev == GHOST_TIMED:
+                x = torch.as_tensor(xs["u"], dtype=dtype, device=dev)
+                win = gh.halo_window(
+                    torch.nn.functional.pad(x, (0, n_dev * r0.C_u
+                                                - x.shape[0]))
+                    .reshape(n_dev, r0.C_u), r0.C_u, r0.H_u,
+                    gh.StackedShift())[0].contiguous()
+                rec[f"rank0_window_elasticity_ms_{tag}"] = \
+                    apply_bench.cuda_time_ms(
+                        lambda: ranks[0].window_apply("elasticity", win))
+                rec[f"whole_elasticity_ms_{tag}"] = apply_bench.cuda_time_ms(
+                    lambda: src.elasticity(x))
+                rec["rank0_cells"] = list(r0.cells)
+            del ranks
+        rec["gpu"] = torch.cuda.get_device_name()
+        print(json.dumps(rec), flush=True)
+        del ranks32
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _ghost_counts_agree(a, b) -> bool:
+    """Step stats ``a`` (ghost) and ``b`` (the generic run): FSS and
+    pressure counts equal, each CG count within :data:`GHOST_CG_SLACK`
+    iterations a solve (mechanics one per FSS iteration, pressure one per
+    pressure iteration, projection one per FSS iteration plus the shear
+    one)."""
+    solves = {"pressure_cg_iterations": b.pressure_iterations,
+              "mech_cg_iterations": b.fss_iterations,
+              "projection_cg_iterations": b.fss_iterations + 1}
+    return (a.fss_iterations == b.fss_iterations
+            and a.pressure_iterations == b.pressure_iterations
+            and all(abs(getattr(a, k) - getattr(b, k))
+                    <= GHOST_CG_SLACK * n for k, n in solves.items()))
+
+
+def ghost_phase(dev, disc, ref_states, ref_stats) -> None:
+    """The ghost form through its entry points: the distorted 40^3 generic
+    discretization ``disc`` through ``shard_discretization_ghost`` on a
+    world-size-1 NCCL group (H = 0: the renumbering, the chunked state,
+    the solver on sharded vectors and its all-reduces), 2 evolving + 1
+    steady eager steps: every solve converged and every field finite;
+    against :func:`generic_phase`'s captured run mapped through
+    ``order_p`` / ``order_udof`` (:func:`_ghost_counts_agree`, p and u
+    within :data:`CROSS_TOL` of their max); its phase record, the
+    collectives a step (``kit.comm``) and the shard set-up seconds."""
+    data = bench_data()
+    with world_of_one():
+        t0 = time.perf_counter()
+        sdisc = gh.shard_discretization_ghost(disc, make_slab_group(dev))
+        torch.cuda.synchronize()
+        shard_s = time.perf_counter() - t0
+        solver = FixedStressSolver(sdisc, data)
+        if solver.graphs is not None or sdisc.H_p or sdisc.H_u:
+            raise AssertionError("ghost: graphs captured, or a halo at "
+                                 "world size 1")
+        sdisc.kit.comm.reset()
+        states, stats, ms = run_steps(solver, N_GENERIC_EVOLVING,
+                                      N_GENERIC_STEADY, log=True)
+        comm = dataclasses.asdict(sdisc.kit.comm)
+        phase_record("ghost", t0, ms, solver, states[-1],
+                     _last_scale(N_GENERIC_EVOLVING))
+    check_steps(states, stats, sdisc, N_GENERIC_EVOLVING)
+    n_steps = N_GENERIC_EVOLVING + N_GENERIC_STEADY
+    print(json.dumps({"ghost_setup": {
+        "shard_s": shard_s, "C_p": sdisc.C_p, "C_u": sdisc.C_u,
+        "comm": comm, "all_reduce_per_step":
+        comm["messages"].get("all_reduce", 0) / n_steps}}), flush=True)
+    if comm["messages"].get("p2p") or comm["largest"]["all_reduce"] > 3:
+        raise AssertionError(f"ghost at world size 1 sent {comm}")
+    order = {"p": torch.as_tensor(sdisc.order_p, device=dev),
+             "u": torch.as_tensor(sdisc.order_udof, device=dev)}
+    for k in range(n_steps):
+        rec = {"ghost_vs_generic_step": k + 1,
+               "counts": [_counts(stats[k]), _counts(ref_stats[k])],
+               "cg_slack_per_solve": GHOST_CG_SLACK, "tol": CROSS_TOL}
+        for name in ("p", "u"):
+            rec[f"{name}_max_rel_err"] = _rel_err(
+                getattr(states[k], name),
+                getattr(ref_states[k], name)[order[name]])
+        print(json.dumps(rec), flush=True)
+        if not _ghost_counts_agree(stats[k], ref_stats[k]) or not all(
+                rec[f"{x}_max_rel_err"] <= CROSS_TOL for x in ("p", "u")):
+            raise AssertionError(f"ghost step {k + 1}: {rec}")
 
 
 def _grid_order(space, n: int) -> np.ndarray:
@@ -2994,7 +3213,13 @@ def main() -> int:
     structured_options_phase(dev, states[0], conv_step1, ms)
     del states, conv_step1
     timed_phase("2D production", production_2d_phase, dev, *phase_2d(dev))
-    timed_phase("psum", psum_phase, dev, *generic_phase(dev))
+    generic_disc, generic_states, generic_stats = generic_phase(dev)
+    timed_phase("psum", psum_phase, dev, generic_disc, generic_states,
+                generic_stats)
+    timed_phase("ghost split", ghost_split_phase, dev, generic_disc)
+    timed_phase("ghost", ghost_phase, dev, generic_disc, generic_states,
+                generic_stats)
+    del generic_disc, generic_states, generic_stats
     amr_phase(dev)
     timed_phase("adaptive psum", amr_psum_check, dev)
     runner_options_phase(dev)

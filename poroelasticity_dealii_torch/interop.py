@@ -8,6 +8,10 @@ which both packages keep in the same layout: the comp-major row layout of
 the 3D rows kit, the parity layout of the 2D parity kit).  For a sharded
 discretization the caller passes its rows kit, and the caches become the
 rank's slabs (the other fields stay whole, as the solver replicates them).
+A ghost discretization (:class:`.parallel.ghost.GhostShardedDiscretization`)
+shards every vector: the fields cross as whole vectors in its first-touch
+renumbered order (what the reference's ghost ``State`` holds), and each
+rank takes its chunks, or gathers them back.
 
 An adaptive run also carries its mesh: :func:`forest_from_fields` rebuilds
 the port's forest from a reference forest's fields, and
@@ -35,7 +39,8 @@ CACHES = ("u_rows", "mech_b")
 
 
 def state_from_numpy(fields: Mapping[str, np.ndarray], device="cuda",
-                     dtype: torch.dtype = None, row_ops=None) -> State:
+                     dtype: torch.dtype = None, row_ops=None,
+                     ghost=None) -> State:
     """Port ``State`` on ``device`` (default the card; raises without one)
     from numpy arrays keyed by field name (a missing or None cache is left
     None).
@@ -44,7 +49,10 @@ def state_from_numpy(fields: Mapping[str, np.ndarray], device="cuda",
     ``u_rows`` is built from ``u`` in its layout.  With the slab kit of a
     sharded discretization (:class:`..parallel.rows.ShardedKit`: z-slab
     rows, y-slab parity), ``u_rows`` is the rank's slab of the whole ``u`` (the kit's
-    ``to_rows``) and ``mech_b`` the rank's slab of the whole rows."""
+    ``to_rows``) and ``mech_b`` the rank's slab of the whole rows.
+    ``ghost``: a ghost discretization; the fields (and ``mech_b``) are
+    whole vectors in its renumbered order, and the state is the rank's
+    chunks of them."""
     device = resolve_device(device)
     def conv(a):
         if a is None:
@@ -57,6 +65,8 @@ def state_from_numpy(fields: Mapping[str, np.ndarray], device="cuda",
         kw["u_rows"] = row_ops.to_rows(kw["u"])
         if kw["mech_b"] is not None:
             kw["mech_b"] = row_ops.local_rows(kw["mech_b"])
+    if ghost is not None:
+        return ghost.owned_state(State(**kw))
     return State(**kw)
 
 
@@ -69,9 +79,14 @@ def fields_to_host(state: State) -> dict:
     return {k: a.reshape(t.shape) for k, a, t in zip(FIELDS, parts, tensors)}
 
 
-def state_to_numpy(state: State) -> dict:
+def state_to_numpy(state: State, ghost=None) -> dict:
     """The inverse of :func:`state_from_numpy`: field name -> numpy array
-    (None where the state holds None)."""
+    (None where the state holds None).  ``ghost``: a ghost
+    discretization, whose ranks' chunks are gathered into whole vectors
+    in its renumbered order (a collective: every rank calls it; the
+    caches are dropped)."""
+    if ghost is not None:
+        state = ghost.whole_state(state)
     return {k: (None if getattr(state, k) is None
                 else getattr(state, k).detach().cpu().numpy())
             for k in FIELDS + CACHES}

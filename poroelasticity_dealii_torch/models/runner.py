@@ -5,7 +5,8 @@
 :class:`SimulationRunner`, which builds the
 problem (on the deck's gmsh mesh, ``Mesh / Mesh file``, through the generic
 discretization, else on its structured grid), shards it when the deck asks
-for ``TPU / Sharding = psum | gspmd | production`` (:func:`_apply_sharding`),
+for ``TPU / Sharding = psum | ghost | gspmd | production``
+(:func:`_apply_sharding`),
 steps time in blocks of up to ``TPU /
 Steps per dispatch`` steps
 (:meth:`..solvers.fss.FixedStressSolver.multi_step`), writes the JSONL run
@@ -20,10 +21,14 @@ solver's (:class:`..solvers.fss.FixedStressSolver`).
 The sharded run is one process per device in a ``torch.distributed``
 process group (``torchrun``, or a group the caller initialised): every
 rank runs this time loop and reads the same checkpoint on a resume, and
-rank 0 alone writes the run log, the VTK files and the checkpoints (from
-the whole state, which every rank holds).  ``Sharding = psum`` on a deck
-without a mesh file runs the generic discretization of its structured grid
-(:func:`structured_generic_mesh`), on one process too."""
+rank 0 alone writes the run log, the VTK files and the checkpoints from
+the whole state (which every rank holds; under ghost, whose ranks hold
+chunks of the first-touch renumbered vectors, it is gathered first, and
+the files are in that numbering, as the reference's ghost run writes
+them; a resume gives each rank its chunk).  ``Sharding = psum`` and
+``ghost`` on a deck without a mesh file run the generic discretization of
+its structured grid (:func:`structured_generic_mesh`), on one process
+too."""
 
 from __future__ import annotations
 
@@ -41,6 +46,8 @@ from ..config import InputData, read_input_file
 from ..mesh import read_msh
 from ..mesh.generator import normalize_cells_per_axis
 from ..mesh.structured import structured_mesh
+from ..parallel.ghost import (GhostShardedDiscretization,
+                              shard_discretization_ghost)
 from ..parallel.rows import shard_production_discretization
 from ..parallel.sharding import (SlabGroup, init_from_env,
                                  shard_discretization,
@@ -56,15 +63,10 @@ from .scaling import Scales, nondimensionalize, scale_mesh
 
 
 def _check_supported(data: InputData) -> None:
-    """Deck features the port does not run yet, with their ROADMAP item;
-    ``Checkpoint format = orbax``, which it does not take on."""
+    """The one deck feature the port does not take on: ``Checkpoint
+    format = orbax`` (no orbax dependency)."""
     if data.checkpoint_format == "orbax":
         refuse_orbax("'Checkpoint format = orbax'")
-    if data.sharding == "ghost":
-        raise NotImplementedError(
-            "the torch port does not run 'Sharding = ghost' yet (ROADMAP "
-            "item 9.3, A13: sharded dof vectors with halo windows, and a "
-            "solver whose every CG reduces across the group)")
 
 
 def _slab_group(data: InputData, device) -> tuple:
@@ -83,8 +85,9 @@ def _slab_group(data: InputData, device) -> tuple:
 
 def structured_generic_mesh(data: InputData):
     """The structured grid of a deck without a mesh file, as a mesh for the
-    generic discretization (what ``Sharding = psum`` shards: JAX's psum
-    shards the generic cell arrays of its grid discretization)."""
+    generic discretization (what ``Sharding = psum`` and ``ghost`` shard:
+    JAX's psum and ghost shard the generic cell arrays of its grid
+    discretization)."""
     cells = getattr(data, "cells_per_axis", None) \
         or 2 ** data.initial_refinement_level
     return structured_mesh(data.domain_size[:data.dim],
@@ -92,11 +95,13 @@ def structured_generic_mesh(data: InputData):
 
 
 def _apply_sharding(disc, data: InputData, group: SlabGroup):
-    """``TPU / Sharding = psum | gspmd | production`` over ``group`` (JAX's
-    ``_apply_sharding``, ``models/runner.py:101-126``): psum on a generic
-    discretization (cells chunked, one all-reduce per apply), gspmd on a
-    structured one (stencils on node-plane slabs), production on the rows
-    (3D) or parity (2D) kit (slab kits plus the gspmd stencils).  One
+    """``TPU / Sharding = psum | ghost | gspmd | production`` over
+    ``group`` (JAX's ``_apply_sharding``, ``models/runner.py:101-126``):
+    psum on a generic discretization (cells chunked, one all-reduce per
+    apply), ghost on a generic one (every vector sharded, halo windows),
+    gspmd on a structured one (stencils on node-plane slabs), production
+    on the rows (3D) or parity (2D) kit (slab kits plus the gspmd
+    stencils).  One
     process without a process group: a warning and the unsharded
     discretization, as the JAX runner does on one visible device (an
     initialised group of one rank, e.g. ``torchrun --nproc-per-node 1`` or
@@ -110,6 +115,8 @@ def _apply_sharding(disc, data: InputData, group: SlabGroup):
         return disc
     if mode == "psum":
         return shard_discretization(disc, group)
+    if mode == "ghost":
+        return shard_discretization_ghost(disc, group)
     if mode == "gspmd":
         return shard_grid_discretization(disc, group)
     if mode == "production":
@@ -157,13 +164,14 @@ class SimulationRunner:
             if scales is not None:          # the same L as the deck rescale
                 mesh = scale_mesh(mesh, scales)
             self.disc = build_discretization(mesh, data, device=device)
-        elif data.sharding == "psum":
+        elif data.sharding in ("psum", "ghost"):
             self.disc = build_discretization(structured_generic_mesh(data),
                                              data, device=device)
         else:
             self.disc = build_grid_discretization(data, device=device)
         if self.group is not None:
             self.disc = _apply_sharding(self.disc, data, self.group)
+        self._ghost = isinstance(self.disc, GhostShardedDiscretization)
         self.solver = FixedStressSolver(self.disc, data)
         if logger is None:
             logger = RunLogger(os.path.join(data.output_directory,
@@ -171,8 +179,16 @@ class SimulationRunner:
                 if self.is_root else RunLogger(None, echo=False)
         self.logger = logger
 
+    def _whole(self, state: State) -> State:
+        """``state`` with whole vectors: gathered from every rank under
+        ghost (a collective: every rank calls it), else as it is."""
+        return self.disc.whole_state(state) if self._ghost else state
+
     def output(self, state: State, step: int):
-        if not (self.data.output_vtk and self.is_root):
+        if not self.data.output_vtk:
+            return
+        state = self._whole(state)
+        if not self.is_root:
             return
         write_state_vtk(os.path.join(self.data.output_directory,
                                      f"solution-{step:04d}.vtk"),
@@ -194,11 +210,15 @@ class SimulationRunner:
 
         ``resume_from``: an ``.npz`` checkpoint (of either package) whose
         state, time and step the run continues from, on the solver's
-        dtype and device; no step-0 VTK is written then."""
+        dtype and device (under ghost each rank takes its chunk); no
+        step-0 VTK is written then.  Returns the final state, whole on
+        every rank (under ghost in the renumbered order)."""
         data = self.data
         if resume_from:
             state, t, step = load_checkpoint(resume_from, self.disc.dtype,
                                              self.disc.device)
+            if self._ghost:
+                state = self.disc.owned_state(state)
         else:
             state, t, step = self.solver.initial_state(), 0.0, 0
             self.output(state, 0)
@@ -213,10 +233,12 @@ class SimulationRunner:
                 if st is not None:
                     self.output(st, s)
                 every = data.checkpoint_every
-                if every and s % every == 0 and self.is_root:
-                    save_checkpoint(os.path.join(data.checkpoint_directory,
-                                                 f"ckpt-{s:06d}.npz"),
-                                    st, ts, s)
+                if every and s % every == 0:
+                    whole = self._whole(st)
+                    if self.is_root:
+                        save_checkpoint(os.path.join(
+                            data.checkpoint_directory, f"ckpt-{s:06d}.npz"),
+                            whole, ts, s)
                 if not np.isfinite(float(stats.pressure_error)):
                     raise FloatingPointError(f"FSS residual diverged at "
                                              f"step {s}")
@@ -266,7 +288,7 @@ class SimulationRunner:
                 flush()
         flush()
         self.logger.close()
-        state = self.solver.materialize_u(state)
+        state = self._whole(self.solver.materialize_u(state))
         if self._own_group:
             dist.destroy_process_group()
         return state
@@ -282,10 +304,10 @@ def run_from_data(data: InputData, resume_from: Optional[str] = None,
     :class:`..amr.driver.AMRSimulationRunner` (its run log
     ``run_log.jsonl`` in the output directory), any other through
     :class:`SimulationRunner`.  Under ``torchrun`` (or in an initialised
-    process group) a deck with ``Sharding = psum``, ``gspmd`` or
+    process group) a deck with ``Sharding = psum``, ``ghost``, ``gspmd`` or
     ``production`` runs sharded, one rank per device (``cuda:{LOCAL_RANK}``
     on CUDA; an adaptive deck with psum only); every rank returns the whole
-    state."""
+    state (under ghost in the first-touch renumbered order)."""
     scales = None
     if data.nondimensionalize:
         data, scales = nondimensionalize(data)

@@ -97,14 +97,15 @@ class CommCounter:
 
 
 class ShardedKit:
-    """The collectives of a sharded mechanics kit over ``self.group`` (a
+    """The collectives of a sharded kit over ``self.group`` (a
     :class:`.sharding.SlabGroup`), each counted in ``self.comm``: the
     halo exchange, the gather of slabs along ``self.slab_axis``, and the
     reductions the fixed-stress solver takes from the kit (``dot``,
-    ``norm``, ``all_equal``: the three of
+    ``norm``, ``all_equal``, ``lane_dot``, ``lane_norm``: those of
     :class:`..solvers.cg.LocalReductions`, across the group).  A subclass
-    sets ``group``, ``comm`` and ``slab_axis`` and its layout's
-    ``local_rows``."""
+    sets ``group``, ``comm`` and ``slab_axis`` (a mechanics slab kit also
+    its layout's ``local_rows``; :class:`.ghost.GhostKit` is the ghost
+    form's)."""
 
     def _p2p(self, send, to: int, recv, frm: int) -> None:
         """Send ``send`` to rank ``to`` and receive ``recv`` from rank
@@ -171,6 +172,13 @@ class ShardedKit:
         ``(a == b).all()``, with no host read."""
         flag = (a == b).all().to(torch.int32)
         return self._all_reduce(flag, dist.ReduceOp.MIN).bool()
+
+    def lane_dot(self, a, b):
+        """One inner product per lane of the last axis (a batch's)."""
+        return self._all_reduce((a * b).sum(-1))
+
+    def lane_norm(self, x):
+        return torch.sqrt(self.lane_dot(x, x))
 
     def _check_agreement(self, *shape) -> None:
         """Every rank of the group builds the same kit: the group's first

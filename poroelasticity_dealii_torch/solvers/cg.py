@@ -38,11 +38,18 @@ class CGResult:
     #                               (richardson_solve) rather than the cap
 
 
+def lane_norm(x: torch.Tensor) -> torch.Tensor:
+    """The 2-norm of each lane (last axis) of a batch."""
+    return torch.linalg.norm(x, dim=-1)
+
+
 class LocalReductions:
-    """The reductions of vectors this process holds whole, and
-    :func:`cg_solve`'s defaults.  The sharded mechanics kits
-    (:class:`..parallel.rows.ShardedKit`) have the same three, taken
-    across their group.  Each returns a device tensor."""
+    """The reductions of vectors this process holds whole, and the
+    defaults of :func:`cg_solve` (``dot``, ``norm``) and
+    :func:`cg_solve_batched` (``lane_dot``, ``lane_norm``: one value per
+    lane of the last axis).  The sharded kits
+    (:class:`..parallel.rows.ShardedKit`) have the same five, taken across
+    their group.  Each returns a device tensor."""
 
     @staticmethod
     def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -53,6 +60,12 @@ class LocalReductions:
     @staticmethod
     def all_equal(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return (a == b).all()
+
+    @staticmethod
+    def lane_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return (a * b).sum(-1)
+
+    lane_norm = staticmethod(lane_norm)
 
 
 def _tol64(tol, like: torch.Tensor) -> torch.Tensor:
@@ -201,19 +214,17 @@ def richardson_solve(apply_a: Callable, b: torch.Tensor, x0: torch.Tensor,
                     stalled=~converged & (rnorm >= 0.98 * rprev))
 
 
-def lane_norm(x: torch.Tensor) -> torch.Tensor:
-    """The 2-norm of each lane (last axis) of a batch."""
-    return torch.linalg.norm(x, dim=-1)
-
-
 def cg_solve_batched(apply_a: Callable, b: torch.Tensor, x0: torch.Tensor,
                      diag: torch.Tensor, tol, max_iter: int, chunk: int = 8,
-                     graphs=None, graph_key=None) -> CGResult:
+                     graphs=None, graph_key=None,
+                     dot: Callable = LocalReductions.lane_dot,
+                     norm: Callable = LocalReductions.lane_norm) -> CGResult:
     """Multi-RHS Jacobi-CG sharing one operator: ``b``, ``x0`` (n_rhs, n),
     ``tol`` (n_rhs,) absolute tolerances.  ``apply_a`` acts on the last
     axis and broadcasts over the first.  ``chunk``, ``graphs``,
     ``graph_key``: as in :func:`cg_solve`; a chunk runs while any lane is
-    active."""
+    active.  ``dot``, ``norm``: one inner product and one residual norm
+    per lane (the ghost kit passes its all-reduced ones)."""
     consts = (_tol64(tol, b), 1.0 / diag)
 
     def init(inputs, consts):
@@ -221,7 +232,7 @@ def cg_solve_batched(apply_a: Callable, b: torch.Tensor, x0: torch.Tensor,
         r = b - apply_a(x0)
         z = r * consts[1]
         k = torch.zeros(b.shape[0], dtype=torch.int64, device=b.device)
-        return (k, x0, r, z, (r * z).sum(-1), torch.linalg.norm(r, dim=-1))
+        return (k, x0, r, z, dot(r, z), norm(r))
 
     def lanes(state, consts):
         k, rnorm = state[0], state[-1]
@@ -231,17 +242,17 @@ def cg_solve_batched(apply_a: Callable, b: torch.Tensor, x0: torch.Tensor,
         k, x, r, p, rz, rnorm = state
         active = lanes(state, consts)
         ap = apply_a(p)
-        alpha = rz / (p * ap).sum(-1)
+        alpha = rz / dot(p, ap)
         x_new = x + alpha[:, None] * p
         r_new = r - alpha[:, None] * ap
         z = r_new * consts[1]
-        rz_new = (r_new * z).sum(-1)
+        rz_new = dot(r_new, z)
         p_new = z + (rz_new / rz)[:, None] * p
         a = active[:, None]
         return (k + active.long(), torch.where(a, x_new, x),
                 torch.where(a, r_new, r), torch.where(a, p_new, p),
                 torch.where(active, rz_new, rz),
-                torch.where(active, torch.linalg.norm(r_new, dim=-1), rnorm))
+                torch.where(active, norm(r_new), rnorm))
 
     key = None if graphs is None else (
         *graph_key, "cg_batched", b.dtype, tuple(b.shape), max_iter)

@@ -45,6 +45,11 @@ bitwise-skip test go through the kit's reductions, so every rank takes the
 same branch.  The gspmd and psum discretizations
 (:mod:`..parallel.sharding`) keep every vector whole; the gspmd hook
 ``wrap_pressure_stencil`` puts the fused pressure Jacobian on slabs too.
+The ghost discretization (:mod:`..parallel.ghost`) shards every vector:
+the state, the diagonals, masks and lifts are the rank's chunks, and every
+reduction (each CG's dots and norms, the pressure and FSS residual norms,
+the projection tolerances, the bitwise-skip test, the Debug NaNs check) is
+taken from its kit (``disc.kit``) across the group.
 Every sharded discretization runs its CG chunks eagerly (they hold
 collectives).
 On a generic discretization with hanging nodes (an adaptive mesh,
@@ -243,9 +248,14 @@ class FixedStressSolver:
         self.disc, self.data = disc, data
         ro = disc.row_ops
         self._rows = ro is not None
-        # the mechanics vector's reductions: across the group on a slab
-        # kit, else local
-        self._reduce = ro if isinstance(ro, ShardedKit) else LocalReductions
+        # the reductions of the mechanics vectors and of the pressure-space
+        # ones (pressure, strains, projection lanes): across the group on
+        # the ghost form's kit (every vector sharded) and, for the
+        # mechanics, on a slab kit; else local
+        kit = getattr(disc, "kit", None)
+        self._reduce = kit or (ro if isinstance(ro, ShardedKit)
+                               else LocalReductions)
+        self._p_reduce = kit or LocalReductions
         sharded = getattr(disc, "slab_group", None) is not None
         self.graphs = ChunkGraphs() if (
             cuda_graphs and disc.device.type == "cuda" and not sharded) \
@@ -296,13 +306,12 @@ class FixedStressSolver:
         """Debug NaNs: the step's record ``flag`` (an int32 device scalar,
         0 while every checked result was finite) set to ``site``'s code if
         it is still 0 and ``x`` is not finite; None, with nothing computed,
-        when the option is off.  A mechanics vector is checked across the
-        slab group, so every rank records the same code."""
+        when the option is off.  A sharded vector is checked across the
+        group, so every rank records the same code."""
         if flag is None:
             return None
-        finite = torch.isfinite(x)
-        ok = self._reduce.all_equal(finite, True) if mechanics \
-            else finite.all()
+        red = self._reduce if mechanics else self._p_reduce
+        ok = red.all_equal(torch.isfinite(x), True)
         return flag.masked_fill((flag == 0) & ~ok, NAN_SITES.index(site))
 
     def _cg(self, site, *args, graph_key=(), batched=False, **kw):
@@ -566,7 +575,8 @@ class FixedStressSolver:
                            norm=self._reduce.norm)
         else:
             res = self._cg("mechanics", apply, b, x0, diag, tol=tol,
-                           max_iter=data.cg_max_iterations)
+                           max_iter=data.cg_max_iterations,
+                           dot=self._reduce.dot, norm=self._reduce.norm)
         return self._hcu.distribute(res.x), res.iterations, res.converged, \
             res.stalled, b
 
@@ -623,9 +633,9 @@ class FixedStressSolver:
         space: one batched mass-matrix CG.  Returns
         ``(strains, total iterations, converged)``, the last two as device
         tensors."""
-        d, hc = self.disc, self._hcp
+        d, hc, red = self.disc, self._hcp, self._p_reduce
         rhs = hc.condense_vec(rhs_all[entries])
-        tol = self.data.projection_cg_tol * torch.linalg.norm(rhs, dim=1)
+        tol = self.data.projection_cg_tol * red.lane_norm(rhs)
         if self._ir_mass is not None:
             # refinement, one lane per component (the reference's vmap)
             res = self._refine(hc.constrained(d.mass), rhs,
@@ -634,7 +644,8 @@ class FixedStressSolver:
         else:
             res = self._cg("projection", hc.constrained(d.mass), rhs,
                            hc.zero_hanging(warm), d.diag_mass, tol,
-                           self.data.cg_max_iterations, batched=True)
+                           self.data.cg_max_iterations, batched=True,
+                           dot=red.lane_dot, norm=red.lane_norm)
         return hc.distribute(res.x), res.iterations.sum(), \
             res.converged.all()
 
@@ -762,6 +773,7 @@ class FixedStressSolver:
         pressure_tol = self._cast(data.pressure_tol)
         fss_tol = self._cast(data.fss_tol)
         jac_diag = self._pressure_jacobian_diag(dt)
+        red = self._p_reduce
         # with refinement the f32 inner replaces the f64 pressure GMG
         irp = self._ir_pressure(dt)
         p_precond = None if irp is not None else self._pressure_precond(dt)
@@ -783,10 +795,10 @@ class FixedStressSolver:
             delta_p = torch.zeros_like(p)     # reset per FSS iteration
             r = self._pressure_residual(p, p_old, eps_v, eps_v0, dt)
             nan = self._note_nan(nan, "pressure residual", r)
-            err = torch.linalg.norm(r).item()
+            err = red.norm(r).item()
             k = 0
             while k < data.max_pressure_iterations and err > pressure_tol:
-                ptol = data.pressure_cg_tol * torch.linalg.norm(r)
+                ptol = data.pressure_cg_tol * red.norm(r)
                 if irp is not None:
                     res = self._refine(jac, r, self._hcp.zero_hanging(delta_p),
                                        irp, ptol, 20)
@@ -794,7 +806,8 @@ class FixedStressSolver:
                     res = self._cg("pressure", jac, r,
                                    self._hcp.zero_hanging(delta_p), jac_diag,
                                    tol=ptol, max_iter=data.cg_max_iterations,
-                                   precond=p_precond, graph_key=(dt,))
+                                   precond=p_precond, graph_key=(dt,),
+                                   dot=red.dot, norm=red.norm)
                 delta_p = self._hcp.distribute(res.x)
                 nan = self._note_nan(nan, "pressure CG", delta_p)
                 p = p + delta_p
@@ -802,7 +815,7 @@ class FixedStressSolver:
                     * delta_p
                 r = self._pressure_residual(p, p_old, eps_v, eps_v0, dt)
                 nan = self._note_nan(nan, "pressure residual", r)
-                err = torch.linalg.norm(r).item()
+                err = red.norm(r).item()
                 k += 1
                 cg_p = cg_p + res.iterations
                 cg_ok = cg_ok & res.converged
@@ -839,7 +852,7 @@ class FixedStressSolver:
                 eps_v = vol_strains.sum(0)
             r = self._pressure_residual(p, p_old, eps_v, eps_v0, dt)
             nan = self._note_nan(nan, "pressure residual", r)
-            err = torch.linalg.norm(r).item()
+            err = red.norm(r).item()
             err_hist[it] = err
             it += 1
             press_total += n_press

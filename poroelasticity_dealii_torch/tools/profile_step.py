@@ -17,7 +17,10 @@ y-slab parity kit), or the bench configuration on the distorted hex mesh
 of the generic path (``generic``: :func:`generic_mesh`, the generic
 discretization's gather and plan-scatter applies, flat Jacobi-CG
 mechanics and Jacobi pressure CG; ``psum``: the same through the psum form
-on the world-size-1 group, one all-reduce per apply), or the adaptive
+on the world-size-1 group, one all-reduce per apply; ``ghost``: the same
+through the ghost form on that group, every vector sharded and every
+reduction all-reduced, its record with what the kit sent in the step,
+``kit.comm``), or the adaptive
 octree run (``amr``:
 :func:`amr_data`, ``n`` the ``Max refinement level``, 5 or 6: 6 or 10
 steps from the uniform level-4 mesh with a remesh before every 5th, the
@@ -198,9 +201,9 @@ def _step(solver, state, bc, bc_prev):
 
 
 BACKENDS = ("rows", "conv", "sharded", "gspmd", "2d", "2d_sharded",
-            "generic", "psum", "amr")
+            "generic", "psum", "ghost", "amr")
 # the backends that run on a world-size-1 process group
-SHARDED = ("sharded", "gspmd", "2d_sharded", "psum")
+SHARDED = ("sharded", "gspmd", "2d_sharded", "psum", "ghost")
 LOOPS = ("captured", "eager")
 
 
@@ -229,13 +232,14 @@ def run(n: int = 40, n_evolving: int = 5, n_steady: int = 3,
 def _run(n, n_evolving, n_steady, device, backend, loop) -> list:
     from ..ops import comp_major as cm
     from ..parallel import (make_slab_group, shard_discretization,
+                            shard_discretization_ghost,
                             shard_grid_discretization,
                             shard_production_discretization)
     from ..solvers.discretization import build_discretization
     from ..solvers.fss import CHUNK, FixedStressSolver
     from ..solvers.structured import build_grid_discretization
 
-    if backend in ("generic", "psum"):
+    if backend in ("generic", "psum", "ghost"):
         data = bench_data()
         disc = build_discretization(generic_mesh(n), data, device=device)
     elif backend in ("2d", "2d_sharded"):
@@ -251,7 +255,8 @@ def _run(n, n_evolving, n_steady, device, backend, loop) -> list:
     shard = {"sharded": shard_production_discretization,
              "2d_sharded": shard_production_discretization,
              "gspmd": shard_grid_discretization,
-             "psum": shard_discretization}.get(backend)
+             "psum": shard_discretization,
+             "ghost": shard_discretization_ghost}.get(backend)
     if shard is not None:
         disc = shard(disc, make_slab_group(disc.device))
     solver = FixedStressSolver(disc, data,
@@ -268,6 +273,9 @@ def _run(n, n_evolving, n_steady, device, backend, loop) -> list:
             bc_prev = bc
             continue
         cm.reset_launch_counts()
+        kit = getattr(disc, "kit", None)
+        if kit is not None:
+            kit.comm.reset()
         (state, stats, ms), dev = _profiled(
             solver, lambda: _step(solver, state, bc, bc_prev))
         bc_prev = bc
@@ -291,6 +299,7 @@ def _run(n, n_evolving, n_steady, device, backend, loop) -> list:
                        "cg_pressure": stats.pressure_cg_iterations,
                        "cg_mechanics": stats.mech_cg_iterations,
                        "cg_projection": stats.projection_cg_iterations},
+            **({} if kit is None else {"comm": dataclasses.asdict(kit.comm)}),
             **dev})
         last_ms = ms
     return records

@@ -95,12 +95,20 @@ def test_runner_writes_vtk_and_run_log(tmp_path):
 @pytest.mark.parametrize("field,value", [("amr", True),
                                          ("sharding", "ghost")])
 def test_runner_rejects_unported_features(field, value):
-    # AMR itself runs (tests/test_torch_amr.py), with psum too; ghost
-    # sharding does not, with AMR or without
-    extra = {"sharding": "ghost"} if field == "amr" else {}
-    data = dataclasses.replace(read_input_file(DECK), **{field: value},
-                               **extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9.3"):
+    # AMR runs (tests/test_torch_amr.py), with psum too, and ghost runs
+    # (tests/test_torch_ghost.py); AMR with ghost keeps JAX's refusal, and
+    # a ghost deck with orbax checkpoints is refused for orbax, the one
+    # deck feature the port does not take on
+    from poroelasticity_dealii_torch.amr.driver import AMRSimulationRunner
+    data = dataclasses.replace(read_input_file(DECK),
+                               **{"sharding": "ghost", field: value})
+    if field == "amr":
+        with pytest.raises(NotImplementedError,
+                           match="only 'psum' supports hanging-node"):
+            AMRSimulationRunner(data, device="cpu")
+        return
+    data = dataclasses.replace(data, checkpoint_format="orbax")
+    with pytest.raises(NotImplementedError, match="no orbax dependency"):
         SimulationRunner(data, device="cpu")
 
 

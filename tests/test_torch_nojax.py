@@ -7,7 +7,8 @@ flat vectors, one step of the generic path on ``configs/irregular_3d.msh``
 remesh on the 2D quadtree (Kelly, marking, refining, the constraint
 builders, the transfer, a step on the hanging mesh), a checkpointed run
 with Debug NaNs resumed from its checkpoint, a nondimensional run, one
-step each of psum, gspmd and 2D production on a world-size-1 gloo group,
+step each of psum, ghost, gspmd and 2D production on a world-size-1 gloo
+group,
 and the CLI ``check``, and
 finds no module of ``jax``, ``jaxlib`` or
 ``poroelasticity_dealii_tpu`` loaded (the port keeps its own copies of the
@@ -85,16 +86,18 @@ with tempfile.TemporaryDirectory() as tmp:
 import torch.distributed as dist
 from poroelasticity_dealii_torch.models.runner import structured_generic_mesh
 from poroelasticity_dealii_torch.parallel import (
-    make_slab_group, shard_discretization, shard_grid_discretization,
-    shard_production_discretization)
+    make_slab_group, shard_discretization, shard_discretization_ghost,
+    shard_grid_discretization, shard_production_discretization)
 with tempfile.TemporaryDirectory() as tmp:
     dist.init_process_group("gloo", init_method=f"file://{tmp}/pg", rank=0,
                             world_size=1)
     g = make_slab_group("cpu")
     small = dataclasses.replace(data, initial_refinement_level=1)
+    generic = build_discretization(structured_generic_mesh(small), small,
+                                   device="cpu")
     for d, shard in (
-            (build_discretization(structured_generic_mesh(small), small,
-                                  device="cpu"), shard_discretization),
+            (generic, shard_discretization),
+            (generic, shard_discretization_ghost),
             (build_grid_discretization(data, cells_per_axis=4, device="cpu"),
              shard_grid_discretization),
             (build_grid_discretization(data2, cells_per_axis=8,

@@ -567,20 +567,18 @@ def test_runner_warns_and_runs_unsharded_on_one_process(tmp_path):
 
 @pytest.mark.parametrize("mode", ["psum", "ghost", "gspmd"])
 def test_runner_refuses_other_sharding_modes(mode, tmp_path):
-    """``ghost`` is still refused, naming its ROADMAP item; psum and gspmd
-    run: on one process each warns and runs unsharded (psum on the
-    generic discretization of the deck's grid, gspmd on the grid)."""
-    if mode == "ghost":
-        with pytest.raises(NotImplementedError, match="item 9.3"):
-            SimulationRunner(_runner_data(tmp_path, mode), device="cpu")
-        return
+    """psum, ghost and gspmd run: on one process each warns and runs
+    unsharded (psum and ghost on the generic discretization of the deck's
+    grid, gspmd on the grid)."""
     data = dataclasses.replace(_runner_data(tmp_path, mode),
                                initial_refinement_level=1,
                                t_max=read_input_file(DECK).time_step,
                                output_vtk=False)
     with pytest.warns(RuntimeWarning, match="single process"):
         runner = SimulationRunner(data, device="cpu")
-    assert (runner.disc.row_ops is None) == (mode == "psum")
+    generic = mode in ("psum", "ghost")
+    assert (runner.disc.row_ops is None) == generic
+    assert (type(runner.disc).__name__ == "Discretization") == generic
     assert bool(torch.isfinite(runner.run().u).all())
 
 

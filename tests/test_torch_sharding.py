@@ -3,7 +3,8 @@ gspmd (structured stencils on node-plane slabs), psum (cells chunked, one
 all-reduce per apply, adaptive meshes included) and the 2D y-slab
 production form (the parity kit on slabs), against the port's unsharded
 runs and the JAX package's sharded functions; and the runner and the
-adaptive driver with each mode.
+adaptive driver with each mode (ghost's too; its own tests are in
+``tests/test_torch_ghost.py``).
 
 Ranks are gloo CPU processes spawned as in ``tests/test_torch_rows_sharding
 .py`` (``file://`` rendezvous in the test's temporary directory, every
@@ -29,11 +30,14 @@ from poroelasticity_dealii_torch.amr.driver import (AMRSimulationRunner,
                                                     build_amr_discretization)
 from poroelasticity_dealii_torch.amr.forest import QuadForest
 from poroelasticity_dealii_torch.mesh import hyper_rectangle
-from poroelasticity_dealii_torch.models.runner import run_from_data
+from poroelasticity_dealii_torch.models.runner import (
+    run_from_data, structured_generic_mesh)
 from poroelasticity_dealii_torch.ops import elasticity as eg
 from poroelasticity_dealii_torch.ops.comp_major import _width
 from poroelasticity_dealii_torch.ops.parity2d import make_parity_ops
 from poroelasticity_dealii_torch.parallel import rows as pr
+from poroelasticity_dealii_torch.parallel.ghost import \
+    renumber_discretization
 from poroelasticity_dealii_torch.parallel.sharding import (
     ShardedDiscretization, SlabGroup, SlabStencil, make_slab_group,
     shard_discretization, shard_grid_discretization)
@@ -587,11 +591,13 @@ def _assert_counts(a, b, slack):
                                rtol=1e-6)
 
 
-RUNNER_SLACK = {"psum": 3, "gspmd": 0, "production": 0}
+RUNNER_SLACK = {"psum": 3, "ghost": 3, "gspmd": 0, "production": 0}
 RUNNER_CASES = {
     # mode: (deck, deck overrides, unsharded reference's overrides)
     "psum": (DECK3, {"initial_refinement_level": 2},
              {"sharding": "psum"}),
+    "ghost": (DECK3, {"initial_refinement_level": 2},
+              {"sharding": "ghost"}),
     "gspmd": (DECK3, {"initial_refinement_level": 2},
               {"elasticity_backend": "conv"}),
     "production": (GOLDEN, {"elasticity_backend": "parity"}, {}),
@@ -616,15 +622,16 @@ def _runner_worker(rank, world, mode, out_root):
     return {"p": st.p, "u": st.u}
 
 
-@pytest.mark.parametrize("mode", ["psum", "gspmd", "production"])
+@pytest.mark.parametrize("mode", ["psum", "ghost", "gspmd", "production"])
 def test_runner_runs_mode_on_two_ranks(mode, tmp_path):
-    """``Sharding = psum`` and ``gspmd`` on the 3D deck at n = 4, and
-    ``production`` on the golden 2D deck on the parity kit, from the deck
-    under 2 gloo ranks for 2 steps: the unsharded run's run log, counts
-    equal (psum's reference: the same generic discretization on one
-    process, its mechanics and projection CG within 3: another summation
-    order; gspmd's: the conv backend it shards), and one set of output
-    files, rank 0's."""
+    """``Sharding = psum``, ``ghost`` and ``gspmd`` on the 3D deck at n =
+    4, and ``production`` on the golden 2D deck on the parity kit, from
+    the deck under 2 gloo ranks for 2 steps: the unsharded run's run log,
+    counts equal (psum's and ghost's reference: the same generic
+    discretization on one process, their mechanics and projection CG
+    within 3: another summation order; gspmd's: the conv backend it
+    shards), and one set of output files, rank 0's.  Ghost's ranks
+    return the whole state in its renumbered order."""
     outs = _spawn(_runner_worker, 2, tmp_path / "spawn", mode, str(tmp_path))
     ref_data = dataclasses.replace(
         _runner_data(mode, tmp_path / "unsharded", "none"),
@@ -641,11 +648,15 @@ def test_runner_runs_mode_on_two_ranks(mode, tmp_path):
         _assert_counts(a, b, RUNNER_SLACK[mode])
     assert len(list((tmp_path / "rank0").glob("solution-*.vtk"))) == 3
     assert not (tmp_path / "rank1").exists()
+    p, u = ref_state.p, ref_state.u
+    if mode == "ghost":
+        _, op, ou = renumber_discretization(build_discretization(
+            structured_generic_mesh(ref_data), ref_data, device="cpu"))
+        p, u = p[op], u[ou]
     for o in outs:
-        np.testing.assert_allclose(o["p"], ref_state.p, rtol=1e-9)
-        np.testing.assert_allclose(o["u"], ref_state.u, rtol=1e-8,
-                                   atol=1e-10 * float(ref_state.u.abs()
-                                                      .max()))
+        np.testing.assert_allclose(o["p"], p, rtol=1e-9)
+        np.testing.assert_allclose(o["u"], u, rtol=1e-8,
+                                   atol=1e-10 * float(u.abs().max()))
 
 
 ADAPTIVE_STEPS = 6
