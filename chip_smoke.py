@@ -65,17 +65,24 @@ just before and read just after:
   slabs) on a world-size-1 NCCL group against that run: the same FSS and
   pressure counts, every mechanics solve on the same exit, p and u within
   1e-4 of max;
-* the generic path (``build_discretization``: gather, shape-table
-  products and plan scatter in plain torch, flat Jacobi-CG): the bench
-  configuration on the distorted 40^3 hex mesh (1,663,244 DOF, float32),
-  2 evolving + 1 steady captured steps, every solve converged, captured
-  against eager bit for bit; its five applies at 40^3 in float32 and
-  float64 (two applies bitwise equal, timed beside their bounds, the
-  scatter's share and the flat kernel); the generic build on the
-  undistorted 20^3 grid against the rows path; then the psum form
-  (``shard_discretization``, one all-reduce per apply) on a world-size-1
-  NCCL group against the captured generic run: counts equal, p and u
-  within 1e-4 of max;
+* the generic path (``build_discretization``, flat Jacobi-CG; its mass,
+  Laplace, pressure Jacobian and elasticity applies the hand-written
+  generic kernels of ``csrc/generic.cu``, coupling and projection plain
+  torch): first the kernels alone (``generic_kernel_phase``: each against
+  its plain twin on distorted 2D and 3D grids, the gmsh hex mesh,
+  bucketed AMR meshes with phantom cells, geometry shared by every cell
+  and a ghost window, float64 within 1e-12 and float32 within 2e-6 of
+  max, repeats bitwise); then the bench configuration on the distorted
+  40^3 hex mesh (1,663,244 DOF, float32), 2 evolving + 1 steady captured
+  steps (both generic kernels launched), every solve converged, captured
+  against eager bit for bit; its six applies at 40^3 in float32 and
+  float64 (two applies bitwise equal, each kernel against its twin,
+  timed beside its twin, its bound, the twin's scatter share, the flat
+  kernel and a cuSPARSE SpMV of the assembled operator); the generic
+  build on the undistorted 20^3 grid against the rows path; then the
+  psum form (``shard_discretization``, one all-reduce per apply) on a
+  world-size-1 NCCL group against the captured generic run: counts
+  equal, p and u bit for bit;
 * the ghost form (``parallel/ghost.py``: first-touch renumbering, every
   vector sharded, halo windows) on the same distorted 40^3 mesh: its halo
   arithmetic at full size in one process (``ghost_split_phase``: 1-, 2-,
@@ -97,9 +104,9 @@ just before and read just after:
   ``configs/irregular_2d.data`` (the generic path, float64, 17 steps)
   against :data:`IRREGULAR_2D_PIN`, JAX's counts and residuals;
 * adaptive mesh refinement (``amr/``: forests, hanging-node constraints,
-  Kelly marking, transfer, the adaptive driver; plain torch on the
-  generic path): the golden adaptive deck through the CLI (float64, 17
-  steps, 256 -> 1000 cells) against
+  Kelly marking, transfer, the adaptive driver; the generic path, its
+  applies the generic kernels): the golden adaptive deck through the CLI
+  (float64, 17 steps, 256 -> 1000 cells) against
   ``tests/data/adaptive_golden_history.json``; the gmsh-rooted quad and
   hex forests at JAX's test sizes (float64) against
   :data:`AMR_IRREGULAR_2D_PIN` and :data:`AMR_IRREGULAR_3D_PIN` (the 2D
@@ -137,10 +144,11 @@ card (NCCL refuses two ranks on one GPU): the multi-rank split runs on
 gloo CPU ranks in the tests; each sharded phase prints its wall seconds,
 step ms and, from one more profiled steady step, its busy and idle share.
 
-The 2D, the generic and the adaptive paths reach no hand-written kernel
-(the JAX package computes them with XLA einsums, gathers and segment
-sums and host numpy, outside any Pallas kernel): their products are ``torch.matmul`` / ``torch.einsum``
-at full float32, checked with TF32 off.
+The 2D path reaches no hand-written kernel (the JAX package computes
+it with XLA einsums, outside any Pallas kernel): its products are
+``torch.matmul`` / ``torch.einsum`` at full float32, checked with TF32
+off.  Neither do the generic path's coupling and projection right-hand
+sides, nor AMR's host numpy.
 
 It prints the kernel summary and, as its last line,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.
@@ -336,6 +344,18 @@ KERNEL_INFO = {
         "poroelasticity_dealii_tpu/ops/pallas_elasticity.py:108",
         "elasticity_grid_apply"),
 }
+# the generic path's kernels (no TPU kernel: they replace XLA code of
+# the JAX package): wrapper -> (source, replaced code, the apply of
+# apply_bench.generic_run timed for the summary)
+GENERIC_KERNEL_INFO = {
+    "generic_elasticity_apply": (
+        "poroelasticity_dealii_torch/csrc/generic.cu",
+        "poroelasticity_dealii_tpu/ops/operators.py:171", "elasticity"),
+    "generic_q1_apply": (
+        "poroelasticity_dealii_torch/csrc/generic.cu",
+        "poroelasticity_dealii_tpu/ops/operators.py:158,164", "pressure"),
+}
+GENERIC_TOL = {torch.float64: 1e-12, torch.float32: 2e-6}   # of max |twin|
 MAIN_PATH_KERNELS = ("elasticity_rows_apply", "coupling_rows",
                      "projection_rows")
 N_EVOLVING, N_STEADY = 5, 3
@@ -1685,13 +1705,19 @@ def generic_phase(dev) -> tuple:
     """The generic path at the at-scale point: the bench configuration on
     the distorted 40^3 hex mesh (``profile_step.generic_mesh``, 1,663,244
     DOF, float32) through ``build_discretization``, 2 evolving + 1 steady
-    captured steps (every solve converged, fields finite), the same steps
-    eager (counts, p and u bit for bit); the five generic applies at 40^3
-    (``apply_bench.generic_run``, float32 and float64: two applies bitwise
-    equal, timed beside their bounds, the scatter's share and the flat
-    kernel K6); the generic build on the undistorted 20^3 grid against the
-    rows path (:func:`generic_vs_rows`).  TF32 off throughout.  Returns
-    the discretization and the captured run's states and stats."""
+    captured steps (every solve converged, fields finite, both generic
+    kernels launched, their launches counted with the graph replays), the
+    same steps eager (counts, p and u bit for bit); the six generic
+    applies at 40^3 and the 3D path's batched Q1 calls on 6 lanes (the
+    projection's mass CG, the pressure Jacobian: ``apply_bench.
+    GENERIC_BATCHED``) (``apply_bench.generic_run``, float32 and float64:
+    two applies bitwise equal, each kernel within :data:`GENERIC_TOL` of
+    its twin, timed beside its twin, its bound, the twin's scatter share, the
+    flat kernel K6 and its cuSPARSE yardstick); the generic build on the
+    undistorted 20^3 grid against the rows path (:func:`generic_vs_rows`).
+    TF32 off throughout.  Returns the discretization, the captured run's
+    states and stats, the generic kernels' launches in that run and the
+    applies' records by (apply, dtype)."""
     check_tf32_off()
     data = bench_data()
     torch.cuda.synchronize()
@@ -1708,7 +1734,15 @@ def generic_phase(dev) -> tuple:
     if dofs != GENERIC_DOFS or disc.row_ops is not None:
         raise AssertionError(f"generic 40^3 build: {dofs} DOF, row_ops "
                              f"{disc.row_ops}")
+    cm.reset_launch_counts()
     run = run_steps(solver, N_GENERIC_EVOLVING, N_GENERIC_STEADY, log=True)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in launch_counts().items()
+                if k in GENERIC_KERNEL_INFO}
+    print(json.dumps({"generic_kernel_launches": launches}), flush=True)
+    if not all(v > 0 for v in launches.values()):
+        raise AssertionError(f"generic path: a generic kernel was never "
+                             f"launched: {launches}")
     print(json.dumps({"generic_graphs": {
         "captures": dict(solver.graphs.captures),
         "replays": dict(solver.graphs.replays)}}), flush=True)
@@ -1718,14 +1752,72 @@ def generic_phase(dev) -> tuple:
     del solver, run
     gc.collect()
     torch.cuda.empty_cache()
+    records = {}
     for rec in apply_bench.generic_run(N_MAIN, dev):
         print(json.dumps({"generic_apply": rec}), flush=True)
-        if not (rec["bitwise_repeat"] and rec["finite"]):
+        kernel = rec["kernel"]
+        ok = rec["bitwise_repeat"] and rec["finite"]
+        if kernel is not None:    # the kernel: its twin, its yardstick
+            ok = ok and rec["launches"] == {kernel: 2} and \
+                rec["max_rel_err"] <= GENERIC_TOL[getattr(torch,
+                                                          rec["dtype"])] \
+                and rec.get("library_rel_err_vs_kernel", 0.0) <= \
+                TOL[torch.float32]
+        if not ok:
             raise AssertionError(f"generic apply {rec['apply']} "
                                  f"({rec['dtype']}): {rec}")
+        records[(rec["apply"], rec["dtype"])] = rec
+    want = {(a, t) for a in (*apply_bench.GENERIC_APPLIES,
+                             *apply_bench.GENERIC_BATCHED)
+            for t in ("float32", "float64")}
+    if set(records) != want:
+        raise AssertionError(f"generic applies: records {sorted(records)}, "
+                             f"expected {sorted(want)}")
     check_tf32_off()
     generic_vs_rows(dev, data)
-    return disc, states, stats
+    return disc, states, stats, launches, records
+
+
+def generic_kernel_phase(dev) -> None:
+    """The generic kernels against their plain twins on the small cases of
+    ``apply_bench.GENERIC_CASES`` (distorted 2D and 3D grids, the gmsh hex
+    mesh, bucketed AMR meshes with phantom cells, geometry on a cell axis
+    of 1), in float64 and float32, and on a ghost window (rank 1 of a
+    2-way split of the golden deck's 8 x 8 grid: window-local connectivity
+    and plans over C + 2H values): every call within :data:`GENERIC_TOL`
+    of max |twin|, finite, two calls bitwise equal."""
+    t0 = time.perf_counter()
+    worst = {}
+    for case in apply_bench.GENERIC_CASES:
+        d64 = apply_bench.generic_case(case)
+        for dtype in (torch.float64, torch.float32):
+            d = apply_bench.on_device(d64, dtype, dev)
+            for label, kern, plain in apply_bench.generic_pairs(d):
+                _generic_pair(f"{case} {label}", kern, plain, dtype, worst)
+    for dtype in (torch.float64, torch.float32):
+        for label, kern, plain in apply_bench.ghost_window_pairs(dtype,
+                                                                 dev):
+            _generic_pair(label, kern, plain, dtype, worst)
+    print(json.dumps({"generic_kernel_cases": {
+        "cases": list(apply_bench.GENERIC_CASES) + ["ghost_window"],
+        "worst_rel_err": worst,
+        "tol": {str(k).split(".")[-1]: v for k, v in GENERIC_TOL.items()},
+        "s": time.perf_counter() - t0}}), flush=True)
+
+
+def _generic_pair(label, kern, plain, dtype, worst) -> None:
+    """One kernel call against its twin (:func:`generic_kernel_phase`)."""
+    y1, y2 = kern(), kern()
+    ref = plain()
+    torch.cuda.synchronize()
+    err = _rel_err(y1, ref)
+    tag = str(dtype).split(".")[-1]
+    worst[tag] = max(worst.get(tag, 0.0), err)
+    if not (err <= GENERIC_TOL[dtype] and torch.equal(y1, y2)
+            and bool(torch.isfinite(y1).all())):
+        raise AssertionError(f"generic kernel {label} ({tag}): rel err "
+                             f"{err:.3e}, repeat bitwise "
+                             f"{torch.equal(y1, y2)}")
 
 
 def psum_phase(dev, disc, ref_states, ref_stats) -> None:
@@ -1735,8 +1827,8 @@ def psum_phase(dev, disc, ref_states, ref_stats) -> None:
     chunk all 64,000 cells, one all-reduce per apply), 2 evolving + 1
     steady steps against the unsharded captured run of
     :func:`generic_phase` on ``disc`` (its discretization): counts equal,
-    p and u within :data:`CROSS_TOL` of their max (and whether bit for
-    bit)."""
+    p and u bit for bit (the same kernels on the same cells; the
+    all-reduce of one rank is exact)."""
     data = bench_data()
     with world_of_one():
         t0 = time.perf_counter()
@@ -1766,8 +1858,7 @@ def psum_phase(dev, disc, ref_states, ref_stats) -> None:
             rec[f"{name}_max_rel_err"] = _rel_err(
                 getattr(states[k], name), getattr(ref_states[k], name))
         print(json.dumps(rec), flush=True)
-        if rec["counts"][0] != rec["counts"][1] or not all(
-                rec[f"{x}_max_rel_err"] <= CROSS_TOL for x in ("p", "u")):
+        if rec["counts"][0] != rec["counts"][1] or not rec["bitwise"]:
             raise AssertionError(f"psum step {k + 1}: {rec}")
 
 
@@ -1778,6 +1869,10 @@ GHOST_CG_SLACK = 2         # CG iterations a solve that the float32 dot order
 
 
 def _apply_args(name: str) -> tuple:
+    """The extra arguments of window apply ``name``: the Biot coefficient
+    of the coupling, the deck's pressure Jacobian coefficients."""
+    if name == "pressure_operator":
+        return apply_bench.pressure_coefficients(bench_data())
     return (apply_bench.BIOT,) if name == "coupling_rhs" else ()
 
 
@@ -1785,8 +1880,8 @@ def ghost_split_phase(dev, disc) -> None:
     """The ghost form's halo arithmetic at full size on one card: the
     distorted 40^3 generic discretization ``disc`` (1,663,244 DOF)
     renumbered first-touch, and for each split of :data:`GHOST_SPLITS`
-    every rank's window-local mass, Laplace, elasticity, coupling and
-    projection apply computed in this process
+    every rank's window-local mass, Laplace, pressure Jacobian,
+    elasticity, coupling and projection apply computed in this process
     (``parallel/ghost.py::split_apply``: each window cut from the whole
     renumbered vector as the exchange would deliver it, the returns
     through the same code with an in-process transport, the chunks
@@ -3075,8 +3170,9 @@ def sass_check(lib_path: Path) -> dict:
     """Tensor-core instructions per kernel in the built library
     (``cuobjdump -sass``): the float64 cell product pass must hold DMMA in
     each of its instances (the row-layout elasticity apply's, 81 rows, the
-    projection's, 48 rows, and the flat apply's, 81 rows), and no float32
-    kernel any tensor-core instruction (no TF32)."""
+    projection's, 48 rows, and the flat apply's, 81 rows), so must the
+    generic elasticity apply's float64 products (2D and 3D), and no
+    float32 kernel any tensor-core instruction (no TF32)."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
@@ -3098,13 +3194,17 @@ def sass_check(lib_path: Path) -> dict:
                   re.search(rf"Li{r}E|, {r}\b", k)]
               for r in (cp.ELASTICITY_ROWS, cp.PROJECTION_ROWS)}
     rows64["flat"] = [k for k in products64 if "FlatLayout" in k]
+    # the generic elasticity apply's float64 products, 2D and 3D
+    generic64 = [k for k in ops if re.search(
+        r"generic_elasticity_products_kernel(Id|<double)", k)]
     float32 = [k for k in ops if re.search(r"kernel(If|<float)", k)]
     rec = {"sass": ops}
     print(json.dumps(rec), flush=True)
-    if not all(rows64.values()) or not all(
+    if not all(rows64.values()) or len(generic64) != 2 or not all(
             ops[k].get("DMMA", 0) > 0 and set(ops[k]) == {"DMMA"}
-            for k in products64):
-        raise AssertionError(f"float64 products without DMMA: {rows64}")
+            for k in products64 + generic64):
+        raise AssertionError(f"float64 products without DMMA: {rows64}, "
+                             f"generic {generic64}")
     if not float32 or any(ops[k] for k in float32):
         raise AssertionError("a float32 kernel holds tensor-core "
                              f"instructions: {[ops[k] for k in float32]}")
@@ -3213,7 +3313,9 @@ def main() -> int:
     structured_options_phase(dev, states[0], conv_step1, ms)
     del states, conv_step1
     timed_phase("2D production", production_2d_phase, dev, *phase_2d(dev))
-    generic_disc, generic_states, generic_stats = generic_phase(dev)
+    timed_phase("generic kernel", generic_kernel_phase, dev)
+    generic_disc, generic_states, generic_stats, generic_launches, \
+        generic_records = generic_phase(dev)
     timed_phase("psum", psum_phase, dev, generic_disc, generic_states,
                 generic_stats)
     timed_phase("ghost split", ghost_split_phase, dev, generic_disc)
@@ -3258,6 +3360,17 @@ def main() -> int:
         "bound_ms": flat_slab_rec["bound_ms"],
         "bound_by": flat_slab_rec["bound_by"],
         "library_ms": flat_slab_rec["library_ms"]})
+    for name, (src, replaces, timed) in GENERIC_KERNEL_INFO.items():
+        rec = generic_records[(timed, "float32")]
+        summary.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces,
+            # the generic phase's captured 40^3 run (replays included);
+            # 40^3 float32 on the distorted mesh (Q1: the pressure Jacobian)
+            "launches": generic_launches[name],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
           flush=True)
     print(json.dumps({"kernels": summary}), flush=True)

@@ -28,6 +28,8 @@
 
 #include <cuda_runtime.h>
 
+#include "cell_products.cuh"   // cp_async, cp_async_wait_all, dmma_16x8x8
+
 namespace {
 
 constexpr int kUnmasked = 0;     // y = A x
@@ -258,14 +260,6 @@ constexpr int product_smem_bytes() {
          (P::kCells + kLocal) * static_cast<int>(sizeof(int));
 }
 
-template <typename T>
-__device__ __forceinline__ void cp_async(T* smem_dst, const T* gmem_src) {
-  const unsigned dst =
-      static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
-               "l"(gmem_src), "n"(sizeof(T)));
-}
-
 // Element matrix (ROWS x 81, row-major) into shared memory in the layout
 // its product reads, with cp.async (in flight until the caller's wait) and
 // zeros in the padding.
@@ -291,10 +285,6 @@ __device__ __forceinline__ void load_k(double* ks, const double* ke) {
     else
       ks[i] = 0.0;
   }
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Y_E (ROWS x 256) = K X_E on the CUDA cores; ye points at the tile's first
@@ -339,20 +329,6 @@ __device__ __forceinline__ void tile_products(const float* ks,
       row[lane + 32] = make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
     }
   }
-}
-
-// D (16x8) += A (16x8, row) B (8x8, col) in float64 on the tensor cores
-// (sm_90).  With g = lane/4, t = lane%4: a = A[g][t], A[g+8][t], A[g][t+4],
-// A[g+8][t+4]; b = B[t][g], B[t+4][g]; d = D[g][2t], D[g][2t+1],
-// D[g+8][2t], D[g+8][2t+1].
-__device__ __forceinline__ void dmma_16x8x8(double (&d)[4],
-                                            const double (&a)[4], double b0,
-                                            double b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
-      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b0), "d"(b1));
 }
 
 // Y_E^T (64 cells x kKRows, columns >= ROWS dropped) = X_E^T K^T with DMMA:

@@ -25,13 +25,16 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "comp_major.cu",)
+SOURCES = (_PKG / "csrc" / "comp_major.cu", _PKG / "csrc" / "generic.cu")
+# headers the sources include: part of the build's hash
+HEADERS = (_PKG / "csrc" / "cell_products.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
 _SIGNATURES = {
     # name: argtypes (after the dtype suffix _f32/_f64); the last is the
     # stream
@@ -45,6 +48,15 @@ _SIGNATURES = {
     # u, ke, y, product scratch, n, cell layers along z (nz), scratch
     # stride, grid, shared bytes
     "elasticity_grid_apply": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # generic.cu: u, conn, dref, jinv, jxw, plan table, y, product scratch,
+    # lam, mu, dim, cells E, geometry cells Eg, plan width V, output
+    # length, grid, shared bytes
+    "generic_elasticity_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _D, _D,
+                                 _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, conn, psi, dref, jinv, jxw, plan table, y, product scratch, alpha,
+    # beta, dim, lanes, input length, E, Eg, V, output length, grid
+    "generic_q1_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _D, _D, _I, _I,
+                         _I, _I, _I, _I, _I, _I, _P),
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -97,7 +109,7 @@ def _nvcc_run(args) -> float:
 
 def _build() -> KernelLibrary:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

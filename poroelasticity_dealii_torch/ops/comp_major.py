@@ -29,7 +29,8 @@ element matrix, one ``index_add_`` over a precomputed flat index.
 :func:`make_flat_apply`, the counterpart of ``make_pallas_apply`` (flat u
 in, flat y out), needs no row layout: it reaches the flat kernel of
 :mod:`.elasticity`, whose product pass is the row-layout apply's.
-:data:`KERNEL_WRAPPERS` lists every kernel wrapper of the port.
+:data:`KERNEL_WRAPPERS` lists every kernel wrapper of the port, those of
+the generic path (:mod:`.generic_apply`) too.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from . import _cuda
 from .cell_products import N_VOIGT, PROJECTION_ROWS, rows_apply_plan, \
     sm_count
 from .elasticity import elasticity_grid_apply, make_grid_elasticity
+from .generic_apply import generic_elasticity_apply, generic_q1_apply
 from .node_blocks import elasticity_node_blocks
 from .shape import node_lattice
 
@@ -302,9 +304,11 @@ elasticity_rows_apply.mode_launches = {UNMASKED: 0, FREE: 0, CONSTRAINED: 0}
 elasticity_rows_apply.slab_launches = 0
 coupling_rows.launches = 0
 projection_rows.launches = 0
-# every kernel wrapper of the port, with its ``launches`` count
+# every kernel wrapper of the port, with its ``launches`` count (the
+# generic path's in ops/generic_apply.py)
 KERNEL_WRAPPERS = (elasticity_rows_apply, coupling_rows, projection_rows,
-                   elasticity_grid_apply)
+                   elasticity_grid_apply, generic_elasticity_apply,
+                   generic_q1_apply)
 
 
 def reset_launch_counts() -> None:

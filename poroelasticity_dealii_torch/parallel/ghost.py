@@ -251,6 +251,7 @@ def _owned(x, rank: int, C: int, fill: float = 0.0):
 
 # apply -> (its input's space, its output's space)
 WINDOW_APPLIES = {"mass": ("p", "p"), "laplace": ("p", "p"),
+                  "pressure_operator": ("p", "p"),
                   "elasticity": ("u", "u"), "coupling_rhs": ("p", "u"),
                   "strain_projection_rhs": ("u", "p")}
 
@@ -298,6 +299,9 @@ class GhostShardedDiscretization(Discretization):
 
     def laplace(self, p):
         return self._sharded("laplace", p)
+
+    def pressure_operator(self, x, alpha, beta):
+        return self._sharded("pressure_operator", x, alpha, beta)
 
     def elasticity(self, u):
         return self._sharded("elasticity", u)

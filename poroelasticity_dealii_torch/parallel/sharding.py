@@ -216,6 +216,9 @@ class ShardedDiscretization(Discretization):
     def laplace(self, p):
         return self._sum(super().laplace(p))
 
+    def pressure_operator(self, x, alpha, beta):
+        return self._sum(super().pressure_operator(x, alpha, beta))
+
     def elasticity(self, u):
         return self._sum(super().elasticity(u))
 

@@ -9,10 +9,17 @@ quadrature points, the well source, the Neumann traction and body-force
 vectors, the Dirichlet (node, component) pinning of the displacement and
 the drainage pinning of the pressure, and the Jacobi diagonals.  It then
 moves everything the step reads onto one device, cells-last, with a
-:class:`..ops.operators.ScatterPlan` per connectivity.  The operators are
-the gather, shape-table product and plan-scatter applies of
-:mod:`..ops.operators` (plain torch: the reference computes them with XLA
-gathers, einsums and ``segment_sum``, outside any Pallas kernel).
+:class:`..ops.operators.ScatterPlan` per connectivity.  The reference
+computes the operators with XLA gathers, einsums and ``segment_sum``,
+outside any Pallas kernel.  Here the mass, Laplace and elasticity applies
+(and the pressure Jacobian ``alpha M + beta L`` in one call) dispatch on
+the input tensor's device: on a CUDA tensor they launch the hand-written
+kernels of :mod:`..ops.generic_apply` (``csrc/generic.cu``); on a CPU
+tensor they run the plain gather, shape-table product and plan-scatter
+applies of :mod:`..ops.operators`.  Degrees other than Q2 displacements
+and Q1 pressures always run the plain applies (``generic_apply.takes_*``).
+The coupling and projection right-hand sides are plain torch on every
+device.
 
 The hanging-node constraints ``hc_p`` and ``hc_u``
 (:class:`..amr.constraints.HangingConstraints`) belong to adaptive meshes:
@@ -26,6 +33,7 @@ fixed-stress solver's generic branches go through them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -36,6 +44,7 @@ from ..amr.constraints import HangingConstraints, empty_constraints
 from ..config import InputData
 from ..mesh.core import FESpace, Mesh
 from ..mesh.qk import build_fe_space
+from ..ops import generic_apply as ga
 from ..ops import operators as ops
 from ..ops.geometry import geometry_factors
 from ..ops.quadrature import gauss_tensor
@@ -100,18 +109,57 @@ class Discretization:
     def n_cells(self) -> int:
         return self.conn_p.shape[-1]
 
+    # The kernels' operand records, made (and checked, on the first
+    # launch) once per instance: a copy (``.to()``, ``dataclasses.replace``,
+    # a shard) makes its own.  None: a degree the kernel does not take.
+    @functools.cached_property
+    def q1_operands(self) -> Optional[ga.Q1Operands]:
+        if not ga.takes_q1(self.psi_p_at_pq, self.dref_p_at_pq, self.dim):
+            return None
+        return ga.Q1Operands(self.conn_p, self.psi_p_at_pq,
+                             self.dref_p_at_pq, self.jinv_p, self.jxw_p,
+                             self.plan_p)
+
+    @functools.cached_property
+    def elasticity_operands(self) -> Optional[ga.ElasticityOperands]:
+        if not ga.takes_elasticity(self.dref_u_at_uq, self.dim):
+            return None
+        return ga.ElasticityOperands(self.conn_u, self.dref_u_at_uq,
+                                     self.jinv_u, self.jxw_u, self.lam,
+                                     self.mu, self.plan_u)
+
+    def _q1(self, x, alpha, beta):
+        """``alpha M x + beta L x`` through the Q1 kernel wrapper (which
+        takes the plain twin for a CPU tensor), or the plain twin itself
+        for a pressure degree the kernel does not take."""
+        op = self.q1_operands
+        if op is None:
+            return ga.generic_q1_apply_plain(
+                x, self.conn_p, self.psi_p_at_pq, self.dref_p_at_pq,
+                self.jinv_p, self.jxw_p, alpha, beta, self.plan_p)
+        return ga.generic_q1_apply(x.contiguous(), op, alpha, beta)
+
     def mass(self, p):
-        return ops.apply_mass(p, self.conn_p, self.plan_p, self.psi_p_at_pq,
-                              self.jxw_p)
+        return self._q1(p, 1.0, 0.0)
 
     def laplace(self, p):
-        return ops.apply_laplace(p, self.conn_p, self.plan_p,
-                                 self.dref_p_at_pq, self.jinv_p, self.jxw_p)
+        return self._q1(p, 0.0, 1.0)
+
+    def pressure_operator(self, x, alpha, beta):
+        """``alpha M x + beta L x`` (the generic pressure Jacobian): one
+        kernel launch on the card; the plain form is ``alpha * mass(x) +
+        beta * laplace(x)`` in that order, through this class's own
+        applies (never ``self.mass``: the psum form sums its applies and
+        the ghost form halos them, each once, around this method)."""
+        return self._q1(x, alpha, beta)
 
     def elasticity(self, u):
-        return ops.apply_elasticity(u, self.conn_u, self.plan_u,
-                                    self.dref_u_at_uq, self.jinv_u,
-                                    self.jxw_u, self.lam, self.mu)
+        op = self.elasticity_operands
+        if op is None:
+            return ga.generic_elasticity_apply_plain(
+                u, self.conn_u, self.dref_u_at_uq, self.jinv_u, self.jxw_u,
+                self.lam, self.mu, self.plan_u)
+        return ga.generic_elasticity_apply(u.contiguous(), op)
 
     # ---- constraint helpers (no-ops on conforming meshes) ----------------
     @property

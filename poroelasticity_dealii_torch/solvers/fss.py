@@ -471,8 +471,8 @@ class FixedStressSolver:
             y = self._fused_jacobian_stencil(dt)(x * fp)
         else:
             def base(z):
-                return (1.0 / data.m_modulus / dt) * d.mass(z) \
-                    + (data.perm / data.visc) * d.laplace(z)
+                return d.pressure_operator(z, 1.0 / data.m_modulus / dt,
+                                           data.perm / data.visc)
             y = self._hcp.constrained(base)(x * fp)
         return y * fp + x * (1.0 - fp)
 

@@ -10,15 +10,18 @@ flat kernel through its two entry points (``make_flat_apply``, the K6
 counterpart, and ``make_grid_elasticity``, the K7 counterpart; on the card
 the conv backend's ``disc.elasticity`` is this kernel), its plain twin, and
 the FLOP count (2 per nonzero of the element matrix per cell,
-:func:`nonzeros`).  With ``generic`` it times instead the five applies of
-the generic discretization (:func:`generic_run`: mass, Laplace,
-elasticity, coupling and projection on the distorted hex mesh of
-``profile_step.generic_mesh``, float32 and float64), each beside its bound
-and the share of its time spent in the plan scatter, and the flat kernel
-at the same ``n`` beside them.  It needs a CUDA device; :func:`run` and
+:func:`nonzeros`).  With ``generic`` it times instead the six applies of
+the generic discretization (:func:`generic_run`: mass, Laplace, the
+pressure Jacobian and elasticity, which the hand-written generic kernels
+compute on the card, and the plain-torch coupling and projection, on the
+distorted hex mesh of ``profile_step.generic_mesh``, float32 and
+float64), each beside its plain twin, its bound, the share of the twin's
+time spent in the plan scatter, the flat kernel at the same ``n`` and the
+kernels' CSR yardstick.  It needs a CUDA device; :func:`run` and
 :func:`generic_run` also take the CPU for tests, with no times.
 
-:func:`library_csr` and :func:`spmv_ms` give every kernel's library
+:func:`library_csr` (structured grids), :func:`generic_library_csr`
+(generic meshes) and :func:`spmv_ms` give every kernel's library
 yardstick (``library_ms`` in ``chip_smoke.py``): one cuSPARSE CSR
 matrix-vector product over the assembled operator, as the reference
 deal.II program applies its assembled matrices.  The port never calls
@@ -277,8 +280,22 @@ def run(n: int = 40, dtype=torch.float32, device="cuda", reps: int = 20,
     return rec
 
 
-# the generic discretization's applies (solvers/discretization.py)
-GENERIC_APPLIES = ("mass", "laplace", "elasticity", "coupling", "projection")
+# the generic discretization's applies (solvers/discretization.py);
+# "pressure" is the generic pressure Jacobian alpha M + beta L in one call
+GENERIC_APPLIES = ("mass", "laplace", "pressure", "elasticity", "coupling",
+                   "projection")
+# the applies a hand-written kernel computes on the card, by kernel wrapper
+# (ops/generic_apply.py); coupling and projection stay plain torch
+GENERIC_KERNELS = {"mass": "generic_q1_apply", "laplace": "generic_q1_apply",
+                   "pressure": "generic_q1_apply",
+                   "elasticity": "generic_elasticity_apply"}
+# the batched Q1 calls of the 3D path, by record label: the projection's
+# mass CG on its six strain lanes (solvers/fss.py) and the pressure
+# Jacobian on as many
+GENERIC_BATCHED = {"mass[6]": ("mass", 6), "pressure[6]": ("pressure", 6)}
+# the yardstick's operator of each kernel wrapper's timed call
+GENERIC_LIBRARY = {"pressure": "generic_q1_apply",
+                   "elasticity": "generic_elasticity_apply"}
 # published H100 SXM peaks at 700 W: HBM3 bytes/s, float32 (outside the
 # tensor cores) and float64 (tensor cores) operations/s
 PEAK_BYTES = 3.35e12
@@ -290,6 +307,7 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 GENERIC_OPERANDS = {
     "mass": ("p", "conn_p", "plan_p", ("jxw_p",)),
     "laplace": ("p", "conn_p", "plan_p", ("jinv_p", "jxw_p")),
+    "pressure": ("p", "conn_p", "plan_p", ("jinv_p", "jxw_p")),
     "elasticity": ("u", "conn_u", "plan_u", ("jinv_u", "jxw_u")),
     "coupling": ("p", "conn_p", "plan_u", ("jinv_u", "jxw_u")),
     "projection": ("u", "conn_u", "plan_p", ("jinv_p", "jxw_p")),
@@ -299,40 +317,61 @@ GENERIC_OPERANDS = {
 BIOT = 0.9     # the coupling's Biot coefficient in the timings (the deck's)
 
 
-def _generic_apply(d, name: str):
-    """(the whole apply, its gather-and-product part: input -> the cell
-    values it scatters) of generic apply ``name`` on ``d``."""
+def pressure_coefficients(data) -> tuple:
+    """(alpha, beta) of the generic pressure Jacobian ``alpha M + beta L``
+    at the deck's time step: (1 / (M dt), k / mu), as the fixed-stress
+    solver computes them."""
+    return 1.0 / data.m_modulus / data.time_step, data.perm / data.visc
+
+
+def _generic_apply(d, name: str, coeffs=(1.0, 1.0)):
+    """(the apply as ``d`` runs it, its plain twin, the twin's
+    gather-and-product part: input -> the cell values it scatters, or None
+    for the pressure Jacobian, whose twin scatters twice) of generic apply
+    ``name``; ``coeffs``: the pressure Jacobian's (alpha, beta)."""
+    from ..ops import generic_apply as ga
     from ..ops import operators as ops
     N, dim, E = d.dref_u_at_uq.shape[1], d.dim, d.n_cells
-    if name == "mass":
-        return d.mass, lambda x: ops.mass_core(x[d.conn_p], d.psi_p_at_pq,
-                                               d.jxw_p)
-    if name == "laplace":
-        return d.laplace, lambda x: ops.laplace_core(
-            x[d.conn_p], d.dref_p_at_pq, d.jinv_p, d.jxw_p)
+    q1 = (d.conn_p, d.psi_p_at_pq, d.dref_p_at_pq, d.jinv_p, d.jxw_p)
+    if name in ("mass", "laplace", "pressure"):
+        a, b = {"mass": (1.0, 0.0), "laplace": (0.0, 1.0),
+                "pressure": coeffs}[name]
+        core = {"mass": lambda x: ops.mass_core(x[..., d.conn_p],
+                                                d.psi_p_at_pq, d.jxw_p),
+                "laplace": lambda x: ops.laplace_core(
+                    x[..., d.conn_p], d.dref_p_at_pq, d.jinv_p, d.jxw_p),
+                "pressure": None}[name]
+        return (lambda x: d.pressure_operator(x, a, b),
+                lambda x: ga.generic_q1_apply_plain(x, *q1, a, b, d.plan_p),
+                core)
     if name == "elasticity":
-        return d.elasticity, lambda x: ops.elasticity_core(
-            x[d.conn_u].reshape(N, dim, E), d.dref_u_at_uq, d.jinv_u,
-            d.jxw_u, d.lam, d.mu)
+        return d.elasticity, lambda x: ga.generic_elasticity_apply_plain(
+            x, d.conn_u, d.dref_u_at_uq, d.jinv_u, d.jxw_u, d.lam, d.mu,
+            d.plan_u), lambda x: ops.elasticity_core(
+                x[d.conn_u].reshape(N, dim, E), d.dref_u_at_uq, d.jinv_u,
+                d.jxw_u, d.lam, d.mu)
     if name == "coupling":
-        return (lambda x: d.coupling_rhs(x, BIOT)), \
-            lambda x: ops.coupling_core(x[d.conn_p], d.psi_p_at_uq,
-                                        d.dref_u_at_uq, d.jinv_u, d.jxw_u,
-                                        BIOT)
+        fn = lambda x: d.coupling_rhs(x, BIOT)  # noqa: E731
+        return fn, fn, lambda x: ops.coupling_core(
+            x[d.conn_p], d.psi_p_at_uq, d.dref_u_at_uq, d.jinv_u, d.jxw_u,
+            BIOT)
     if name == "projection":
-        return d.strain_projection_rhs, lambda x: ops.projection_core(
-            x[d.conn_u].reshape(N, dim, E), d.psi_p_at_pq, d.dref_u_at_pq,
-            d.jinv_p, d.jxw_p).transpose(0, 1)
+        return d.strain_projection_rhs, d.strain_projection_rhs, \
+            lambda x: ops.projection_core(
+                x[d.conn_u].reshape(N, dim, E), d.psi_p_at_pq,
+                d.dref_u_at_pq, d.jinv_p, d.jxw_p).transpose(0, 1)
     raise ValueError(f"no generic apply {name!r}")
 
 
-def generic_work(d, name: str) -> tuple:
-    """(bytes, flop) of one generic apply ``name`` on ``d``.  Bytes: each
-    input read once and the output written once: the input vector, the
-    gather connectivity, the Jacobian factors it reads, the shape tables,
-    the scatter plan and the output vector(s).  Flop: the shape-table
-    products (2 per multiply-add), the pointwise geometric algebra and the
-    scatter's additions (one per cell entry)."""
+def generic_work(d, name: str, lanes: int = 1) -> tuple:
+    """(bytes, flop) of one generic apply ``name`` on ``d``, on ``lanes``
+    input vectors at once.  Bytes: each input read once and the output
+    written once: the input vectors, the gather connectivity, the Jacobian
+    factors it reads, the shape tables, the scatter plan and the output
+    vectors.  Flop, per lane: the shape-table products (2 per
+    multiply-add), the pointwise geometric algebra and the scatter's
+    additions (one per cell entry); the pressure Jacobian's are
+    the mass's and the Laplacian's and one combining add per cell entry."""
     from ..ops.operators import VOIGT_PAIRS
     dim, E = d.dim, d.n_cells
     Qu, Nu = d.dref_u_at_uq.shape[:2]
@@ -340,13 +379,14 @@ def generic_work(d, name: str) -> tuple:
     C = len(VOIGT_PAIRS[dim])
     inp, conn, plan, geo = GENERIC_OPERANDS[name]
     n_in = d.n_udofs if inp == "u" else d.n_pdofs
-    n_out = {"mass": d.n_pdofs, "laplace": d.n_pdofs, "elasticity":
-             d.n_udofs, "coupling": d.n_udofs, "projection": C * d.n_pdofs}
+    n_out = {"mass": d.n_pdofs, "laplace": d.n_pdofs, "pressure": d.n_pdofs,
+             "elasticity": d.n_udofs, "coupling": d.n_udofs,
+             "projection": C * d.n_pdofs}
     tensors = [getattr(d, conn), getattr(d, plan).table] + [
         getattr(d, g) for g in geo] + [
         d.psi_p_at_pq, d.dref_p_at_pq, d.psi_p_at_uq, d.dref_u_at_uq,
         d.dref_u_at_pq]
-    nbytes = (n_in + n_out[name]) * d.jxw_p.element_size() + sum(
+    nbytes = (n_in + n_out[name]) * lanes * d.jxw_p.element_size() + sum(
         t.numel() * t.element_size() for t in tensors)
     m2 = dim * dim
     flop = {
@@ -362,8 +402,9 @@ def generic_work(d, name: str) -> tuple:
         "projection": (2 * Qp * dim * Nu * dim * E
                        + Qp * m2 * (2 * dim - 1) * E + 2 * Qp * m2 * E
                        + Qp * C * E + 2 * Np * Qp * C * E + Np * C * E),
-    }[name]
-    return nbytes, flop
+    }
+    flop["pressure"] = flop["mass"] + flop["laplace"] + 2 * Np * E
+    return nbytes, flop[name] * lanes
 
 
 def _cast(d, dtype):
@@ -374,14 +415,190 @@ def _cast(d, dtype):
         and getattr(d, f.name).is_floating_point()})
 
 
+def generic_library_csr(d, name: str, alpha: float = 1.0,
+                        beta: float = 0.0) -> torch.Tensor:
+    """The function of generic kernel wrapper ``name`` on discretization
+    ``d`` as one sparse CSR matrix ``M`` (``M @ x`` equals the apply):
+    ``generic_elasticity_apply`` (K) or ``generic_q1_apply`` (alpha M +
+    beta L).  Every cell's element matrix is the plain core applied to the
+    unit vectors of its local values (on ``d``'s device, in ``d``'s
+    dtype), each entry placed at its connectivity's indices; zero entries
+    left out (bucketing's phantom cells), duplicates summed.  The
+    yardstick of :func:`library_csr` for the generic mesh."""
+    from ..ops import operators as ops
+    E = d.n_cells
+    if name == "generic_elasticity_apply":
+        N, dim = d.dref_u_at_uq.shape[1], d.dim
+        conn, n = d.conn_u.long(), d.n_udofs
+
+        def column(b):
+            ue = torch.zeros(N * dim, E, dtype=d.dtype, device=d.device)
+            ue[b] = 1.0
+            return ops.elasticity_core(ue.view(N, dim, E), d.dref_u_at_uq,
+                                       d.jinv_u, d.jxw_u, d.lam, d.mu)
+    elif name == "generic_q1_apply":
+        conn, n = d.conn_p.long(), d.n_pdofs
+
+        def column(b):
+            pe = torch.zeros(conn.shape[0], E, dtype=d.dtype,
+                             device=d.device)
+            pe[b] = 1.0
+            return alpha * ops.mass_core(pe, d.psi_p_at_pq, d.jxw_p) + \
+                beta * ops.laplace_core(pe, d.dref_p_at_pq, d.jinv_p,
+                                        d.jxw_p)
+    else:
+        raise ValueError(f"no generic library operator for {name!r}")
+    a = conn.shape[0]
+    vals = torch.stack([column(b) for b in range(a)], dim=1)   # (a, b, E)
+    entries = [conn[:, None, :].expand(a, a, E).reshape(-1),
+               conn[None, :, :].expand(a, a, E).reshape(-1),
+               vals.reshape(-1)]
+    del vals
+    return _csr(entries, (n, n))
+
+
+# small generic cases each kernel is held to its plain twin on
+# (chip_smoke.py's generic kernel phase, tests/test_torch_generic_kernels.py
+# on the card): distorted 2D and 3D grids, the gmsh hex mesh, bucketed AMR
+# meshes (phantom cells) and geometry shared by every cell (cell axis 1)
+GENERIC_CASES = ("perturbed_2d_6", "perturbed_3d_3", "perturbed_3d_4",
+                 "irregular_3d_msh", "amr_2d", "amr_3d", "shared_geometry")
+DECK_2D = DECK.parent / "golden_2d.data"
+MSH_3D = DECK.parent / "irregular_3d.msh"
+# the pressure Jacobian's coefficients in the small cases, and their lanes
+CASE_COEFFS = (0.7, 1.3)
+CASE_LANES = (None, 3, 6)
+
+
+def generic_case(name: str):
+    """The float64 CPU discretization of small case ``name``
+    (:data:`GENERIC_CASES`)."""
+    from ..amr.bucketing import pad_amr_discretization
+    from ..amr.driver import build_amr_discretization
+    from ..amr.forest import QuadForest
+    from ..amr.octforest import OctForest
+    from ..config import read_input_file
+    from ..mesh import hyper_rectangle, read_msh
+    from ..mesh.generator import perturb_interior
+    from ..solvers.discretization import build_discretization
+
+    f64 = torch.float64
+    if name.startswith("perturbed"):
+        dim, n = int(name[-4]), int(name[-1])
+        data = read_input_file(str(DECK if dim == 3 else DECK_2D))
+        mesh = perturb_interior(hyper_rectangle([10.0] * dim,
+                                                cells_per_axis=n), 0.2,
+                                seed=n)
+        return build_discretization(mesh, data, dtype=f64, device="cpu")
+    if name == "irregular_3d_msh":
+        return build_discretization(read_msh(str(MSH_3D), dim=3),
+                                    read_input_file(str(DECK)), dtype=f64,
+                                    device="cpu")
+    if name == "shared_geometry":
+        d = build_discretization(hyper_rectangle([10.0] * 3,
+                                                 cells_per_axis=3),
+                                 read_input_file(str(DECK)), dtype=f64,
+                                 device="cpu")
+        return dataclasses.replace(d, **{
+            k: getattr(d, k)[..., :1].contiguous()
+            for k in ("jinv_u", "jxw_u", "jinv_p", "jxw_p")})
+    if name in ("amr_2d", "amr_3d"):
+        if name == "amr_2d":
+            data = read_input_file(str(DECK_2D))
+            forest = QuadForest.uniform([-5, -5], [5, 5], 2)
+        else:
+            data = read_input_file(str(DECK))
+            forest = OctForest.uniform([0, 0, 0], [10, 10, 10], 1)
+        forest.refine_and_coarsen([leaf for leaf in forest.leaves
+                                   if all(c == 0 for c in leaf[1:])], [])
+        return pad_amr_discretization(build_amr_discretization(
+            forest, data, device="cpu"))
+    raise ValueError(f"no generic case {name!r}")
+
+
+def on_device(d, dtype, device):
+    """``d`` on ``device`` with its floating tensors in ``dtype``."""
+    return _cast(d.to(device), dtype)
+
+
+def generic_pairs(d, seed: int = 11) -> list:
+    """[(label, the discretization's apply, its plain twin)] of every
+    generic kernel call on ``d`` for seeded inputs: the elasticity apply,
+    and the mass, the Laplacian and the pressure Jacobian
+    (:data:`CASE_COEFFS`) on :data:`CASE_LANES` lanes."""
+    from ..ops import generic_apply as ga
+    rng = np.random.default_rng(seed)
+    u = torch.as_tensor(rng.standard_normal(d.n_udofs), dtype=d.dtype,
+                        device=d.device)
+    out = [("elasticity", lambda: d.elasticity(u),
+            lambda: ga.generic_elasticity_apply_plain(
+                u, d.conn_u, d.dref_u_at_uq, d.jinv_u, d.jxw_u, d.lam, d.mu,
+                d.plan_u))]
+    q1 = (d.conn_p, d.psi_p_at_pq, d.dref_p_at_pq, d.jinv_p, d.jxw_p)
+    for lanes in CASE_LANES:
+        shape = (d.n_pdofs,) if lanes is None else (lanes, d.n_pdofs)
+        x = torch.as_tensor(rng.standard_normal(shape), dtype=d.dtype,
+                            device=d.device)
+        for label, (a, b) in (("mass", (1.0, 0.0)), ("laplace", (0.0, 1.0)),
+                              ("pressure", CASE_COEFFS)):
+            out.append((f"{label}[{lanes or 1}]",
+                        lambda x=x, a=a, b=b: d.pressure_operator(x, a, b),
+                        lambda x=x, a=a, b=b: ga.generic_q1_apply_plain(
+                            x, *q1, a, b, d.plan_p)))
+    return out
+
+
+def ghost_window_pairs(dtype, device, seed: int = 4) -> list:
+    """[(label, window apply, its plain twin)] of rank 1 of a 2-way ghost
+    split of the golden deck's 8 x 8 grid on ``device`` (window-local
+    connectivity and plans over C + 2H values): the elasticity apply and
+    the pressure Jacobian on 3 lanes."""
+    from ..config import read_input_file
+    from ..mesh import hyper_rectangle
+    from ..ops import generic_apply as ga
+    from ..parallel import ghost as gh
+    from ..parallel.sharding import SlabGroup
+    from ..solvers.discretization import build_discretization
+    data = read_input_file(str(DECK_2D))
+    d = build_discretization(hyper_rectangle(data.domain_size, 3), data,
+                             dtype=dtype, device=device)
+    r = gh.shard_renumbered(gh.renumber_discretization(d),
+                            SlabGroup(1, 2, None, torch.device(device)))
+    assert r.H_u > 0 and r.H_p > 0
+    rng = np.random.default_rng(seed)
+    wu = torch.as_tensor(rng.standard_normal(r.C_u + 2 * r.H_u),
+                         dtype=dtype, device=device)
+    wp = torch.as_tensor(rng.standard_normal((3, r.C_p + 2 * r.H_p)),
+                         dtype=dtype, device=device)
+    a, b = CASE_COEFFS
+    return [("ghost window elasticity",
+             lambda: r.window_apply("elasticity", wu),
+             lambda: ga.generic_elasticity_apply_plain(
+                 wu, r.conn_u, r.dref_u_at_uq, r.jinv_u, r.jxw_u, r.lam,
+                 r.mu, r.plan_u)),
+            ("ghost window pressure[3]",
+             lambda: r.window_apply("pressure_operator", wp, a, b),
+             lambda: ga.generic_q1_apply_plain(
+                 wp, r.conn_p, r.psi_p_at_pq, r.dref_p_at_pq, r.jinv_p,
+                 r.jxw_p, a, b, r.plan_p))]
+
+
 def generic_run(n: int = 40, device="cuda", reps: int = 20,
-                deck=DECK) -> list:
-    """The five generic applies at ``n`` cells per axis on the distorted
-    mesh, float32 and float64 (one float64 build, cast for float32), each
-    applied twice to the same random input (bitwise repeat), then timed on
-    a CUDA device with its gather-and-product part and its scatter alone,
-    beside its bound; and the flat kernel (K6, ``make_flat_apply``) at the
-    same ``n``.  Returns one record per (apply, dtype)."""
+                deck=DECK, library: bool = True) -> list:
+    """The six generic applies at ``n`` cells per axis on the distorted
+    mesh, and the batched Q1 calls of :data:`GENERIC_BATCHED`, float32 and
+    float64 (one float64 build, cast for float32), each applied twice to
+    the same random input (bitwise repeat, the launches of its kernel
+    wrapper counted) and held against its plain twin (the
+    mass, Laplacian, pressure Jacobian and elasticity reach the
+    hand-written kernels on a CUDA device; coupling and projection are
+    plain torch, their own twins); then timed on a CUDA device beside the
+    plain twin, the twin's gather-and-product part and scatter alone, its
+    bound, the flat kernel K6 at the same ``n`` and, with ``library``, the
+    kernel's yardstick (:func:`generic_library_csr`: one cuSPARSE CSR SpMV
+    of the assembled operator, float64 assembled once, its values cast
+    for float32; one vector only).  Returns one record per (apply or
+    batched label, dtype)."""
     from ..config import read_input_file
     from ..ops import comp_major as cm
     from ..ops import operators as ops
@@ -390,7 +607,9 @@ def generic_run(n: int = 40, device="cuda", reps: int = 20,
     from .profile_step import generic_mesh
 
     device = torch.device(device)
+    cuda = device.type == "cuda"
     data = read_input_file(str(deck))
+    coeffs = pressure_coefficients(data)
     d64 = build_discretization(generic_mesh(n), data, dtype=torch.float64,
                                device=device)
     ke = build_grid_discretization(data, cells_per_axis=n, multigrid="off",
@@ -400,45 +619,82 @@ def generic_run(n: int = 40, device="cuda", reps: int = 20,
     xs = {"u": rng.standard_normal(d64.n_udofs),
           "p": rng.standard_normal(d64.n_pdofs),
           "flat": rng.standard_normal(3 * (2 * n + 1) ** 3)}
-    gpu = torch.cuda.get_device_name(device) if device.type == "cuda" \
-        else "cpu"
+    xs["p6"] = rng.standard_normal((6, d64.n_pdofs))
+    gpu = torch.cuda.get_device_name(device) if cuda else "cpu"
+    csr = {}
+    if cuda and library:
+        for name, kernel in GENERIC_LIBRARY.items():
+            t0 = time.perf_counter()
+            csr[name] = generic_library_csr(d64, kernel, *coeffs)
+            torch.cuda.synchronize()
+            csr[name + "_assembly_s"] = time.perf_counter() - t0
     out = []
     for dtype in (torch.float32, torch.float64):
         d = d64 if dtype == torch.float64 else _cast(d64, dtype)
         k6_ms = None
-        if device.type == "cuda":
+        if cuda:
             k6 = cm.make_flat_apply(ke, n, dtype, device)
             uf = torch.as_tensor(xs["flat"], dtype=dtype, device=device)
             k6_ms = cuda_time_ms(lambda: k6(uf), reps)
-        for name in GENERIC_APPLIES:
-            x = torch.as_tensor(xs[GENERIC_OPERANDS[name][0]], dtype=dtype,
-                                device=device)
-            fn, core = _generic_apply(d, name)
+        calls = [(name, name, 1) for name in GENERIC_APPLIES] + [
+            (label, name, lanes)
+            for label, (name, lanes) in GENERIC_BATCHED.items()]
+        for label, name, lanes in calls:
+            inp = GENERIC_OPERANDS[name][0]
+            x = torch.as_tensor(xs[inp if lanes == 1 else f"{inp}{lanes}"],
+                                dtype=dtype, device=device)
+            fn, plain, core = _generic_apply(d, name, coeffs)
+            if lanes > 1:
+                core = None
             plan = getattr(d, GENERIC_OPERANDS[name][2])
+            kernel = GENERIC_KERNELS.get(name) if cuda else None
+            cm.reset_launch_counts()
             y1, y2 = fn(x), fn(x)
-            nbytes, flop = generic_work(d, name)
+            launches = cm.launch_counts()
+            ref = plain(x)
+            nbytes, flop = generic_work(d, name, lanes)
             t_bytes = nbytes / PEAK_BYTES
             t_flop = flop / PEAK_FLOPS[dtype]
-            rec = {"apply": name, "n": n, "dtype": str(dtype).split(".")[-1],
-                   "cells": d.n_cells, "device": gpu,
+            rec = {"apply": label, "lanes": lanes, "n": n,
+                   "dtype": str(dtype).split(".")[-1],
+                   "cells": d.n_cells, "device": gpu, "kernel": kernel,
+                   "launches": {k: v for k, v in launches.items() if v},
                    "bitwise_repeat": bool(torch.equal(y1, y2)),
                    "finite": bool(torch.isfinite(y1).all()),
+                   "max_abs_err": (y1 - ref).abs().max().item(),
+                   "max_rel_err": _rel_err(y1, ref),
                    "bytes": nbytes, "flop": flop,
                    "bound_ms": max(t_bytes, t_flop) * 1e3,
                    "bound_by": "bytes" if t_bytes >= t_flop else "operations",
                    "scatter_valence": plan.table.shape[1]}
-            if device.type == "cuda":
-                ye = core(x)
+            if name == "pressure":
+                rec["coefficients"] = list(coeffs)
+            if cuda:
                 ms, host_ms = device_and_host_ms(lambda: fn(x), reps)
-                rec.update({
-                    "ms": ms, "host_ms": host_ms,
-                    "gather_product_ms": cuda_time_ms(lambda: core(x), reps),
-                    "scatter_ms": cuda_time_ms(
-                        lambda: ops.scatter_sum(ye, plan), reps),
-                    "k6_ms": k6_ms})
-                rec["scatter_share"] = rec["scatter_ms"] / ms
+                rec.update({"ms": ms, "host_ms": host_ms,
+                            "plain_ms": cuda_time_ms(lambda: plain(x), reps)
+                            if kernel else ms, "k6_ms": k6_ms})
+                if core is not None:
+                    ye = core(x)
+                    rec["gather_product_ms"] = cuda_time_ms(
+                        lambda: core(x), reps)
+                    rec["scatter_ms"] = cuda_time_ms(
+                        lambda: ops.scatter_sum(ye, plan), reps)
+                    del ye
                 rec["times_bound"] = ms / rec["bound_ms"]
+                if lanes == 1 and name in csr:
+                    M = csr[name] if dtype == torch.float64 else \
+                        torch.sparse_csr_tensor(
+                            csr[name].crow_indices(),
+                            csr[name].col_indices(),
+                            csr[name].values().to(dtype), csr[name].shape)
+                    rec["library_ms"], y_lib = spmv_ms(M, x, reps)
+                    rec["library_rel_err_vs_kernel"] = _rel_err(y_lib, y1)
+                    rec["library_nnz"] = M._nnz()
+                    rec["library_assembly_s"] = csr[name + "_assembly_s"]
+                    del M, y_lib
             out.append(rec)
+            del y1, y2, ref
     return out
 
 

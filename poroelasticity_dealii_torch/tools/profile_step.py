@@ -15,7 +15,8 @@ from 150,000 displacement dofs, GMG-Richardson in float32; ``2d_sharded``:
 the same through the 2D production form on the world-size-1 group, the
 y-slab parity kit), or the bench configuration on the distorted hex mesh
 of the generic path (``generic``: :func:`generic_mesh`, the generic
-discretization's gather and plan-scatter applies, flat Jacobi-CG
+discretization's applies, on the card the hand-written generic kernels
+for the mass, Laplace, pressure Jacobian and elasticity, flat Jacobi-CG
 mechanics and Jacobi pressure CG; ``psum``: the same through the psum form
 on the world-size-1 group, one all-reduce per apply; ``ghost``: the same
 through the ghost form on that group, every vector sharded and every
@@ -132,15 +133,22 @@ def _short(name: str) -> str:
 
 
 WRAPPERS = ("elasticity_rows_apply", "coupling_rows", "projection_rows",
-            "elasticity_grid_apply")
+            "elasticity_grid_apply", "generic_elasticity_apply",
+            "generic_q1_apply")
 
 
 def _wrapper(name: str):
     """The kernel wrapper (:data:`WRAPPERS`) that launches the CUDA kernel
     ``name``, or None.  The applies and the projection share the cell
     product pass, told apart by its input layout (the flat apply's is
-    ``FlatLayout``) and row count (81 or 48); older trees' kernel names
-    are recognised too."""
+    ``FlatLayout``) and row count (81 or 48); the generic applies share
+    the plan sum, told apart by its lane count (1 for the elasticity
+    apply); older trees' kernel names are recognised too."""
+    if "generic_elasticity" in name or re.search(
+            r"plan_sum_kernel<\w+, 1\b", name):
+        return "generic_elasticity_apply"
+    if "generic_q1" in name or "plan_sum_kernel" in name:
+        return "generic_q1_apply"
     if any(k in name for k in ("FlatLayout", "elasticity_flat_sum",
                                "elasticity_grid_apply")):
         return "elasticity_grid_apply"
