@@ -68,17 +68,22 @@ just before and read just after:
 * the generic path (``build_discretization``, flat Jacobi-CG; its mass,
   Laplace, pressure Jacobian and elasticity applies the hand-written
   generic kernels of ``csrc/generic.cu``, coupling and projection plain
-  torch): first the kernels alone (``generic_kernel_phase``: each against
-  its plain twin on distorted 2D and 3D grids, the gmsh hex mesh,
+  torch; the kernels rebuild the cell map from each cell's corner
+  offsets and read their tiles by TMA, UTMALDG required in every product
+  instance): first the kernels alone (``generic_kernel_phase``: each
+  against its plain twin on distorted 2D and 3D grids, the gmsh hex mesh,
   bucketed AMR meshes with phantom cells, geometry shared by every cell
-  and a ghost window, float64 within 1e-12 and float32 within 2e-6 of
-  max, repeats bitwise); then the bench configuration on the distorted
-  40^3 hex mesh (1,663,244 DOF, float32), 2 evolving + 1 steady captured
-  steps (both generic kernels launched), every solve converged, captured
-  against eager bit for bit; its six applies at 40^3 in float32 and
-  float64 (two applies bitwise equal, each kernel against its twin,
-  timed beside its twin, its bound, the twin's scatter share, the flat
-  kernel and a cuSPARSE SpMV of the assembled operator); the generic
+  and a ghost window, 1, 3 and 6 lanes, float64 within 1e-12 and float32
+  within 2e-6 of max, repeats bitwise; the bytes each record copied to
+  give TMA whole 16-byte rows); then the bench configuration on the
+  distorted 40^3 hex mesh (1,663,244 DOF, float32), 2 evolving + 1 steady
+  captured steps (both generic kernels launched), every solve converged,
+  captured against eager bit for bit; its six applies and the batched Q1
+  calls at 40^3 in float32 and float64 (two applies bitwise equal, each
+  kernel against its twin, timed beside its twin, its bound and the
+  stored-geometry design's, its host enqueue, the twin's scatter share,
+  the flat kernel and a cuSPARSE SpMV, or SpMM over 6 lanes, of the
+  assembled operator); the generic
   build on the undistorted 20^3 grid against the rows path; then the
   psum form (``shard_discretization``, one all-reduce per apply) on a
   world-size-1 NCCL group against the captured generic run: counts
@@ -1773,6 +1778,14 @@ def generic_phase(dev) -> tuple:
     if set(records) != want:
         raise AssertionError(f"generic applies: records {sorted(records)}, "
                              f"expected {sorted(want)}")
+    # each kernel call beside its bounds (the corner-offset design, the
+    # stored-geometry design), its library call and its host enqueue
+    print(json.dumps({"generic_kernel_times": [
+        {k: rec.get(k) for k in ("apply", "dtype", "lanes", "kernel", "ms",
+                                 "bound_ms", "bound_by", "stored_bound_ms",
+                                 "library_ms", "plain_ms", "host_ms")}
+        for rec in records.values() if rec["kernel"] is not None]}),
+        flush=True)
     check_tf32_off()
     generic_vs_rows(dev, data)
     return disc, states, stats, launches, records
@@ -1787,20 +1800,25 @@ def generic_kernel_phase(dev) -> None:
     and plans over C + 2H values): every call within :data:`GENERIC_TOL`
     of max |twin|, finite, two calls bitwise equal."""
     t0 = time.perf_counter()
-    worst = {}
+    worst, copies = {}, {}
     for case in apply_bench.GENERIC_CASES:
         d64 = apply_bench.generic_case(case)
         for dtype in (torch.float64, torch.float32):
             d = apply_bench.on_device(d64, dtype, dev)
             for label, kern, plain in apply_bench.generic_pairs(d):
                 _generic_pair(f"{case} {label}", kern, plain, dtype, worst)
+            # the device bytes each record copied to give TMA 16-byte rows
+            copies[f"{case} {str(dtype).split('.')[-1]}"] = {
+                "cells": d.n_cells,
+                "q1": d.q1_operands.checked.copied_bytes,
+                "elasticity": d.elasticity_operands.checked.copied_bytes}
     for dtype in (torch.float64, torch.float32):
         for label, kern, plain in apply_bench.ghost_window_pairs(dtype,
                                                                  dev):
             _generic_pair(label, kern, plain, dtype, worst)
     print(json.dumps({"generic_kernel_cases": {
         "cases": list(apply_bench.GENERIC_CASES) + ["ghost_window"],
-        "worst_rel_err": worst,
+        "worst_rel_err": worst, "staged_copy_bytes": copies,
         "tol": {str(k).split(".")[-1]: v for k, v in GENERIC_TOL.items()},
         "s": time.perf_counter() - t0}}), flush=True)
 
@@ -3164,28 +3182,33 @@ def structured_options_phase(dev, rows_step1, conv_step1, rows_ms) -> None:
 
 
 TENSOR_CORE_OP = re.compile(r"\b([DHIBQ]G?MMA)\b")
+TMA_LOAD_OP = re.compile(r"\bUTMALDG\b")
 
 
 def sass_check(lib_path: Path) -> dict:
-    """Tensor-core instructions per kernel in the built library
-    (``cuobjdump -sass``): the float64 cell product pass must hold DMMA in
-    each of its instances (the row-layout elasticity apply's, 81 rows, the
-    projection's, 48 rows, and the flat apply's, 81 rows), so must the
-    generic elasticity apply's float64 products (2D and 3D), and no
-    float32 kernel any tensor-core instruction (no TF32)."""
+    """Tensor-core and TMA load instructions per kernel in the built
+    library (``cuobjdump -sass``): the float64 cell product pass must hold
+    DMMA in each of its instances (the row-layout elasticity apply's, 81
+    rows, the projection's, 48 rows, and the flat apply's, 81 rows), so
+    must the generic elasticity apply's float64 products (2D and 3D); no
+    float32 kernel any tensor-core instruction (no TF32); and every
+    instance of the generic product passes (elasticity and Q1, float32 and
+    float64, 2D and 3D, the Q1 pass's one- and six-lane, mass and
+    Laplacian instances) its tiles' TMA loads (UTMALDG)."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True).stdout
-    ops, name = {}, None
+    ops, tma, name = {}, {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            ops[name] = {}
+            ops[name], tma[name] = {}, 0
         elif name is not None:
             for op in TENSOR_CORE_OP.findall(line):
                 ops[name][op] = ops[name].get(op, 0) + 1
+            tma[name] += len(TMA_LOAD_OP.findall(line))
     # mangled (kernelId / kernelIf, row count Li81E / Li48E) or demangled
     # (kernel<double, 81 / kernel<float); the layout by its struct's name
     products64 = [k for k in ops if re.search(
@@ -3198,8 +3221,15 @@ def sass_check(lib_path: Path) -> dict:
     generic64 = [k for k in ops if re.search(
         r"generic_elasticity_products_kernel(Id|<double)", k)]
     float32 = [k for k in ops if re.search(r"kernel(If|<float)", k)]
-    rec = {"sass": ops}
+    generic = [k for k in ops if re.search(
+        r"generic_(elasticity|q1)_products_kernel", k)]
+    rec = {"sass": ops, "utmaldg": {k: tma[k] for k in generic}}
     print(json.dumps(rec), flush=True)
+    # elasticity: 2 dtypes x 2 dims; Q1: 2 dtypes x 2 dims x (1 lane, 6)
+    # x (the mass alone, with the Laplacian)
+    if len(generic) != 20 or not all(tma[k] > 0 for k in generic):
+        raise AssertionError(f"generic product passes without TMA loads: "
+                             f"{rec['utmaldg']}")
     if not all(rows64.values()) or len(generic64) != 2 or not all(
             ops[k].get("DMMA", 0) > 0 and set(ops[k]) == {"DMMA"}
             for k in products64 + generic64):

@@ -13,7 +13,9 @@ unpadded one does, on longer vectors.
 Padding is exact, by the reference's invariants:
 
 * phantom cells carry zero geometry (``jxw = 0``, ``jinv = 0``) and
-  connectivity pointing at dof 0, so every value they compute is 0.  The
+  connectivity pointing at dof 0, so every value they compute is 0; their
+  corner offsets, which the generic kernels rebuild the geometry from,
+  are the reference cube's, so the kernels' products there are finite.  The
   scatter plans leave them out (their connectivity is -1 in the plans'
   copy, :func:`..ops.operators.scatter_plan`), so the plans' width, the
   largest valence, does not grow with the padding;
@@ -34,6 +36,7 @@ import math
 import numpy as np
 import torch
 
+from ..ops.geometry import reference_offsets
 from ..ops.operators import scatter_plan
 from .constraints import HangingConstraints
 
@@ -52,6 +55,15 @@ def bucket_size(n: int, ratio: float = 1.25, quantum: int = 32) -> int:
 def _pad_last(a: torch.Tensor, n_to: int, fill=0.0) -> torch.Tensor:
     """Pad the LAST axis of ``a`` to length ``n_to`` with ``fill``."""
     return torch.nn.functional.pad(a, (0, n_to - a.shape[-1]), value=fill)
+
+
+def _pad_offsets(off: torch.Tensor, n_to: int) -> torch.Tensor:
+    """Pad the corner offsets ``(2^dim - 1, dim, E)`` to ``n_to`` cells
+    with the reference cube's."""
+    ref = torch.as_tensor(reference_offsets(off.shape[1]), dtype=off.dtype,
+                          device=off.device)
+    return torch.cat([off, ref[..., None].expand(
+        *ref.shape, n_to - off.shape[-1])], dim=-1)
 
 
 def _pad_constraints(hc: HangingConstraints, n_dofs_pad: int, H_to: int,
@@ -119,6 +131,7 @@ def pad_amr_discretization(disc, ratio: float = 1.25, quantum: int = 32):
         jxw_u=_pad_last(disc.jxw_u, Ep, 0.0),
         jinv_p=_pad_last(disc.jinv_p, Ep, 0.0),
         jxw_p=_pad_last(disc.jxw_p, Ep, 0.0),
+        cell_offsets=_pad_offsets(disc.cell_offsets, Ep),
         free_mask_u=_pad_last(disc.free_mask_u, nup, 0.0),
         dirichlet_values=_pad_last(disc.dirichlet_values, nup, 0.0),
         f_neumann=_pad_last(disc.f_neumann, nup, 0.0),

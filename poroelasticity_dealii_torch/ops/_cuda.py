@@ -48,17 +48,22 @@ _SIGNATURES = {
     # u, ke, y, product scratch, n, cell layers along z (nz), scratch
     # stride, grid, shared bytes
     "elasticity_grid_apply": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # generic.cu: u, conn, dref, jinv, jxw, plan table, y, product scratch,
-    # lam, mu, dim, cells E, geometry cells Eg, plan width V, output
-    # length, grid, shared bytes
+    # generic.cu: u, the record's tensor maps (host), dref, the map's
+    # gradients dn1 and weights wq, plan table, y, product scratch, lam,
+    # mu, dim, cells E, plan width V, output length, grid, shared bytes
     "generic_elasticity_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _D, _D,
-                                 _I, _I, _I, _I, _I, _I, _I, _P),
-    # x, conn, psi, dref, jinv, jxw, plan table, y, product scratch, alpha,
-    # beta, dim, lanes, input length, E, Eg, V, output length, grid
-    "generic_q1_apply": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _D, _D, _I, _I,
-                         _I, _I, _I, _I, _I, _I, _P),
+                                 _I, _I, _I, _I, _I, _I, _P),
+    # x, the record's tensor maps (host), plan table, y, product scratch,
+    # alpha, beta, dim, lanes, input length, E, V, output length, grid
+    "generic_q1_apply": (_P, _P, _P, _P, _P, _D, _D, _I, _I, _I, _I, _I,
+                         _I, _I, _P),
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+# generic.cu's tensor-map encoder (no dtype suffix, no stream): the host
+# buffer, conn, offsets, kernel (0 elasticity, 1 Q1), value bytes, dim, E,
+# row stride Ep
+MAP_SIGNATURE = ("generic_tensor_maps", (_P, _P, _P, _I, _I, _I, _I, _I))
+MAP_BYTES = 128        # one CUtensorMap
 
 
 def _nvcc() -> str:
@@ -87,6 +92,17 @@ class KernelLibrary:
                 fn = getattr(self._lib, f"{name}_{suffix}")
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
+        fn = getattr(self._lib, MAP_SIGNATURE[0])
+        fn.argtypes = list(MAP_SIGNATURE[1])
+        fn.restype = ctypes.c_int
+
+    def encode_maps(self, *args) -> None:
+        """Encode an operand record's two TMA tensor maps
+        (:data:`MAP_SIGNATURE`); raise on an error code."""
+        err = getattr(self._lib, MAP_SIGNATURE[0])(*args)
+        if err != 0:
+            raise RuntimeError(f"{MAP_SIGNATURE[0]} failed: error {err} "
+                               f"(a cudaError_t or the encoder's CUresult)")
 
     def launch(self, name: str, dtype: torch.dtype, *args) -> None:
         """Call entry point ``name`` for ``dtype``; raise on a CUDA error."""

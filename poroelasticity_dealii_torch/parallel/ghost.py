@@ -261,11 +261,12 @@ class GhostShardedDiscretization(Discretization):
     """Rank ``slab_group.rank``'s part of a first-touch renumbered
     generic discretization.
 
-    The cell arrays (``conn_*`` window-local, ``jinv_*``, ``jxw_*``, the
-    window-local plans ``plan_*`` over ``C + 2H`` values) hold the rank's
-    cell chunk ``cells``; the dof vectors (masks, Dirichlet values,
-    diagonals, ``f_well``, ``f_neumann``) its owned chunk, padded to
-    ``C_*``, so ``n_pdofs`` and ``n_udofs`` are the chunk lengths.  The
+    The cell arrays (``conn_*`` window-local, ``jinv_*``, ``jxw_*``,
+    ``cell_offsets``, the window-local plans ``plan_*`` over ``C + 2H``
+    values) hold the rank's cell chunk ``cells``; the dof vectors (masks,
+    Dirichlet values, diagonals, ``f_well``, ``f_neumann``) its owned
+    chunk, padded to ``C_*``, so ``n_pdofs`` and ``n_udofs`` are the
+    chunk lengths.  The
     FE spaces are the whole renumbered ones (output).  ``order_p`` /
     ``order_udof`` map vectors of the source numbering in
     (``x_new = x[order]``); :meth:`whole_state` and :meth:`owned_state`
@@ -419,6 +420,7 @@ def shard_renumbered(renumbered: tuple,
         plan_u=scatter_plan(loc_u, C_u + 2 * H_u, dev),
         jinv_u=chunk(rdisc.jinv_u), jxw_u=chunk(rdisc.jxw_u),
         jinv_p=chunk(rdisc.jinv_p), jxw_p=chunk(rdisc.jxw_p),
+        cell_offsets=chunk(rdisc.cell_offsets),
         free_mask_u=_owned(rdisc.free_mask_u, d, C_u),
         dirichlet_values=_owned(rdisc.dirichlet_values, d, C_u),
         f_neumann=_owned(rdisc.f_neumann, d, C_u),

@@ -196,11 +196,12 @@ def shard_grid_discretization(disc, group: SlabGroup):
 @dataclasses.dataclass
 class ShardedDiscretization(Discretization):
     """A generic discretization whose cell arrays (``conn_*``, ``jinv_*``,
-    ``jxw_*``, the scatter plans) hold one rank's contiguous chunk of the
-    cells; every apply sums its chunk's contributions across
-    ``slab_group`` with one ``all_reduce`` (JAX's ``psum``).  Everything
-    else is the source discretization's, replicated.  ``n_cells`` is the
-    rank's chunk; ``cells`` the chunk's range in the whole mesh."""
+    ``jxw_*``, ``cell_offsets``, the scatter plans) hold one rank's
+    contiguous chunk of the cells; every apply sums its chunk's
+    contributions across ``slab_group`` with one ``all_reduce`` (JAX's
+    ``psum``).  Everything else is the source discretization's,
+    replicated.  ``n_cells`` is the rank's chunk; ``cells`` the chunk's
+    range in the whole mesh."""
     slab_group: SlabGroup = None
     cells: tuple = (0, 0)
 
@@ -265,6 +266,7 @@ def shard_discretization(disc, group: SlabGroup) -> ShardedDiscretization:
         plan_p=plan(disc.conn_p, disc.plan_p),
         plan_u=plan(disc.conn_u, disc.plan_u), jinv_u=chunk(disc.jinv_u),
         jxw_u=chunk(disc.jxw_u), jinv_p=chunk(disc.jinv_p),
-        jxw_p=chunk(disc.jxw_p), hc_p=disc._hcp, hc_u=disc._hcu,
+        jxw_p=chunk(disc.jxw_p), cell_offsets=chunk(disc.cell_offsets),
+        hc_p=disc._hcp, hc_u=disc._hcu,
         slab_group=group, cells=(c0, c1))
     return ShardedDiscretization(**fields)

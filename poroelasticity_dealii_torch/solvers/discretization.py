@@ -46,7 +46,7 @@ from ..mesh.core import FESpace, Mesh
 from ..mesh.qk import build_fe_space
 from ..ops import generic_apply as ga
 from ..ops import operators as ops
-from ..ops.geometry import geometry_factors
+from ..ops.geometry import corner_offsets, geometry_factors, map_tables
 from ..ops.quadrature import gauss_tensor
 from ..ops.shape import face_lattice_indices, shape_tables
 
@@ -74,6 +74,9 @@ class Discretization:
     jxw_u: torch.Tensor            # (Qu, E)
     jinv_p: torch.Tensor           # (Qp, dim, dim, E)
     jxw_p: torch.Tensor            # (Qp, E)
+    # X_n - X_0 per corner n >= 1 (ops/geometry.py::corner_offsets): the
+    # generic kernels rebuild the Q1 map's J^-1 and JxW from these
+    cell_offsets: torch.Tensor     # (2^dim - 1, dim, E)
     free_mask_u: torch.Tensor      # (n_udofs,) 1 free / 0 Dirichlet
     dirichlet_values: torch.Tensor  # (n_udofs,) 0 on free dofs
     f_neumann: torch.Tensor        # (n_udofs,) traction + body force
@@ -118,15 +121,20 @@ class Discretization:
             return None
         return ga.Q1Operands(self.conn_p, self.psi_p_at_pq,
                              self.dref_p_at_pq, self.jinv_p, self.jxw_p,
-                             self.plan_p)
+                             self.cell_offsets, self.plan_p)
 
     @functools.cached_property
     def elasticity_operands(self) -> Optional[ga.ElasticityOperands]:
         if not ga.takes_elasticity(self.dref_u_at_uq, self.dim):
             return None
+        # the Q1 map's gradients and the weights at the Q2 Gauss points
+        dn1, weights = (torch.as_tensor(a, dtype=self.dtype,
+                                        device=self.device)
+                        for a in map_tables(self.dim, 3))
         return ga.ElasticityOperands(self.conn_u, self.dref_u_at_uq,
-                                     self.jinv_u, self.jxw_u, self.lam,
-                                     self.mu, self.plan_u)
+                                     self.jinv_u, self.jxw_u,
+                                     self.cell_offsets, dn1, weights,
+                                     self.lam, self.mu, self.plan_u)
 
     def _q1(self, x, alpha, beta):
         """``alpha M x + beta L x`` through the Q1 kernel wrapper (which
@@ -436,6 +444,7 @@ def build_discretization(mesh: Mesh, data: InputData,
         dref_u_at_pq=dev(dref_u_at_pq),
         jinv_u=dev(jinv_u_cl), jxw_u=dev(jxw_u_cl),
         jinv_p=dev(jinv_p_cl), jxw_p=dev(jxw_p_cl),
+        cell_offsets=dev(corner_offsets(corner_xyz)),
         free_mask_u=dev(free_np), dirichlet_values=dev(dirichlet_np),
         f_neumann=dev(f_neumann), f_well=dev(f_well),
         free_mask_p=dev(free_p_np), dirichlet_values_p=dev(dirichlet_p_np),

@@ -17,15 +17,21 @@ compute on the card, and the plain-torch coupling and projection, on the
 distorted hex mesh of ``profile_step.generic_mesh``, float32 and
 float64), each beside its plain twin, its bound, the share of the twin's
 time spent in the plan scatter, the flat kernel at the same ``n`` and the
-kernels' CSR yardstick.  It needs a CUDA device; :func:`run` and
+kernels' CSR yardstick, and each kernel pass's device ms (the product
+pass and the plan sum, from ``torch.profiler``; calls back to back and
+calls after an L2 flush) and its least host enqueue per call.  To
+compare two trees on one card, run it in each checkout, parent, change,
+change, parent, in one command (an older checkout with this file copied
+into its ``tools/``).  It needs a CUDA device; :func:`run` and
 :func:`generic_run` also take the CPU for tests, with no times.
 
 :func:`library_csr` (structured grids), :func:`generic_library_csr`
-(generic meshes) and :func:`spmv_ms` give every kernel's library
-yardstick (``library_ms`` in ``chip_smoke.py``): one cuSPARSE CSR
-matrix-vector product over the assembled operator, as the reference
-deal.II program applies its assembled matrices.  The port never calls
-them.
+(generic meshes), :func:`spmv_ms` and :func:`spmm_ms` give every
+kernel's library yardstick (``library_ms`` in ``chip_smoke.py``): one
+cuSPARSE CSR matrix-vector product over the assembled operator (a
+matrix-matrix product over the lanes of a batched call), as the
+reference deal.II program applies its assembled matrices.  The port
+never calls them.
 """
 
 from __future__ import annotations
@@ -53,14 +59,16 @@ def nonzeros(a) -> int:
     return int((a > NONZERO_RTOL * a.max()).sum())
 
 
-def device_and_host_ms(fn, reps: int = 20, calls: int = 10) -> tuple:
-    """(median device ms, median host ms) of one ``fn()``.
+def device_and_host_ms(fn, reps: int = 20, calls: int = 10,
+                       host_stat=np.median) -> tuple:
+    """(median device ms, ``host_stat`` (median) host ms) of one ``fn()``.
 
     Each of ``reps`` windows enqueues ``calls`` back-to-back calls between
     two CUDA events behind a sleep kernel that holds the stream until the
     host has enqueued the whole window, so the device time excludes host
     launch overhead (one call's events would measure the slower of the
-    two); the host time is the enqueue time per call."""
+    two); the host time is the enqueue time per call (``np.min``: the
+    window least disturbed by other work on the host's cores)."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -81,7 +89,36 @@ def device_and_host_ms(fn, reps: int = 20, calls: int = 10) -> tuple:
         b.record()
         b.synchronize()
         dev.append(a.elapsed_time(b) / calls)
-    return float(np.median(dev)), float(np.median(host))
+    return float(np.median(dev)), float(host_stat(host))
+
+
+def kernel_passes_ms(fn, calls: int = 20, flush: bool = False) -> dict:
+    """{kernel: device ms per call} of every generic kernel launch that
+    ``fn`` makes (the product pass and the plan sum of a generic kernel
+    wrapper, by template instance), from ``torch.profiler`` over ``calls``
+    calls after one warm-up call: back to back, or with ``flush`` each
+    call after a read of :data:`FLUSH_BYTES` of other data, so that it
+    starts from an L2 that holds none of its operands."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    other = torch.ones(FLUSH_BYTES // 4, device="cuda") if flush else None
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            if flush:
+                other.sum()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = ev.cuda_time_total
+        m = re.search(r"(generic_\w+_kernel|plan_sum_kernel)<[^>]*>", ev.key)
+        if us > 0 and m:
+            out[m.group(0)] = out.get(m.group(0), 0.0) + us / 1e3 / calls
+    return out
 
 
 def cuda_time_ms(fn, reps: int = 20) -> float:
@@ -210,6 +247,14 @@ def spmv_ms(M: torch.Tensor, inp: torch.Tensor, reps: int = 20):
     return cuda_time_ms(lambda: torch.mv(M, xf), reps), torch.mv(M, xf)
 
 
+def spmm_ms(M: torch.Tensor, x: torch.Tensor, reps: int = 20):
+    """(median ms, (B, n) result) of the CSR product over the B lanes of
+    ``x`` (B, n) at once: ``M @ x.T`` (cuSPARSE SpMM, the dense operand
+    made (n, B) before the timing)."""
+    xt = x.T.contiguous()
+    return cuda_time_ms(lambda: M @ xt, reps), (M @ xt).T
+
+
 def _rel_err(got, ref) -> float:
     scale = ref.abs().max().item()
     return (got - ref).abs().max().item() / (scale if scale > 0 else 1.0)
@@ -293,13 +338,44 @@ GENERIC_KERNELS = {"mass": "generic_q1_apply", "laplace": "generic_q1_apply",
 # mass CG on its six strain lanes (solvers/fss.py) and the pressure
 # Jacobian on as many
 GENERIC_BATCHED = {"mass[6]": ("mass", 6), "pressure[6]": ("pressure", 6)}
-# the yardstick's operator of each kernel wrapper's timed call
-GENERIC_LIBRARY = {"pressure": "generic_q1_apply",
+# the yardstick's operator of each kernel apply (an assembled CSR matrix:
+# one cuSPARSE SpMV, or one SpMM over the lanes of a batched call)
+GENERIC_LIBRARY = {"mass": "generic_q1_apply", "pressure": "generic_q1_apply",
                    "elasticity": "generic_elasticity_apply"}
-# published H100 SXM peaks at 700 W: HBM3 bytes/s, float32 (outside the
-# tensor cores) and float64 (tensor cores) operations/s
+# bytes read between calls to empty the H100's 50 MB L2 of a call's
+# operands (kernel_passes_ms)
+FLUSH_BYTES = 256 << 20
+# published H100 SXM peaks at 700 W: HBM3 bytes/s; operations/s outside
+# the tensor cores (float32 67 TFLOP/s, float64 34) and float64 on them
+# (DMMA, the elasticity kernel's products)
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+PEAK_DMMA = 67e12
+# flop of the Q1 map rebuilt at one quadrature point from the corner
+# offsets, by dimension: J (2 per multiply-add over the 2^dim - 1
+# offsets), the cofactors, det, 1 / det, J^-1 and JxW
+MAP_FLOP = {2: 2 * 3 * 4 + 3 + 1 + 4 + 2 + 1,
+            3: 2 * 7 * 9 + 9 * 3 + 5 + 1 + 9 + 1}
+# multiply-adds of the float32 elasticity kernel's sum-factorised
+# gradients for one column (component of a cell), by dimension: per axis
+# stage, its lines of 3 times its outputs times 3 (3D 162 + 243 + 243, 2D
+# 54 + 54); the back products are as many
+SUMFAC_FMA = {2: 108, 3: 648}
+# flop of the Q1 kernel's tensor-product element (Q1Tensor and Gauss2 in
+# csrc/generic.cu) for one cell and lane, both threads of the cell, by
+# dimension and apply: the forward to the points (values for the mass,
+# reference gradients for the Laplacian), the pointwise weights (alpha det
+# J v; beta K r), the adjoint back to the nodes and the pair's node sums
+# (3D mass 2 x (36 + 8 + 32 + 4), Laplacian 2 x (64 + 72 + 76 + 4),
+# both 2 x (88 + 80 + 100 + 4))
+Q1_TENSOR_FLOP = {2: {"mass": 56, "laplace": 116, "pressure": 148},
+                  3: {"mass": 160, "laplace": 432, "pressure": 544}}
+# flop of that kernel's map for one cell, once for all lanes: J by the same
+# forward from the offsets, det J at the points and, with the Laplacian,
+# the cofactors, 1 / det and K = J^-1 J^-T / det (3D 2 x (192 + 4 x 14),
+# with the Laplacian 2 x (192 + 4 x 69))
+Q1_MAP_FLOP = {2: {"mass": 84, "laplace": 136},
+               3: {"mass": 496, "laplace": 936}}
 
 
 # per generic apply: its input ("p" or "u"), gather connectivity, scatter
@@ -363,21 +439,39 @@ def _generic_apply(d, name: str, coeffs=(1.0, 1.0)):
     raise ValueError(f"no generic apply {name!r}")
 
 
-def generic_work(d, name: str, lanes: int = 1) -> tuple:
-    """(bytes, flop) of one generic apply ``name`` on ``d``, on ``lanes``
-    input vectors at once.  Bytes: each input read once and the output
-    written once: the input vectors, the gather connectivity, the Jacobian
-    factors it reads, the shape tables, the scatter plan and the output
-    vectors.  Flop, per lane: the shape-table products (2 per
-    multiply-add), the pointwise geometric algebra and the scatter's
-    additions (one per cell entry); the pressure Jacobian's are
-    the mass's and the Laplacian's and one combining add per cell entry."""
+def generic_work(d, name: str, lanes: int = 1,
+                 geometry: str = "stored") -> tuple:
+    """(bytes, flop, DMMA flop) of one generic apply ``name`` on ``d``, on
+    ``lanes`` input vectors at once.  Bytes: each input read once and the
+    output written once: the input vectors, the gather connectivity, the
+    geometry it reads, the shape tables, the scatter plan and the output
+    vectors.  ``geometry`` "stored": the design that reads the Jacobian
+    factors and weights (the plain twins, the coupling and projection RHS,
+    the kernels' former design) and computes the element densely.  Flop,
+    per lane: the shape-table products (2 per multiply-add), the pointwise
+    geometric algebra and the scatter's additions (one per cell entry);
+    the pressure Jacobian's are the mass's and the Laplacian's and one
+    combining add per cell entry.  DMMA flop: the part a float64 kernel
+    runs on the tensor cores (the elasticity products).  "offsets": the
+    least work of the kernels' design, which reads the corner offsets
+    ((2^dim - 1) dim values a cell) and rebuilds the map from them: the
+    Q1 applies in tensor-product form (:data:`Q1_TENSOR_FLOP` a lane and
+    :data:`Q1_MAP_FLOP` once), the elasticity products sum-factorised in
+    both dtypes (:data:`SUMFAC_FMA`, all outside the tensor cores; the
+    float64 kernel's dense DMMA products do more) and its map rebuilt at
+    each point (:data:`MAP_FLOP`)."""
     from ..ops.operators import VOIGT_PAIRS
     dim, E = d.dim, d.n_cells
     Qu, Nu = d.dref_u_at_uq.shape[:2]
     Qp, Np = d.psi_p_at_pq.shape
     C = len(VOIGT_PAIRS[dim])
     inp, conn, plan, geo = GENERIC_OPERANDS[name]
+    item = d.jxw_p.element_size()
+    offsets = geometry == "offsets"
+    if offsets:
+        if name not in GENERIC_KERNELS:
+            raise ValueError(f"{name} reads stored geometry only")
+        geo = ()
     n_in = d.n_udofs if inp == "u" else d.n_pdofs
     n_out = {"mass": d.n_pdofs, "laplace": d.n_pdofs, "pressure": d.n_pdofs,
              "elasticity": d.n_udofs, "coupling": d.n_udofs,
@@ -386,14 +480,24 @@ def generic_work(d, name: str, lanes: int = 1) -> tuple:
         getattr(d, g) for g in geo] + [
         d.psi_p_at_pq, d.dref_p_at_pq, d.psi_p_at_uq, d.dref_u_at_uq,
         d.dref_u_at_pq]
-    nbytes = (n_in + n_out[name]) * lanes * d.jxw_p.element_size() + sum(
+    nbytes = (n_in + n_out[name]) * lanes * item + sum(
         t.numel() * t.element_size() for t in tensors)
+    if offsets:
+        nbytes += (2 ** dim - 1) * dim * E * item
+        if name == "elasticity":
+            products = 2 * 2 * dim * SUMFAC_FMA[dim] * E
+        else:
+            q1 = Q1_TENSOR_FLOP[dim][name] + Np
+            return nbytes, (q1 * lanes + Q1_MAP_FLOP[dim][
+                "mass" if name == "mass" else "laplace"]) * E, 0
+    else:
+        products = 4 * Qu * dim * Nu * dim * E
     m2 = dim * dim
     flop = {
         "mass": 4 * Qp * Np * E + Qp * E + Np * E,
         "laplace": (4 * Qp * dim * Np * E + 2 * Qp * dim * (2 * dim - 1) * E
                     + Qp * dim * E + Np * E),
-        "elasticity": (4 * Qu * dim * Nu * dim * E
+        "elasticity": (products
                        + 2 * Qu * m2 * (2 * dim - 1) * E
                        + (dim - 1) * Qu * E + 6 * Qu * m2 * E + Qu * E
                        + Nu * dim * E),
@@ -404,7 +508,24 @@ def generic_work(d, name: str, lanes: int = 1) -> tuple:
                        + Qp * C * E + 2 * Np * Qp * C * E + Np * C * E),
     }
     flop["pressure"] = flop["mass"] + flop["laplace"] + 2 * Np * E
-    return nbytes, flop[name] * lanes
+    total = flop[name] * lanes
+    if offsets:
+        return nbytes, total + MAP_FLOP[dim] * Qu * E, 0
+    dmma = products if name == "elasticity" and item == 8 else 0
+    return nbytes, total, dmma
+
+
+def generic_bound(d, name: str, lanes: int = 1,
+                  geometry: str = "stored") -> tuple:
+    """(ms, "bytes" or "operations") the card needs at least for
+    :func:`generic_work`: the larger of the bytes over the HBM rate and
+    the operations over their peaks (DMMA flop at :data:`PEAK_DMMA`, the
+    rest at :data:`PEAK_FLOPS` of ``d``'s dtype)."""
+    nbytes, flop, dmma = generic_work(d, name, lanes, geometry)
+    t_bytes = nbytes / PEAK_BYTES
+    t_flop = dmma / PEAK_DMMA + (flop - dmma) / PEAK_FLOPS[d.jxw_p.dtype]
+    return max(t_bytes, t_flop) * 1e3, \
+        "bytes" if t_bytes >= t_flop else "operations"
 
 
 def _cast(d, dtype):
@@ -501,7 +622,8 @@ def generic_case(name: str):
                                  device="cpu")
         return dataclasses.replace(d, **{
             k: getattr(d, k)[..., :1].contiguous()
-            for k in ("jinv_u", "jxw_u", "jinv_p", "jxw_p")})
+            for k in ("jinv_u", "jxw_u", "jinv_p", "jxw_p",
+                      "cell_offsets")})
     if name in ("amr_2d", "amr_3d"):
         if name == "amr_2d":
             data = read_input_file(str(DECK_2D))
@@ -584,7 +706,8 @@ def ghost_window_pairs(dtype, device, seed: int = 4) -> list:
 
 
 def generic_run(n: int = 40, device="cuda", reps: int = 20,
-                deck=DECK, library: bool = True) -> list:
+                deck=DECK, library: bool = True,
+                passes: bool = False) -> list:
     """The six generic applies at ``n`` cells per axis on the distorted
     mesh, and the batched Q1 calls of :data:`GENERIC_BATCHED`, float32 and
     float64 (one float64 build, cast for float32), each applied twice to
@@ -594,11 +717,16 @@ def generic_run(n: int = 40, device="cuda", reps: int = 20,
     hand-written kernels on a CUDA device; coupling and projection are
     plain torch, their own twins); then timed on a CUDA device beside the
     plain twin, the twin's gather-and-product part and scatter alone, its
-    bound, the flat kernel K6 at the same ``n`` and, with ``library``, the
-    kernel's yardstick (:func:`generic_library_csr`: one cuSPARSE CSR SpMV
-    of the assembled operator, float64 assembled once, its values cast
-    for float32; one vector only).  Returns one record per (apply or
-    batched label, dtype)."""
+    bound (:func:`generic_bound`: the kernels' corner-offset design where
+    a kernel computes the apply, the stored-geometry design beside it),
+    the host enqueue per call, the flat kernel K6 at the same ``n`` and,
+    with ``library``, the kernel's yardstick (:func:`generic_library_csr`:
+    the assembled operator, float64 assembled once, its values cast for
+    float32; one cuSPARSE SpMV, or one SpMM over a batched call's lanes)
+    and, with ``passes``, each kernel pass's device ms
+    (:func:`kernel_passes_ms`, back to back and from an emptied L2) and
+    the least host enqueue per call over ``5 reps`` windows.  Returns one
+    record per (apply or batched label, dtype)."""
     from ..config import read_input_file
     from ..ops import comp_major as cm
     from ..ops import operators as ops
@@ -625,7 +753,8 @@ def generic_run(n: int = 40, device="cuda", reps: int = 20,
     if cuda and library:
         for name, kernel in GENERIC_LIBRARY.items():
             t0 = time.perf_counter()
-            csr[name] = generic_library_csr(d64, kernel, *coeffs)
+            csr[name] = generic_library_csr(
+                d64, kernel, *(coeffs if name == "pressure" else (1.0, 0.0)))
             torch.cuda.synchronize()
             csr[name + "_assembly_s"] = time.perf_counter() - t0
     out = []
@@ -652,9 +781,11 @@ def generic_run(n: int = 40, device="cuda", reps: int = 20,
             y1, y2 = fn(x), fn(x)
             launches = cm.launch_counts()
             ref = plain(x)
-            nbytes, flop = generic_work(d, name, lanes)
-            t_bytes = nbytes / PEAK_BYTES
-            t_flop = flop / PEAK_FLOPS[dtype]
+            nbytes, flop, _ = generic_work(d, name, lanes)
+            stored_ms, stored_by = generic_bound(d, name, lanes)
+            bound_ms, bound_by = generic_bound(
+                d, name, lanes, "offsets" if name in GENERIC_KERNELS
+                else "stored")
             rec = {"apply": label, "lanes": lanes, "n": n,
                    "dtype": str(dtype).split(".")[-1],
                    "cells": d.n_cells, "device": gpu, "kernel": kernel,
@@ -664,9 +795,15 @@ def generic_run(n: int = 40, device="cuda", reps: int = 20,
                    "max_abs_err": (y1 - ref).abs().max().item(),
                    "max_rel_err": _rel_err(y1, ref),
                    "bytes": nbytes, "flop": flop,
-                   "bound_ms": max(t_bytes, t_flop) * 1e3,
-                   "bound_by": "bytes" if t_bytes >= t_flop else "operations",
+                   # the kernel's design (corner offsets) where a kernel
+                   # computes the apply; the stored-geometry design beside
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "stored_bound_ms": stored_ms,
+                   "stored_bound_by": stored_by,
                    "scatter_valence": plan.table.shape[1]}
+            if name in GENERIC_KERNELS:
+                rec["bytes_offsets"] = generic_work(d, name, lanes,
+                                                    "offsets")[0]
             if name == "pressure":
                 rec["coefficients"] = list(coeffs)
             if cuda:
@@ -682,13 +819,20 @@ def generic_run(n: int = 40, device="cuda", reps: int = 20,
                         lambda: ops.scatter_sum(ye, plan), reps)
                     del ye
                 rec["times_bound"] = ms / rec["bound_ms"]
-                if lanes == 1 and name in csr:
+                if passes and kernel:
+                    rec["host_min_ms"] = device_and_host_ms(
+                        lambda: fn(x), 5 * reps, host_stat=np.min)[1]
+                    rec["passes_ms"] = kernel_passes_ms(lambda: fn(x), reps)
+                    rec["passes_cold_ms"] = kernel_passes_ms(
+                        lambda: fn(x), reps, flush=True)
+                if name in csr:
                     M = csr[name] if dtype == torch.float64 else \
                         torch.sparse_csr_tensor(
                             csr[name].crow_indices(),
                             csr[name].col_indices(),
                             csr[name].values().to(dtype), csr[name].shape)
-                    rec["library_ms"], y_lib = spmv_ms(M, x, reps)
+                    rec["library_ms"], y_lib = (spmv_ms if lanes == 1
+                                                else spmm_ms)(M, x, reps)
                     rec["library_rel_err_vs_kernel"] = _rel_err(y_lib, y1)
                     rec["library_nnz"] = M._nnz()
                     rec["library_assembly_s"] = csr[name + "_assembly_s"]
@@ -705,7 +849,7 @@ def main(argv=None) -> int:
         raise SystemExit("apply_bench: needs a CUDA device "
                          "(torch.cuda.is_available() is False)")
     if argv[1:] == ["generic"]:
-        for rec in generic_run(n):
+        for rec in generic_run(n, passes=True):
             print(json.dumps(rec), flush=True)
         return 0
     rec = run(n)

@@ -18,6 +18,10 @@ each step's (FSS, pressure, CG) counts and ``pressure_error``; the cases
 
 * ``generic40``: the distorted 40^3 bench configuration, 3 steps through
   ``FixedStressSolver``, each step's ms too (3^3 on the CPU);
+* ``generic40_first``: its first step alone under ``cProfile`` (the
+  functions that took the most host time, cumulative and own), then the
+  first step of a second solver on the same discretization, unprofiled:
+  what the first step pays once a process, once a solver and every time;
 * ``irregular3d``: ``configs/irregular_3d.msh`` with the 3D deck, 6 steps,
   mechanics tolerance 1e-10 relative;
 * ``irregular2d``, ``adaptive``: the decks ``configs/irregular_2d.data``
@@ -48,6 +52,7 @@ import time
 
 F64_CASES = ("generic40", "irregular3d", "irregular2d", "adaptive",
              "adaptive_relative")
+PROFILE_TOP = 25      # entries of each cProfile ranking printed
 
 
 def main(tree: str) -> None:
@@ -90,6 +95,30 @@ def _steps(disc, data, n, dev):
     return out
 
 
+def _first_step(disc, data, tree: str) -> dict:
+    """The first step of a new solver on ``disc`` under ``cProfile`` and,
+    after it, the first step of a second new solver, unprofiled."""
+    import cProfile
+    import pstats
+
+    import torch
+    prof = cProfile.Profile()
+    prof.enable()
+    first = _steps(disc, data, 1, "cuda")[0]
+    prof.disable()
+    torch.cuda.synchronize()
+    stats = pstats.Stats(prof).stats
+
+    def top(key: int) -> list:
+        rows = sorted(stats.items(), key=lambda kv: -kv[1][key])
+        return [[f"{f.replace(tree, '.')}:{line}({fn})", nc, tt * 1e3,
+                 ct * 1e3]
+                for (f, line, fn), (_, nc, tt, ct, _) in rows[:PROFILE_TOP]]
+    return {"profiled_step": first, "by_cumulative_ms": top(3),
+            "by_own_ms": top(2),
+            "second_solver_step": _steps(disc, data, 1, "cuda")[0]}
+
+
 def _deck_steps(case, deck, dev, **changes):
     from poroelasticity_dealii_torch.config import read_input_file
     from poroelasticity_dealii_torch.models.runner import run_from_data
@@ -114,12 +143,21 @@ def f64(tree: str, dev: str, cases) -> None:
         generic_mesh
 
     relative = {"mech_cg_relative": True, "mech_cg_tol": 1e-10}
+    if dev == "cuda":
+        from poroelasticity_dealii_torch.ops import _cuda
+        _cuda.library()       # the kernel build stays out of the steps
     for case in cases:
         if case == "generic40":
             data = dataclasses.replace(bench_data(), dtype="float64")
             d = build_discretization(
                 generic_mesh(40 if dev == "cuda" else 3), data, device=dev)
             steps = _steps(d, data, 3, dev)
+        elif case == "generic40_first":
+            data = dataclasses.replace(bench_data(), dtype="float64")
+            d = build_discretization(generic_mesh(40), data, device=dev)
+            print("F64_FIRST_STEP " + json.dumps({
+                "tree": tree, **_first_step(d, data, tree)}), flush=True)
+            continue
         elif case == "irregular3d":
             data = dataclasses.replace(
                 read_input_file("configs/consolidation_3d.data"), **relative)
@@ -132,7 +170,8 @@ def f64(tree: str, dev: str, cases) -> None:
             steps = _deck_steps(case, "configs/golden_2d_adaptive.data", dev,
                                 **(relative if case != "adaptive" else {}))
         else:
-            raise SystemExit(f"no case {case!r}; cases: {F64_CASES}")
+            raise SystemExit(f"no case {case!r}; cases: {F64_CASES}, "
+                             "generic40_first")
         print("F64_COUNTS " + json.dumps({"tree": tree, "case": case,
                                           "device": dev, "steps": steps}),
               flush=True)

@@ -307,13 +307,21 @@ def test_every_copy_reaches_the_wrappers_with_its_own_operands(spies, name):
     assert spies == ["generic_q1_apply"] * 3 + ["generic_elasticity_apply"]
     q, e = c.q1_operands, c.elasticity_operands
     assert all(a is b for a, b in zip(
-        (q.conn, q.psi, q.dref, q.jinv, q.jxw, q.plan),
+        (q.conn, q.psi, q.dref, q.jinv, q.jxw, q.offsets, q.plan),
         (c.conn_p, c.psi_p_at_pq, c.dref_p_at_pq, c.jinv_p, c.jxw_p,
-         c.plan_p)))
+         c.cell_offsets, c.plan_p)))
     assert all(a is b for a, b in zip(
-        (e.conn, e.dref, e.jinv, e.jxw, e.plan),
-        (c.conn_u, c.dref_u_at_uq, c.jinv_u, c.jxw_u, c.plan_u)))
+        (e.conn, e.dref, e.jinv, e.jxw, e.offsets, e.plan),
+        (c.conn_u, c.dref_u_at_uq, c.jinv_u, c.jxw_u, c.cell_offsets,
+         c.plan_u)))
     assert (e.lam, e.mu) == (c.lam, c.mu)
+    # the map's tables at each kernel's own Gauss points, in the copy's
+    # dtype and on its device
+    dim = c.dim
+    assert tuple(e.dn1.shape) == (3 ** dim, 2 ** dim, dim)
+    assert tuple(e.weights.shape) == (3 ** dim,)
+    for t in (e.dn1, e.weights):
+        assert t.dtype == c.dtype and t.device == c.device
     assert c.q1_operands is q        # made once per instance
 
 
@@ -338,15 +346,17 @@ def test_wrappers_raise_off_the_cpu_without_a_kernel():
     behind the wrapper's back."""
     _, d = _small()
     m = lambda t: t.to("meta")  # noqa: E731
+    e = d.elasticity_operands
     with pytest.raises(ValueError, match="no kernel"):
         ga.generic_q1_apply(m(torch.zeros(d.n_pdofs)), ga.Q1Operands(
             m(d.conn_p), m(d.psi_p_at_pq), m(d.dref_p_at_pq), m(d.jinv_p),
-            m(d.jxw_p), d.plan_p), 1.0, 0.0)
+            m(d.jxw_p), m(d.cell_offsets), d.plan_p), 1.0, 0.0)
     with pytest.raises(ValueError, match="no kernel"):
         ga.generic_elasticity_apply(
             m(torch.zeros(d.n_udofs)), ga.ElasticityOperands(
                 m(d.conn_u), m(d.dref_u_at_uq), m(d.jinv_u), m(d.jxw_u),
-                d.lam, d.mu, d.plan_u))
+                m(d.cell_offsets), m(e.dn1), m(e.weights), d.lam, d.mu,
+                d.plan_u))
     # a CPU discretization's operands have no kernel to be checked for
     with pytest.raises(ValueError, match="no kernel"):
         d.q1_operands.checked
@@ -398,18 +408,67 @@ def test_elasticity_tile_and_smem_match_source(dtype, ctype, dim):
     # the tile fits the card: the opt-in per block and the blocks per SM
     assert env["kSmemBytes"] <= 232_448
     assert t["blocks_per_sm"] * (env["kSmemBytes"] + 1024) <= 233_472
-    # float32 register tiles of 4 x 4 and float4 rows; float64 whole
-    # 16-row DMMA tiles and 8-deep K steps; the padded rows cover the data
+    # float64 whole 16-row DMMA tiles and 8-deep K steps, the padded rows
+    # covering the data; float32 the sum factorisation's rows: its
+    # intermediates (B and G halves of every line of 3 nodes), R and U
     assert env["kCols"] % 16 == 0 and env["kLDX"] % 4 == 0
-    assert env["kLD1"] % 4 == 0 and env["kLD1T"] % 4 == 0
+    assert env["kLD1"] % 4 == 0
     assert env["kQMPad"] % 8 == 0 and env["kNPad"] % 8 == 0
-    assert env["kQM"] <= env["kM1"] <= env["kQMPad"]
-    assert env["kNQ"] <= env["kM2"] <= env["kNPad"]
-    for k in ("kD1T", "kU", "kR"):
+    for k in ("kD1", "kU", "kR", "kUStage"):
         assert env[k] % 4 == 0, k
+    if item == 4:
+        assert (env["kXRows"], env["kRRows"], env["kURows"]) == \
+            (2 * env["kNQ"], env["kQM"], env["kNQ"])
+        assert env["kD1"] == env["kR"]             # no D1 in float32
+    else:
+        assert (env["kXRows"], env["kRRows"], env["kURows"]) == \
+            (0, env["kQMPad"], env["kNPad"])
     # DMMA fragment loads at two wavefronts (strides mod 16 doubles)
     assert env["kLD1"] % 16 in (4, 12) and env["kLDX"] % 16 in (4, 8, 12)
     assert env["kNQ"] == 3 ** dim and env["kNV"] == dim * 3 ** dim
+    # the ring: two stages at least; value regions, then the 128-byte
+    # aligned TMA boxes and the stages' mbarriers, in that order
+    assert env["kStages"] == ga.ELASTICITY_STAGES >= 2
+    assert env["kValues"] * item <= env["kConnAt"]
+    for k in ("kConnAt", "kOffAt", "kBarAt", "kConnStage", "kOffStage"):
+        assert env[k] % 128 == 0, k
+    assert env["kConnStage"] >= env["kConnBox"]
+    assert env["kOffStage"] >= env["kOffBox"]
+    # the tensor maps' boxes: (rows, cells), each side <= 256, whole
+    # 16-byte rows, and the bytes each stage's barrier expects
+    (crows, ccells), (orows, ocells) = ga.tma_boxes("elasticity", dtype, dim)
+    assert ccells == ocells == t["cells"]
+    assert (crows, orows) == (env["kNV"], env["kOffRows"])
+    assert env["kConnBox"] == crows * ccells * 4
+    assert env["kOffBox"] == orows * ocells * item
+    for rows, cells, size in ((crows, ccells, 4), (orows, ocells, item)):
+        assert 1 <= rows <= 256 and 1 <= cells <= 256
+        assert cells * size % 16 == 0
+
+
+@pytest.mark.parametrize("dtype,ctype,dim", [
+    (torch.float32, "float", 3), (torch.float64, "double", 3),
+    (torch.float32, "float", 2), (torch.float64, "double", 2)])
+def test_q1_block_and_boxes_match_source(dtype, ctype, dim):
+    text = _generic_source()
+    shape = re.search(r"struct Q1Shape \{(.*?)\n\};", text, re.S).group(1)
+    item = 4 if dtype == torch.float32 else 8
+    env = _constexpr_env(shape, {
+        "DIM": dim, "ITEM": item, "kQ1Cells": _source_int("kQ1Cells"),
+        "kQ1Group": _source_int("kQ1Group")})
+    assert env["kThreads"] == ga.q1_threads(dim) <= 1024
+    assert env["kThreads"] % 32 == 0 and ga.Q1_GROUP == 2   # lane pairs
+    assert env["kNP"] == 2 ** dim
+    (crows, ccells), (orows, ocells) = ga.tma_boxes("q1", dtype, dim)
+    assert ccells == ocells == ga.Q1_CELLS == 32       # a warp's lanes
+    assert env["kConnBox"] == crows * ccells * 4 == 2 ** dim * 32 * 4
+    assert env["kOffBox"] == orows * ocells * item
+    assert orows == env["kOffRows"] == (2 ** dim - 1) * dim
+    for rows, cells, size in ((crows, ccells, 4), (orows, ocells, item)):
+        assert 1 <= rows <= 256 and cells * size % 16 == 0
+    # the static shared memory of a block (the boxes and the barrier)
+    # stays under the 48 KB limit
+    assert env["kConnBox"] + env["kOffBox"] + 8 <= 48 * 1024
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -425,7 +484,7 @@ def test_launch_plans(dtype, dim, cells):
     assert p.smem_bytes == ga.elasticity_smem_bytes(dtype, dim)
     assert p.scratch_numel == dim * 3 ** dim * cells < 2 ** 31
     q = ga.q1_plan(cells, dim, 6)
-    assert q.grid * ga.Q1_THREADS >= cells > (q.grid - 1) * ga.Q1_THREADS \
+    assert q.grid * ga.Q1_CELLS >= cells > (q.grid - 1) * ga.Q1_CELLS \
         or cells == q.grid == 0
     assert q.scratch_numel == 6 * 2 ** dim * cells and q.smem_bytes == 0
 
@@ -437,7 +496,10 @@ def _source_int(name: str) -> int:
 
 def test_constants_match_source():
     assert _source_int("kMaxLanes") == ga.MAX_LANES
-    assert _source_int("kQ1Threads") == ga.Q1_THREADS
+    assert _source_int("kQ1Cells") == ga.Q1_CELLS
+    assert _source_int("kQ1Group") == ga.Q1_GROUP
+    assert _source_int("kMapBytes") == _cuda.MAP_BYTES
+    assert ga.CELL_ALIGN * 4 % 16 == 0         # int32 and float32 rows
 
 
 def test_entry_point_parameter_types_match_signatures():
@@ -455,6 +517,12 @@ def test_entry_point_parameter_types_match_signatures():
                 words = p.replace("const ", "").split()
                 types.append(kinds["void*" if "*" in p else words[0]])
             assert types == list(_cuda._SIGNATURES[name]), (name, suffix)
+    name, argtypes = _cuda.MAP_SIGNATURE
+    params = re.search(r"int %s\(([^)]*)\)" % name, block).group(1)
+    types = [kinds["void*" if "*" in p else
+                   p.replace("const ", "").split()[0]]
+             for p in params.split(",")]
+    assert types == list(argtypes)
 
 
 def test_no_atomics_in_sources_or_headers():
@@ -485,7 +553,8 @@ def test_no_tensor_core_product_in_a_float32_path():
     ("plan_sum_kernel<float, 1>", "generic_elasticity_apply"),
     ("void (anonymous namespace)::plan_sum_kernel<double, 1>(double const*, "
      "int const*, double*, int, int, int, int)", "generic_elasticity_apply"),
-    ("generic_q1_products_kernel<double, 3>", "generic_q1_apply"),
+    ("generic_q1_products_kernel<double, 3, 6, true>", "generic_q1_apply"),
+    ("generic_q1_products_kernel<float, 2, 1, false>", "generic_q1_apply"),
     ("plan_sum_kernel<float, 6>", "generic_q1_apply"),
     ("plan_sum_kernel<double, 6>", "generic_q1_apply"),
 ])
@@ -571,8 +640,8 @@ def test_wrappers_refuse_what_they_do_not_take(dev):
     with pytest.raises(TypeError, match="dtype"):
         ga.generic_elasticity_apply(u.contiguous().float(),
                                     d.elasticity_operands)
-    bad = ga.Q1Operands(d.conn_p, d.psi_p_at_pq, d.dref_p_at_pq,
-                        d.jinv_p[..., :-1].contiguous(), d.jxw_p, d.plan_p)
+    bad = dataclasses.replace(
+        d.q1_operands, offsets=d.cell_offsets[..., :-1].contiguous())
     with pytest.raises(ValueError, match="geometry has"):
         ga.generic_q1_apply(x[0], bad, 1.0, 0.0)
 
