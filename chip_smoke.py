@@ -2550,6 +2550,9 @@ CKPT_EVERY = 2               # checkpoint every 2, resumed from step 2
 RESUME_SKIP_TOL = 1e-4       # resumed vs uninterrupted p, u, strains, rel
 #                              to max |field|, only when the uninterrupted
 #                              run took the bitwise skip the resume cannot
+# both checkpoint backends (TPU / Checkpoint format = npz | orbax) on the
+# same 4 steps with a checkpoint every step, in turns
+CKPT_BACKEND_RUNS = ("npz", "orbax", "orbax", "npz")
 # Nondimensionalize at 40^3 float64, dimensional vs nondimensional runs at
 # the bench's relative mechanics tolerance and at 1e-10: FSS, pressure and
 # pressure CG counts equal and p within tests/test_scaling.py's 1e-10; the
@@ -2675,6 +2678,146 @@ def checkpoint_resume_check(dev, tmp: Path) -> None:
                                  "checkpointed runs")
     if modes[cm.FREE] <= 0 or modes[cm.CONSTRAINED] <= 0:
         raise AssertionError(f"K1 / K2 not launched: {dict(modes)}")
+    checkpoint_backends_check(dev, tmp, full_log.steps)
+
+
+class TimedLog(RecordingLog):
+    """A :class:`RecordingLog` that also keeps the host clock at each
+    step's record: consecutive records are a step's period, the save of the
+    step before included (the runner logs, then saves, then steps)."""
+
+    def __init__(self):
+        super().__init__()
+        self.clock = []
+
+    def log_step(self, step, t, stats, wall_s, extra=None):
+        self.clock.append(time.perf_counter())
+        super().log_step(step, t, stats, wall_s, extra)
+
+
+@contextlib.contextmanager
+def _timed(module, name, into: list):
+    """Append the ms of every call of ``module.name`` to ``into`` (on
+    whichever thread makes it) while the block runs."""
+    fn = getattr(module, name)
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            into.append((time.perf_counter() - t0) * 1e3)
+
+    setattr(module, name, timed)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def _ckpt_files_equal(a: Path, b: Path) -> bool:
+    with np.load(a) as za, np.load(b) as zb:
+        return za.files == zb.files and all(
+            za[k].dtype == zb[k].dtype and np.array_equal(za[k], zb[k])
+            for k in za.files)
+
+
+def checkpoint_backends_check(dev, tmp: Path, want_steps: list) -> None:
+    """The 40^3 float32 rows run of :func:`checkpoint_resume_check` with a
+    checkpoint every step through each backend, in turns
+    (:data:`CKPT_BACKEND_RUNS`): each step's wall (the run log's, which
+    ends at the step's synchronize) and period (record to record: the step
+    and the save before it), the ms each save blocked the host, the
+    writer's ms (``orbax``: the writer thread's commit, the copy's wait
+    included; both: the file write) and the bytes; every directory
+    checkpoint equals the ``.npz`` of its step and turn bit for bit, the
+    runs' counts equal ``want_steps``'; a fresh runner resumed from the
+    directory ``ckpt-000002`` reproduces steps 3-4 as the ``.npz`` resume
+    does."""
+    from poroelasticity_dealii_torch.models import runner as runner_mod
+    from poroelasticity_dealii_torch.utils import checkpoint as ckpt_mod
+    runs, states = [], {}
+    for turn, fmt in enumerate(CKPT_BACKEND_RUNS):
+        name = f"{fmt}{turn}"
+        data = _options_data(tmp, name, checkpoint_every=1,
+                             checkpoint_format=fmt)
+        log, blocked, commits, writes = TimedLog(), [], [], []
+        r = SimulationRunner(data, device=dev, logger=log)
+        with _timed(runner_mod, "save_step_checkpoint", blocked), \
+                _timed(ckpt_mod, "_commit", commits), \
+                _timed(ckpt_mod, "_write_npz", writes):
+            t0 = time.perf_counter()
+            states[name] = r.run()
+            run_s = time.perf_counter() - t0
+        del r
+        root = Path(data.checkpoint_directory)
+        files = [root / (f"ckpt-{s:06d}.npz" if fmt == "npz"
+                         else f"ckpt-{s:06d}/state.npz")
+                 for s in range(1, N_OPTIONS_STEPS + 1)]
+        runs.append({
+            "format": fmt, "run_s": run_s,
+            "wall_ms": [st["wall_ms"] for st in log.steps],
+            "period_ms": [(b - a) * 1e3 for a, b in zip(log.clock,
+                                                       log.clock[1:])],
+            "save_blocked_ms": blocked, "writer_ms": commits,
+            "write_ms": writes, "bytes": [f.stat().st_size for f in files],
+            "counts": [st["counts"] for st in log.steps],
+            "dir": str(root)})
+        gc.collect()
+    # a resume from the first orbax turn's directory at step 2
+    src = next(r for r in runs if r["format"] == "orbax")
+    res_log = RecordingLog()
+    resumed = SimulationRunner(_options_data(tmp, "resumed_dir"), device=dev,
+                               logger=res_log)
+    st_res = resumed.run(resume_from=str(Path(src["dir"]) / "ckpt-000002"))
+    del resumed
+    st_src = states[f"orbax{CKPT_BACKEND_RUNS.index('orbax')}"]
+    tail = want_steps[CKPT_EVERY:]
+    skip = tail[0]["counts"][3] == 0 and res_log.steps[0]["counts"][3] > 0
+    gaps = {k: _field_gap(getattr(st_res, k), getattr(st_src, k))
+            for k in ("p", "u", "strains")}
+    bitwise = {k: torch.equal(getattr(st_res, k), getattr(st_src, k))
+               for k in ("p", "u", "strains")}
+    equal = {}
+    for npz, orb in ((0, 1), (3, 2)):
+        equal[f"{npz}/{orb}"] = [_ckpt_files_equal(
+            Path(runs[npz]["dir"]) / f"ckpt-{s:06d}.npz",
+            Path(runs[orb]["dir"]) / f"ckpt-{s:06d}" / "state.npz")
+            for s in range(1, N_OPTIONS_STEPS + 1)]
+    rec = {"checkpoint_backends": {
+        "runs": [{k: v for k, v in r.items() if k != "dir"} for r in runs],
+        "directory_equals_npz": equal,
+        "resumed_from_directory": res_log.steps, "bitwise": bitwise,
+        "max_rel_err": gaps, "uninterrupted_took_skip_at_resume": skip}}
+    print(json.dumps(rec), flush=True)
+    for fmt in ("npz", "orbax"):
+        mine = [r for r in runs if r["format"] == fmt]
+        later = [x for r in mine for x in r["save_blocked_ms"][1:]]
+        writer = [r["writer_ms" if fmt == "orbax" else "write_ms"]
+                  for r in mine]
+        print(f"checkpoint backend {fmt}: saves 2-{N_OPTIONS_STEPS} blocked "
+              f"the host {min(later):.3f}-{max(later):.3f} ms (first save "
+              f"{[r['save_blocked_ms'][0] for r in mine]}), step walls "
+              f"2-{N_OPTIONS_STEPS} {[r['wall_ms'][1:] for r in mine]} ms, "
+              f"periods {[r['period_ms'] for r in mine]} ms, writer "
+              f"{writer} ms, bytes {mine[0]['bytes'][0]}", flush=True)
+    for r in runs:
+        if r["counts"] != [st["counts"] for st in want_steps] or \
+                len(r["save_blocked_ms"]) != N_OPTIONS_STEPS or \
+                len(set(r["bytes"])) != 1:
+            raise AssertionError(f"checkpoint backends differ: {rec}")
+    if not all(all(v) for v in equal.values()):
+        raise AssertionError(f"directory checkpoints differ from the .npz "
+                             f"ones: {equal}")
+    if [s["step"] for s in res_log.steps] != [s["step"] for s in tail]:
+        raise AssertionError(f"resumed run's steps differ: {rec}")
+    if skip:
+        if not all(g <= RESUME_SKIP_TOL for g in gaps.values()):
+            raise AssertionError(f"resumed run differs: {rec}")
+    elif [s["counts"] for s in tail] != \
+            [s["counts"] for s in res_log.steps] or not all(bitwise.values()):
+        raise AssertionError(f"the resume from the directory differs from "
+                             f"the uninterrupted run: {rec}")
 
 
 def nondimensional_check(dev, tmp: Path) -> None:
@@ -2770,22 +2913,31 @@ def debug_nans_check(dev, tmp: Path) -> None:
 
 
 def amr_resume_check(dev, tmp: Path) -> None:
+    """:func:`amr_resume_once` with each checkpoint format."""
+    for fmt in ("npz", "orbax"):
+        amr_resume_once(dev, tmp, fmt)
+
+
+def amr_resume_once(dev, tmp: Path, fmt: str) -> None:
     """The golden adaptive deck (float64, levels 4 -> 6, a remesh before
-    every 5th step) for 8 steps with a checkpoint every 6, and a fresh
-    runner resumed from ``ckpt-000006.npz`` (after the first remesh): the
-    forest's leaves equal, p within 1e-12 and eps_v within 1e-10 relative
-    (JAX's tests/test_amr.py::test_amr_checkpoint_resume)."""
+    every 5th step) for 8 steps with a checkpoint every 6 in format
+    ``fmt``, and a fresh runner resumed from ``ckpt-000006.npz`` (``orbax``:
+    the directory ``ckpt-000006``; after the first remesh): the forest's
+    leaves equal, p within 1e-12 and eps_v within 1e-10 relative (JAX's
+    tests/test_amr.py::test_amr_checkpoint_resume), and whether every field
+    is bitwise equal."""
     from poroelasticity_dealii_torch.amr.driver import AMRSimulationRunner
     from poroelasticity_dealii_torch.config import read_input_file
     data = dataclasses.replace(
         read_input_file(str(AMR_GOLDEN_DECK)), t_max=480.0,
-        output_vtk=False, checkpoint_every=6,
-        checkpoint_directory=str(tmp / "ckpt_amr"))
+        output_vtk=False, checkpoint_every=6, checkpoint_format=fmt,
+        checkpoint_directory=str(tmp / f"ckpt_amr_{fmt}"))
     full = AMRSimulationRunner(data, device=dev)
     st_full, hist = full.run()
     res = AMRSimulationRunner(data, device=dev)
-    st_res, res_hist = res.run(
-        resume_from=str(tmp / "ckpt_amr" / "ckpt-000006.npz"))
+    st_res, res_hist = res.run(resume_from=str(
+        tmp / f"ckpt_amr_{fmt}"
+        / ("ckpt-000006.npz" if fmt == "npz" else "ckpt-000006")))
     p_gap = float(np.max(np.abs(st_res.p.cpu().numpy()
                                 - st_full.p.cpu().numpy())
                          / np.abs(st_full.p.cpu().numpy())))
@@ -2793,13 +2945,15 @@ def amr_resume_check(dev, tmp: Path) -> None:
     eps_ok = bool(np.all(np.abs(e_r - e_f)
                          <= AMR_RESUME_EPS_RTOL * np.abs(e_f)))
     rec = {"amr_resume": {
-        "cells": [h["n_cells"] for h in hist],
+        "format": fmt, "cells": [h["n_cells"] for h in hist],
         "resumed_steps": [h["step"] for h in res_hist],
         "leaves_equal": res.forest.leaves == full.forest.leaves,
         "counts": [[(h["fss"], h["press"]) for h in hist[6:]],
                    [(h["fss"], h["press"]) for h in res_hist]],
         "p_max_rel_err": p_gap, "p_rtol": AMR_RESUME_P_RTOL,
-        "eps_v_within_rtol": eps_ok}}
+        "eps_v_within_rtol": eps_ok,
+        "bitwise": {k: torch.equal(getattr(st_res, k), getattr(st_full, k))
+                    for k in ("p", "u", "eps_v", "eps_v0", "strains")}}}
     print(json.dumps(rec), flush=True)
     if not (rec["amr_resume"]["leaves_equal"] and eps_ok
             and p_gap <= AMR_RESUME_P_RTOL

@@ -15,8 +15,9 @@ discretization and state go to the device in one move each.  The old
 solver's captured CUDA graphs and their memory pool are released before
 the new solver is built, so device memory follows the current mesh.
 
-Checkpoints (``TPU / Checkpoint every``) carry the real-sized fields and
-the forest, so a run resumes on its refined mesh
+Checkpoints (``TPU / Checkpoint every``, either ``TPU / Checkpoint
+format``) carry the real-sized fields and the forest, so a run resumes on
+its refined mesh
 (``run(resume_from=...)``); a step whose FSS residual is not finite is
 logged and the run goes on, as in the reference's adaptive driver.
 
@@ -47,8 +48,9 @@ from ..ops.operators import VOIGT_PAIRS
 from ..solvers.discretization import build_discretization
 from ..solvers.fss import (FixedStressSolver, State, StepStats,
                            numbered_steps)
-from ..utils.checkpoint import (load_checkpoint, load_checkpoint_forest,
-                                save_checkpoint)
+from ..utils.checkpoint import (load_checkpoint_any,
+                                load_checkpoint_forest_any,
+                                save_step_checkpoint, wait_for_checkpoints)
 from .bucketing import pad_amr_discretization, pad_state, real_sizes, \
     slice_state
 from .constraints import (build_hanging_constraints,
@@ -140,13 +142,12 @@ class AMRSimulationRunner:
                  run_log: bool = False):
         """``run_log``: with no ``logger``, write ``run_log.jsonl`` in the
         deck's output directory (rank 0 of a sharded run only)."""
-        from ..models.runner import _check_supported, _slab_group
+        from ..models.runner import _slab_group
         if data.sharding not in ("none", "psum"):
             raise NotImplementedError(
                 f"'TPU / Sharding = {data.sharding}' with AMR — only 'psum' "
                 "supports hanging-node constraints (ghost/gspmd/production "
                 "require conforming/structured meshes)")
-        _check_supported(data)
         if data.dim not in (2, 3):
             raise NotImplementedError("AMR needs dim 2 or 3")
         self._fused = data.steps_per_dispatch > 1
@@ -329,14 +330,19 @@ class AMRSimulationRunner:
         VTK output or checkpoints) the steps between remesh points run in
         blocks of up to K through
         :meth:`..solvers.fss.FixedStressSolver.multi_step`.
-        ``resume_from``: an ``.npz`` checkpoint (of either package) to
-        continue from, on its persisted forest.
+        ``resume_from``: a checkpoint to continue from, on its persisted
+        forest (an ``.npz`` file of either package, or a checkpoint
+        directory of this one).  An asynchronous checkpoint is on disk
+        when ``run`` returns or raises.
         Returns ``(state, history)``: the real-sized state and one record
         per step (mesh sizes, counts, residual, wall seconds)."""
         history = []
-        for kind, state, info in self.steps(n_steps, resume_from):
-            if kind == "after":
-                history.extend(rec for rec, _ in info)
+        try:
+            for kind, state, info in self.steps(n_steps, resume_from):
+                if kind == "after":
+                    history.extend(rec for rec, _ in info)
+        finally:
+            wait_for_checkpoints()
         if self.logger:
             self.logger.close()
         if self._own_group:
@@ -358,12 +364,13 @@ class AMRSimulationRunner:
         (bucket-padded) state."""
         data = self.data
         if resume_from:
-            forest = load_checkpoint_forest(resume_from)
+            forest = load_checkpoint_forest_any(resume_from)
             if forest is not None:
                 self.forest = forest
                 self._rebuild()
-            state, t, step = load_checkpoint(resume_from, self.disc.dtype,
-                                             self.device)
+            state, t, step = load_checkpoint_any(resume_from,
+                                                 self.disc.dtype,
+                                                 self.device)
             state = self._padded_state(state)
         else:
             state = self.solver.initial_state()
@@ -430,8 +437,8 @@ class AMRSimulationRunner:
             if every and step % every == 0 and self.is_root:
                 # real-sized fields: mesh-portable and bucketing-agnostic
                 # (a resume re-pads for its own buckets)
-                save_checkpoint(os.path.join(data.checkpoint_directory,
-                                             f"ckpt-{step:06d}.npz"),
-                                self._real_state(state), t, step,
-                                forest=self.forest)
+                save_step_checkpoint(data.checkpoint_format,
+                                     data.checkpoint_directory,
+                                     self._real_state(state), t, step,
+                                     forest=self.forest)
             yield "after", state, records

@@ -1,14 +1,17 @@
 """Command-line interface of the port.
 
 ``python -m poroelasticity_dealii_torch run DECK [--device cuda|cpu] [--x64]
-[--resume CKPT.npz] [--profile LOGDIR]`` runs a 2D or 3D deck on its
+[--resume CKPT] [--profile LOGDIR]`` runs a 2D or 3D deck on its
 structured grid (e.g. ``configs/golden_2d.data``,
 ``configs/consolidation_3d.data``) or on its gmsh mesh (``Mesh / Mesh file``,
 e.g. ``configs/irregular_2d.data``, read relative to the working
 directory); a deck with ``TPU / AMR = true`` (e.g.
 ``configs/golden_2d_adaptive.data``) runs the adaptive loop, remeshing
-every ``TPU / Refine every`` steps.  ``--resume`` continues from an
-``.npz`` checkpoint (``TPU / Checkpoint every``; either package's), and
+every ``TPU / Refine every`` steps.  ``--resume`` continues from a
+checkpoint (``TPU / Checkpoint every``): an ``.npz`` file (either
+package's) or a ``ckpt-NNNNNN`` directory that ``TPU / Checkpoint format
+= orbax`` wrote (this package's asynchronous backend; a directory that
+orbax wrote for the JAX package is refused), and
 ``--profile`` writes a ``torch.profiler`` Chrome trace of the run into
 LOGDIR.  ``check DECK`` parses and prints it; ``devices`` lists the
 visible CUDA devices.
@@ -42,7 +45,8 @@ def main(argv=None) -> int:
     run_p.add_argument("--x64", action="store_true",
                        help="force float64 (overrides deck TPU/Dtype)")
     run_p.add_argument("--resume", default=None,
-                       help="checkpoint .npz to resume from")
+                       help="checkpoint to resume from: an .npz file or a "
+                       "ckpt-NNNNNN directory (Checkpoint format = orbax)")
     run_p.add_argument("--profile", default=None, metavar="LOGDIR",
                        help="write a torch.profiler trace of the run")
     chk = sub.add_parser("check", help="parse + validate a deck, print it")

@@ -10,13 +10,15 @@ for ``TPU / Sharding = psum | ghost | gspmd | production``
 steps time in blocks of up to ``TPU /
 Steps per dispatch`` steps
 (:meth:`..solvers.fss.FixedStressSolver.multi_step`), writes the JSONL run
-log, the VTK files and the ``.npz`` checkpoints (``TPU / Checkpoint every``,
-:mod:`..utils.checkpoint`) at sync points every ``TPU / Sync every`` steps,
-and stops on a diverged FSS residual.  ``run(resume_from=...)`` restarts
-from a checkpoint of either package.  :func:`run_from_data` applies ``TPU /
-Nondimensionalize`` (:mod:`.scaling`; the VTK output is rescaled to SI, the
-run log and checkpoints stay in solver units); ``TPU / Debug NaNs`` is the
-solver's (:class:`..solvers.fss.FixedStressSolver`).
+log, the VTK files and the checkpoints (``TPU / Checkpoint every``: ``.npz``
+files, or directories written asynchronously with ``Checkpoint format =
+orbax``; :mod:`..utils.checkpoint`) at sync points every ``TPU / Sync
+every`` steps, and stops on a diverged FSS residual.
+``run(resume_from=...)`` restarts from a checkpoint of either package.
+:func:`run_from_data` applies ``TPU / Nondimensionalize`` (:mod:`.scaling`;
+the VTK output is rescaled to SI, the run log and checkpoints stay in
+solver units); ``TPU / Debug NaNs`` is the solver's
+(:class:`..solvers.fss.FixedStressSolver`).
 
 The sharded run is one process per device in a ``torch.distributed``
 process group (``torchrun``, or a group the caller initialised): every
@@ -57,16 +59,10 @@ from ..solvers.discretization import build_discretization
 from ..solvers.fss import (FixedStressSolver, State, StepStats,
                            numbered_steps)
 from ..solvers.structured import build_grid_discretization
-from ..utils.checkpoint import load_checkpoint, refuse_orbax, save_checkpoint
+from ..utils.checkpoint import (load_checkpoint_any, save_step_checkpoint,
+                                wait_for_checkpoints)
 from ..utils.vtk_io import displacement_at_pressure_nodes, write_vtk
 from .scaling import Scales, nondimensionalize, scale_mesh
-
-
-def _check_supported(data: InputData) -> None:
-    """The one deck feature the port does not take on: ``Checkpoint
-    format = orbax`` (no orbax dependency)."""
-    if data.checkpoint_format == "orbax":
-        refuse_orbax("'Checkpoint format = orbax'")
 
 
 def _slab_group(data: InputData, device) -> tuple:
@@ -148,7 +144,6 @@ class SimulationRunner:
         nondimensionalized deck: a gmsh mesh is divided by its length
         scale, and the VTK output is rescaled back to SI (run logs and
         checkpoints stay in solver units)."""
-        _check_supported(data)
         if data.amr:
             raise ValueError("an adaptive deck (AMR = true) runs through "
                              "run_from_data or amr.driver."
@@ -208,15 +203,23 @@ class SimulationRunner:
         every ``Sync every`` steps (and after a block that ends at a read
         step).  Every rank of a sharded run flushes at the same steps.
 
-        ``resume_from``: an ``.npz`` checkpoint (of either package) whose
-        state, time and step the run continues from, on the solver's
+        ``resume_from``: a checkpoint whose state, time and step the run
+        continues from (an ``.npz`` file of either package, or a checkpoint
+        directory of this one), on the solver's
         dtype and device (under ghost each rank takes its chunk); no
         step-0 VTK is written then.  Returns the final state, whole on
-        every rank (under ghost in the renumbered order)."""
+        every rank (under ghost in the renumbered order); an asynchronous
+        checkpoint is on disk by then, also when the run raises."""
+        try:
+            return self._run(resume_from)
+        finally:
+            wait_for_checkpoints()
+
+    def _run(self, resume_from: Optional[str]) -> State:
         data = self.data
         if resume_from:
-            state, t, step = load_checkpoint(resume_from, self.disc.dtype,
-                                             self.disc.device)
+            state, t, step = load_checkpoint_any(resume_from, self.disc.dtype,
+                                                 self.disc.device)
             if self._ghost:
                 state = self.disc.owned_state(state)
         else:
@@ -236,9 +239,9 @@ class SimulationRunner:
                 if every and s % every == 0:
                     whole = self._whole(st)
                     if self.is_root:
-                        save_checkpoint(os.path.join(
-                            data.checkpoint_directory, f"ckpt-{s:06d}.npz"),
-                            whole, ts, s)
+                        save_step_checkpoint(data.checkpoint_format,
+                                             data.checkpoint_directory,
+                                             whole, ts, s)
                 if not np.isfinite(float(stats.pressure_error)):
                     raise FloatingPointError(f"FSS residual diverged at "
                                              f"step {s}")
@@ -297,8 +300,8 @@ class SimulationRunner:
 def run_from_data(data: InputData, resume_from: Optional[str] = None,
                   device="cuda") -> State:
     """Full simulation from a parsed deck, on the card unless ``device``
-    says ``"cpu"``, from the ``.npz`` checkpoint ``resume_from`` when
-    given: ``Nondimensionalize = true`` rescales the deck first
+    says ``"cpu"``, from the checkpoint ``resume_from`` (a file or a
+    directory) when given: ``Nondimensionalize = true`` rescales the deck first
     (:func:`.scaling.nondimensionalize`) and hands the runner its scales;
     then an adaptive deck runs through
     :class:`..amr.driver.AMRSimulationRunner` (its run log

@@ -97,8 +97,8 @@ def test_runner_writes_vtk_and_run_log(tmp_path):
 def test_runner_rejects_unported_features(field, value):
     # AMR runs (tests/test_torch_amr.py), with psum too, and ghost runs
     # (tests/test_torch_ghost.py); AMR with ghost keeps JAX's refusal, and
-    # a ghost deck with orbax checkpoints is refused for orbax, the one
-    # deck feature the port does not take on
+    # a ghost deck with orbax checkpoints (the port's asynchronous
+    # directories) builds: on one process unsharded, with the warning
     from poroelasticity_dealii_torch.amr.driver import AMRSimulationRunner
     data = dataclasses.replace(read_input_file(DECK),
                                **{"sharding": "ghost", field: value})
@@ -108,8 +108,10 @@ def test_runner_rejects_unported_features(field, value):
             AMRSimulationRunner(data, device="cpu")
         return
     data = dataclasses.replace(data, checkpoint_format="orbax")
-    with pytest.raises(NotImplementedError, match="no orbax dependency"):
-        SimulationRunner(data, device="cpu")
+    with pytest.warns(RuntimeWarning, match="single process"):
+        runner = SimulationRunner(data, device="cpu")
+    assert runner.data.checkpoint_format == "orbax"
+    assert type(runner.disc).__name__ == "Discretization"
 
 
 def test_unported_discretizations_raise():

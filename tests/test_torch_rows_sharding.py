@@ -11,8 +11,9 @@ a gloo process group, as the JAX tests shard over virtual CPU devices.
   carried into the 2-rank solver;
 * the collectives of 5 mechanics CG iterations: one 24-row band per
   point-to-point message, scalar all-reduces;
-* the runner: a sharded run from the deck, the one-process warning, and the
-  options and modes it refuses.
+* the runner: a sharded run from the deck, checkpoints of both formats and
+  the resume from them, the one-process warning, and the modes it
+  refuses.
 
 Ranks are spawned (``torch.multiprocessing``, a ``file://`` rendezvous in
 the test's temporary directory, so no TCP port) and joined with a timeout:
@@ -515,37 +516,42 @@ def test_runner_blocks_and_deferred_syncs_on_two_ranks(tmp_path):
 CKPT = {"checkpoint_every": 1, "output_vtk": False}
 
 
-def _runner_ckpt_worker(rank, world, out_root, resume_from):
-    """The production deck with a checkpoint every step, each rank with its
-    own output and checkpoint directories (only rank 0's may receive
-    files), from the start or resumed from ``resume_from``."""
+def _runner_ckpt_worker(rank, world, out_root, resume_from, fmt):
+    """The production deck with a checkpoint every step in format ``fmt``,
+    each rank with its own output and checkpoint directories (only rank
+    0's may receive files), from the start or resumed from
+    ``resume_from``."""
     data = _runner_data(f"{out_root}/rank{rank}", "production",
                         checkpoint_directory=f"{out_root}/rank{rank}/ckpt",
-                        **CKPT)
+                        checkpoint_format=fmt, **CKPT)
     state = run_from_data(data, resume_from=resume_from, device="cpu")
     return {"p": state.p, "u": state.u, "strains": state.strains}
 
 
-def test_runner_checkpoints_and_resumes_on_two_ranks(tmp_path):
-    """A checkpointed production run on two ranks: rank 0 alone writes the
-    whole state (the unsharded run's within 1e-9), and both ranks resumed
-    from its step-1 file give the uninterrupted run's state bit for
-    bit."""
+@pytest.mark.parametrize("fmt", ["npz", "orbax"])
+def test_runner_checkpoints_and_resumes_on_two_ranks(fmt, tmp_path):
+    """A checkpointed production run on two ranks, in each checkpoint
+    format (orbax: the port's asynchronous directories): rank 0 alone
+    writes the whole state (the unsharded run's within 1e-9), and both
+    ranks resumed from its step-1 checkpoint give the uninterrupted run's
+    state bit for bit."""
     full = _spawn(_runner_ckpt_worker, 2, tmp_path / "spawn_full",
-                  str(tmp_path / "full"), None)
+                  str(tmp_path / "full"), None, fmt)
     ckpt = tmp_path / "full" / "rank0" / "ckpt"
+    ext = ".npz" if fmt == "npz" else ""
     assert sorted(p.name for p in ckpt.iterdir()) == \
-        ["ckpt-000001.npz", "ckpt-000002.npz"]
+        [f"ckpt-000001{ext}", f"ckpt-000002{ext}"]
     assert not (tmp_path / "full" / "rank1").exists()
     ref = SimulationRunner(_runner_data(tmp_path / "unsharded", "none",
                                         output_vtk=False), device="cpu")
     ref_state = ref.run()
-    with np.load(ckpt / "ckpt-000002.npz") as z:
+    last = ckpt / f"ckpt-000002{ext}"
+    with np.load(last if fmt == "npz" else last / "state.npz") as z:
         assert z["u"].shape == tuple(ref_state.u.shape)
         assert _rel(z["u"], ref_state.u) <= 1e-8
         np.testing.assert_allclose(z["p"], ref_state.p, rtol=1e-9)
     res = _spawn(_runner_ckpt_worker, 2, tmp_path / "spawn_res",
-                 str(tmp_path / "res"), str(ckpt / "ckpt-000001.npz"))
+                 str(tmp_path / "res"), str(ckpt / f"ckpt-000001{ext}"), fmt)
     for a, b in zip(full, res):
         for k in ("p", "u", "strains"):
             assert torch.equal(a[k], b[k]), k
@@ -601,14 +607,6 @@ def test_runner_refuses_production_on_2d_deck(tmp_path):
 def test_runner_refuses_devices_other_than_world_size(tmp_path):
     with pytest.raises(ValueError, match="Devices = 2"):
         SimulationRunner(_runner_data(tmp_path, "production", n_devices=2),
-                         device="cpu")
-
-
-@pytest.mark.parametrize("option,item", [({"checkpoint_format": "orbax"},
-                                          "no orbax dependency")])
-def test_runner_refuses_unported_options(option, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=item):
-        SimulationRunner(_runner_data(tmp_path, "none", **option),
                          device="cpu")
 
 

@@ -7,7 +7,11 @@ float64 on the CPU (golden 2D at level 3, the 3D deck at n = 4 on rows):
   hold the same keys; a forest payload of each of the four forest types
   written by either package reads back in the other;
 * the port's adaptive resume reproduces the uninterrupted run (JAX's
-  ``tests/test_amr.py::test_amr_checkpoint_resume``), and checkpoint steps
+  ``tests/test_amr.py::test_amr_checkpoint_resume``); the adaptive cases
+  run with each ``Checkpoint format`` (``orbax``: the port's directory
+  checkpoints, JAX's orbax ones; JAX reads the port's ``state.npz``, and
+  the port reads JAX's checkpoint through the conversion its refusal
+  names, ``tests/test_torch_async_checkpoint.py``), and checkpoint steps
   end blocks of ``Steps per dispatch`` (JAX's ``tests/test_multi_step.py::
   test_runner_steps_per_dispatch_matches_default``);
 * ``Nondimensionalize``: JAX's ``tests/test_scaling.py`` on the port (a
@@ -21,7 +25,7 @@ float64 on the CPU (golden 2D at level 3, the 3D deck at n = 4 on rows):
   logged and the run goes on, in both packages;
 * ``utils/profiling.py`` (``PhaseTimer``'s report is JAX's; ``device_trace``
   writes a trace), the CLI's ``--resume`` and ``--profile``,
-  ``run_from_deck``, and orbax refused.
+  and ``run_from_deck``.
 """
 
 import dataclasses
@@ -199,33 +203,59 @@ def test_uniform_resume_equals_uninterrupted_run(uniform_runs):
 # checkpoints across the packages: the adaptive runner and the forests
 # ---------------------------------------------------------------------------
 
-def _adaptive(read, tmp, name):
+def _adaptive(read, tmp, name, fmt="npz"):
     """Golden 2D adaptive from level 3 (max 4), a remesh before every 2nd
-    step and a checkpoint every 2: ckpt-000002.npz holds the refined
-    mesh."""
+    step and a checkpoint every 2 in format ``fmt``: ckpt-000002(.npz)
+    holds the refined mesh."""
     return dataclasses.replace(_golden(read, tmp, name), amr=True,
-                               max_refinement_level=4, refine_every=2)
+                               max_refinement_level=4, refine_every=2,
+                               checkpoint_format=fmt)
 
 
-@pytest.fixture(scope="module")
-def adaptive_runs(tmp_path_factory):
+def _ckpt_name(step, fmt) -> str:
+    return f"ckpt-{step:06d}" + (".npz" if fmt == "npz" else "")
+
+
+def _adaptive_files(tmp, fmt) -> dict:
+    """{(writer, reader): the path ``reader`` resumes from}: the writer's
+    checkpoint at step 2; in the orbax format JAX reads the port's
+    ``state.npz``, and the port the ``.npz`` that JAX's loaders and
+    ``save_checkpoint`` make of JAX's orbax directory (the conversion the
+    port's refusal names)."""
+    files = {(w, r): str(tmp / w / _ckpt_name(2, fmt))
+             for w in ("jax", "port") for r in ("jax", "port")}
+    if fmt == "orbax":
+        files[("port", "jax")] += "/state.npz"
+        jdir = files[("jax", "port")]
+        st, t, step = jckpt.load_checkpoint_any(jdir)
+        jckpt.save_checkpoint(str(tmp / "jax_converted.npz"), st, t, step,
+                              forest=jckpt.load_checkpoint_forest_any(jdir))
+        files[("jax", "port")] = str(tmp / "jax_converted.npz")
+    return files
+
+
+@pytest.fixture(scope="module", params=["npz", "orbax"])
+def adaptive_runs(request, tmp_path_factory):
     """Two steps of each package's adaptive run (one remesh, the checkpoint
-    after it), then each package's step 3 from both packages' files:
-    {(writer, reader): (forest leaves, records, fields)}."""
-    tmp = tmp_path_factory.mktemp("adaptive")
-    runners = {"jax": JAMRRunner(_adaptive(jread, tmp, "jax")),
+    after it) in each checkpoint format, then each package's step 3 from
+    both packages' checkpoints: {(writer, reader): (forest leaves, records,
+    fields)}."""
+    fmt = request.param
+    tmp = tmp_path_factory.mktemp(f"adaptive_{fmt}")
+    runners = {"jax": JAMRRunner(_adaptive(jread, tmp, "jax", fmt)),
                "port": AMRSimulationRunner(
-                   _adaptive(read_input_file, tmp, "port"), device="cpu")}
+                   _adaptive(read_input_file, tmp, "port", fmt),
+                   device="cpu")}
     for r in runners.values():
         r.run(n_steps=2)
+    files = _adaptive_files(tmp, fmt)
     out = {}
     for writer in runners:
-        ckpt = str(tmp / writer / "ckpt-000002.npz")
         for name, r in runners.items():
-            st, hist = r.run(n_steps=3, resume_from=ckpt)
+            st, hist = r.run(n_steps=3, resume_from=files[(writer, name)])
             out[(writer, name)] = (set(r.forest.leaves), hist,
                                    _np_fields(st))
-    out["tmp"] = tmp
+    out["tmp"], out["format"] = tmp, fmt
     return out
 
 
@@ -245,16 +275,18 @@ def test_adaptive_checkpoint_crosses_packages(adaptive_runs, writer):
 
 
 def test_adaptive_resume_reproduces_uninterrupted_run(adaptive_runs):
-    """JAX's ``test_amr_checkpoint_resume`` on the port: the resume
-    restores the refined mesh (and the fused-dispatch path stays off with
-    checkpoints, with JAX's warning)."""
+    """JAX's ``test_amr_checkpoint_resume`` on the port, in each checkpoint
+    format: the resume restores the refined mesh and the uninterrupted
+    run's fields (JAX's tolerances, and bit for bit), and the
+    fused-dispatch path stays off with checkpoints, with JAX's warning."""
+    fmt = adaptive_runs["format"]
     data = dataclasses.replace(
-        _adaptive(read_input_file, adaptive_runs["tmp"], "resume"),
+        _adaptive(read_input_file, adaptive_runs["tmp"], "resume", fmt),
         t_max=480.0, max_refinement_level=5, refine_every=5,
         checkpoint_every=6)
     full_runner = AMRSimulationRunner(data, device="cpu")
     full, hist = full_runner.run()
-    ckpt = adaptive_runs["tmp"] / "resume" / "ckpt-000006.npz"
+    ckpt = adaptive_runs["tmp"] / "resume" / _ckpt_name(6, fmt)
     assert ckpt.exists() and len(hist) == 8
     with pytest.warns(RuntimeWarning, match="Checkpoint every = 0"):
         res_runner = AMRSimulationRunner(
@@ -265,6 +297,8 @@ def test_adaptive_resume_reproduces_uninterrupted_run(adaptive_runs):
     np.testing.assert_allclose(res.p.numpy(), full.p.numpy(), rtol=1e-12)
     np.testing.assert_allclose(res.eps_v.numpy(), full.eps_v.numpy(),
                                rtol=1e-10)
+    for k in FIELDS:      # and on the port, bit for bit
+        assert torch.equal(getattr(res, k), getattr(full, k)), k
 
 
 def _forest(kind):
@@ -322,7 +356,7 @@ def test_forest_payload_crosses_packages(kind, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# checkpoints end blocks; orbax refused
+# checkpoints end blocks
 # ---------------------------------------------------------------------------
 
 def test_checkpoint_steps_end_blocks(tmp_path):
@@ -352,22 +386,6 @@ def test_checkpoint_steps_end_blocks(tmp_path):
     st, t, step = tckpt.load_checkpoint(
         str(tmp_path / "b_ckpt" / "ckpt-000005.npz"), device="cpu")
     assert (t, step) == (300.0, 5) and st.p.dtype == torch.float64
-
-
-def test_orbax_is_refused(tmp_path):
-    data = dataclasses.replace(read_input_file(GOLDEN),
-                               initial_refinement_level=2, output_vtk=False,
-                               output_directory=str(tmp_path))
-    orbax = dataclasses.replace(data, checkpoint_format="orbax",
-                                checkpoint_every=1)
-    for entry in (lambda: SimulationRunner(orbax, device="cpu"),
-                  lambda: AMRSimulationRunner(
-                      dataclasses.replace(orbax, amr=True), device="cpu"),
-                  lambda: SimulationRunner(data, device="cpu").run(
-                      resume_from=str(tmp_path / "ckpt-000001")),
-                  lambda: tckpt.load_checkpoint_forest("ckpt-000001")):
-        with pytest.raises(NotImplementedError, match="no orbax"):
-            entry()
 
 
 # ---------------------------------------------------------------------------
