@@ -1,0 +1,15 @@
+"""Host waits for the device per traced step: the profiler's
+``cudaStreamSynchronize``, ``cudaDeviceSynchronize``,
+``cudaEventSynchronize`` and synchronous ``cudaMemcpy`` calls."""
+
+from portbench.tracing import SYNC_CALLS
+
+
+def read(ctx):
+    t = ctx.trace
+    if not t or not t["device_events"] or not t["steps"]:
+        return None
+    total = sum(t["runtime"][k] for k in SYNC_CALLS)
+    # every step of the card's loop launches and waits: none seen means
+    # the trace holds no runtime calls, not a step without them
+    return total / t["steps"] if total else None

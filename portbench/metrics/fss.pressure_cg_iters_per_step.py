@@ -1,0 +1,9 @@
+"""Pressure CG iterations per step over the window's steps (the
+program's ``StepStats.pressure_cg_iterations``)."""
+
+
+def read(ctx):
+    if not ctx.stats:
+        return None
+    return sum(int(s.pressure_cg_iterations) for s in ctx.stats) \
+        / len(ctx.stats)
