@@ -439,7 +439,7 @@ def main_path(dev):
     states, stats, ms = run_steps(solver, N_EVOLVING, N_STEADY, log=True)
     torch.cuda.synchronize()
     launches = launch_counts()
-    modes = cm.elasticity_rows_apply.mode_launches
+    modes = mode_launches()
     print(f"main path: initial_state + {N_EVOLVING} evolving + {N_STEADY} "
           f"steady steps in {time.perf_counter() - t0:.2f} s, launches "
           f"{launches}, elasticity_rows_apply by mode: unmasked "
@@ -461,7 +461,15 @@ def main_path(dev):
 
 def launch_counts() -> dict:
     """Each kernel wrapper's launches (graph replays included)."""
-    return {fn.__name__: fn.launches for fn in cm.KERNEL_WRAPPERS}
+    c = cm.launch_counts()
+    return {fn.__name__: c[fn.__name__] for fn in cm.KERNEL_WRAPPERS}
+
+
+def mode_launches() -> dict:
+    """``elasticity_rows_apply``'s whole-grid launches by mode."""
+    c = cm.launch_counts()
+    return {m: c[("mode", m)] for m in (cm.UNMASKED, cm.FREE,
+                                        cm.CONSTRAINED)}
 
 
 def check_steps(states, stats, disc, n_evolving):
@@ -823,14 +831,15 @@ def world_of_one():
 def device_busy(fn) -> tuple:
     """``(fn(), busy ms)``: ``fn`` under ``torch.profiler`` with the
     device's activity only (the union of its kernel and copy intervals;
-    no host events, whose processing takes seconds for an eager step)."""
+    no host events, whose processing takes seconds for an eager step; no
+    user annotations, the program's spans)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = fn()
     cuda = torch.autograd.DeviceType.CUDA
     return out, profile_step._busy_ms(
         [(e.time_range.start, e.time_range.end) for e in prof.events()
-         if e.device_type == cuda])
+         if e.device_type == cuda and not e.is_user_annotation])
 
 
 def phase_record(tag, t0, ms, solver, state, bc_prev) -> dict:
@@ -879,8 +888,8 @@ def gspmd_phase(dev) -> int:
         states, stats, ms = run_steps(solver, N_CONV_EVOLVING, N_CONV_STEADY,
                                       log=True)
         torch.cuda.synchronize()
-        slab = eg.elasticity_grid_apply.slab_launches
-        whole = eg.elasticity_grid_apply.launches - slab
+        slab = cm.launch_counts()["grid_slab"]
+        whole = cm.launch_counts()["elasticity_grid_apply"] - slab
         calls = dict(SlabStencil.calls)
         phase_record("gspmd", t1, ms, solver, states[-1],
                      _last_scale(N_CONV_EVOLVING))
@@ -946,8 +955,8 @@ def sharded_path_phase(dev, rows_states, rows_stats, rows_ms,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = launch_counts()
-        slab = cm.elasticity_rows_apply.slab_launches
-        modes = cm.elasticity_rows_apply.mode_launches
+        slab = cm.launch_counts()["slab"]
+        modes = mode_launches()
         calls = dict(SlabStencil.calls)
         phase_record("sharded", t0, ms, solver, states[-1],
                      _last_scale(N_SHARDED_EVOLVING))
@@ -2622,7 +2631,7 @@ def checkpoint_resume_check(dev, tmp: Path) -> None:
     st_full = full.run()
     torch.cuda.synchronize()
     launches = launch_counts()
-    modes = cm.elasticity_rows_apply.mode_launches
+    modes = mode_launches()
     del full
     ckpt = Path(data.checkpoint_directory) / f"ckpt-{CKPT_EVERY:06d}.npz"
     t0 = time.perf_counter()
@@ -3025,7 +3034,7 @@ def profiled_steps(solver, state, bc_prev, tag) -> list:
                "counts": _counts(stats),
                "elasticity_grid_apply": {
                    "device_ms": dev["elasticity_grid_apply"]["ms"],
-                   "calls": eg.elasticity_grid_apply.launches},
+                   "calls": cm.launch_counts()["elasticity_grid_apply"]},
                "runtime_calls": dev["runtime_calls"],
                "graphs": dev["graphs"],
                "top_kernels": dict(list(dev["kernels"].items())[:8])}
@@ -3063,7 +3072,7 @@ def gmg_config_phase(dev, rows_step1, conv_step1, rows_ms) -> None:
     cm.reset_launch_counts()
     z = disc.gmg_precond(r)
     torch.cuda.synchronize()
-    per_vcycle = eg.elasticity_grid_apply.launches
+    per_vcycle = cm.launch_counts()["elasticity_grid_apply"]
     if per_vcycle != VCYCLE_APPLIES * (N_GMG_LEVELS - 1) or not bool(
             torch.isfinite(z).all()):
         raise AssertionError(f"one V-cycle launched the flat kernel "
@@ -3078,7 +3087,7 @@ def gmg_config_phase(dev, rows_step1, conv_step1, rows_ms) -> None:
     cm.reset_launch_counts()
     z_plain = plain.gmg_precond(r)
     torch.cuda.synchronize()
-    if eg.elasticity_grid_apply.launches:
+    if cm.launch_counts()["elasticity_grid_apply"]:
         raise AssertionError("the plain hierarchy launched the flat kernel")
     vcycle_err = _rel_err(z, z_plain)
     if not vcycle_err <= VCYCLE_TOL:

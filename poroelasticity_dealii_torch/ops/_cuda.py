@@ -24,6 +24,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils import profiling
+
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (_PKG / "csrc" / "comp_major.cu", _PKG / "csrc" / "generic.cu")
 # headers the sources include: part of the build's hash
@@ -158,12 +160,14 @@ def launch(name: str, tensor: torch.Tensor, *args) -> None:
     """Launch kernel ``name`` on ``tensor``'s device and current stream.
 
     ``args`` are the entry point's arguments before the stream; tensors are
-    passed as device pointers (``None`` as a null pointer)."""
-    conv = [a.data_ptr() if isinstance(a, torch.Tensor)
-            else (0 if a is None else a) for a in args]
-    with torch.cuda.device(tensor.device):
-        stream = torch.cuda.current_stream(tensor.device).cuda_stream
-        library().launch(name, tensor.dtype, *conv, stream)
+    passed as device pointers (``None`` as a null pointer).  While a
+    profiler records, the enqueue is a ``kernel.enqueue`` span."""
+    with profiling.leaf("kernel.enqueue", name):
+        conv = [a.data_ptr() if isinstance(a, torch.Tensor)
+                else (0 if a is None else a) for a in args]
+        with torch.cuda.device(tensor.device):
+            stream = torch.cuda.current_stream(tensor.device).cuda_stream
+            library().launch(name, tensor.dtype, *conv, stream)
 
 
 def check(name, t, shape, dtype, device):

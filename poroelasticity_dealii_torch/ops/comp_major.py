@@ -18,13 +18,14 @@ Three operators reach a hand-written CUDA kernel (``csrc/comp_major.cu``):
 * :func:`projection_rows` — the all-Voigt strain-projection RHS from u.
 
 Each wrapper takes its plain PyTorch twin (``*_plain``) for CPU tensors and
-launches its kernel for CUDA tensors, counting launches in its
-``launches`` attribute (one per call; the elasticity apply is two CUDA
-launches, a product pass on tiles of cells and a node-sum pass, planned by
-:func:`.cell_products.rows_apply_plan`; so is the projection, which shares
-the product pass).  The plain twins are vectorised over all cells: one
-advanced-index gather of the cells' local values, one matmul with the
-element matrix, one ``index_add_`` over a precomputed flat index.
+launches its kernel for CUDA tensors, counting its launches in the
+recorder's registry (:func:`launch_counts`; one per call; the elasticity
+apply is two CUDA launches, a product pass on tiles of cells and a node-sum
+pass, planned by :func:`.cell_products.rows_apply_plan`; so is the
+projection, which shares the product pass).  The plain twins are
+vectorised over all cells: one advanced-index gather of the cells' local
+values, one matmul with the element matrix, one ``index_add_`` over a
+precomputed flat index.
 
 :func:`make_flat_apply`, the counterpart of ``make_pallas_apply`` (flat u
 in, flat y out), needs no row layout: it reaches the flat kernel of
@@ -50,6 +51,8 @@ from .elasticity import elasticity_grid_apply, make_grid_elasticity
 from .generic_apply import generic_elasticity_apply, generic_q1_apply
 from .node_blocks import elasticity_node_blocks
 from .shape import node_lattice
+from ..utils import profiling
+from ..utils.profiling import count
 
 UNMASKED, FREE, CONSTRAINED = 0, 1, 2
 
@@ -234,7 +237,7 @@ def elasticity_rows_apply(x, mask, ke, n: int, mode: int, nz: int = None,
     run-time ``nv``; UNMASKED only): ``x`` and the result are
     ``((nz+1)*24, W)``, ``nz`` layers of n x n cells are swept and those at
     ``iz >= nv`` contribute nothing, whatever their input rows hold; ``n``
-    keeps fixing the lane geometry.  Counted in ``slab_launches``."""
+    keeps fixing the lane geometry.  Counted as ``"slab"``."""
     if x.device.type == "cpu":
         return elasticity_rows_apply_plain(x, mask, ke, n, mode, nz, nv)
     slab = nz is not None or nv is not None
@@ -252,11 +255,8 @@ def elasticity_rows_apply(x, mask, ke, n: int, mode: int, nz: int = None,
     ye = torch.empty(plan.scratch_numel, dtype=x.dtype, device=x.device)
     _cuda.launch("elasticity_rows_apply", x, x, mask, ke, y, ye, n, nz, nv,
                  rows[1], plan.stride, plan.grid, plan.smem_bytes, mode)
-    elasticity_rows_apply.launches += 1
-    if slab:
-        elasticity_rows_apply.slab_launches += 1
-    else:
-        elasticity_rows_apply.mode_launches[mode] += 1
+    count("launches", "elasticity_rows_apply")
+    count("launches", "slab" if slab else ("mode", mode))
     return y
 
 
@@ -270,7 +270,7 @@ def coupling_rows(p, ce, n: int):
     _cuda.check("ce", ce, (81, 8), p.dtype, p.device)
     y = torch.empty(_rows_shape(n), dtype=p.dtype, device=p.device)
     _cuda.launch("coupling_rows", p, p, ce, y, n, _width(n))
-    coupling_rows.launches += 1
+    count("launches", "coupling_rows")
     return y
 
 
@@ -293,56 +293,43 @@ def projection_rows(x, pe, n: int):
     ye = torch.empty(plan.scratch_numel, dtype=x.dtype, device=x.device)
     _cuda.launch("projection_rows", x, x, pe, out, ye, n, _width(n),
                  plan.stride, plan.grid, plan.smem_bytes)
-    projection_rows.launches += 1
+    count("launches", "projection_rows")
     return out
 
 
-elasticity_rows_apply.launches = 0
-# launches by mode (UNMASKED = K5, FREE = K1, CONSTRAINED = K2) on the whole
-# grid, and of K5's slab form
-elasticity_rows_apply.mode_launches = {UNMASKED: 0, FREE: 0, CONSTRAINED: 0}
-elasticity_rows_apply.slab_launches = 0
-coupling_rows.launches = 0
-projection_rows.launches = 0
-# every kernel wrapper of the port, with its ``launches`` count (the
-# generic path's in ops/generic_apply.py)
+# every kernel wrapper of the port (the generic path's in
+# ops/generic_apply.py)
 KERNEL_WRAPPERS = (elasticity_rows_apply, coupling_rows, projection_rows,
                    elasticity_grid_apply, generic_elasticity_apply,
                    generic_q1_apply)
+# the launch counters (``"launches"`` in the recorder's registry): each
+# wrapper's by its name, ``elasticity_rows_apply``'s on the whole grid by
+# mode (UNMASKED = K5, FREE = K1, CONSTRAINED = K2) and of K5's slab form,
+# and the flat apply's slab mode's
+LAUNCH_KEYS = tuple(fn.__name__ for fn in KERNEL_WRAPPERS) + tuple(
+    ("mode", m) for m in (UNMASKED, FREE, CONSTRAINED)) + ("slab",
+                                                             "grid_slab")
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNEL_WRAPPERS:
-        fn.launches = 0
-    elasticity_rows_apply.mode_launches = dict.fromkeys(
-        elasticity_rows_apply.mode_launches, 0)
-    elasticity_rows_apply.slab_launches = 0
-    elasticity_grid_apply.slab_launches = 0
+    profiling.RECORDER.clear("launches")
 
 
 def launch_counts() -> dict:
-    """Every launch counter of the kernel wrappers: each wrapper's
-    ``launches`` by its name, ``elasticity_rows_apply``'s by mode
+    """Every launch counter of the kernel wrappers (:data:`LAUNCH_KEYS`):
+    each wrapper's by its name, ``elasticity_rows_apply``'s by mode
     (``("mode", m)``) and its slab form's (``"slab"``), and the flat
     apply's slab mode's (``"grid_slab"``)."""
-    out = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
-    out.update({("mode", m): v
-                for m, v in elasticity_rows_apply.mode_launches.items()})
-    out["slab"] = elasticity_rows_apply.slab_launches
-    out["grid_slab"] = elasticity_grid_apply.slab_launches
-    return out
+    c = profiling.RECORDER.counts
+    return {k: c[("launches", k)] for k in LAUNCH_KEYS}
 
 
 def add_launch_counts(delta: dict) -> None:
-    """Add ``delta`` (keyed as :func:`launch_counts`) to the counters: a
-    CUDA graph replay runs no wrapper, so the graph's owner adds the
-    launches its capture recorded."""
-    for fn in KERNEL_WRAPPERS:
-        fn.launches += delta[fn.__name__]
-    for m in elasticity_rows_apply.mode_launches:
-        elasticity_rows_apply.mode_launches[m] += delta[("mode", m)]
-    elasticity_rows_apply.slab_launches += delta["slab"]
-    elasticity_grid_apply.slab_launches += delta["grid_slab"]
+    """Add ``delta`` (keyed as :func:`launch_counts`; a key left out adds
+    nothing) to the counters: a CUDA graph replay runs no wrapper, so the
+    graph's owner adds the launches its capture recorded."""
+    for k, v in delta.items():
+        count("launches", k, v)
 
 
 def make_flat_apply(element_matrix: np.ndarray, n: int, dtype: torch.dtype,

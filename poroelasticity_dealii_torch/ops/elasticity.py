@@ -29,6 +29,7 @@ from . import _cuda
 from . import dense
 from .cell_products import rows_apply_plan, sm_count
 from .stencil import StencilSpec, stencil_apply
+from ..utils.profiling import count
 
 
 def elasticity_element_matrix(data, n: int, dim: int = 3) -> np.ndarray:
@@ -88,7 +89,7 @@ def elasticity_grid_apply(u: torch.Tensor, ke: torch.Tensor, n: int,
     The slab mode (``nz`` given; the gspmd z-slabs of
     :func:`..parallel.sharding.shard_grid_discretization`): ``u`` and the
     result are the ``(2n+1)^2 (2nz+1) * 3`` values of ``nz`` layers of
-    n x n cells, every cell real; counted in ``slab_launches`` too."""
+    n x n cells, every cell real; counted as ``"grid_slab"`` too."""
     slab = nz is not None
     nz = n if nz is None else nz
     if u.device.type == "cpu":
@@ -104,14 +105,10 @@ def elasticity_grid_apply(u: torch.Tensor, ke: torch.Tensor, n: int,
     ye = torch.empty(plan.scratch_numel, dtype=u.dtype, device=u.device)
     _cuda.launch("elasticity_grid_apply", u, u, ke, y, ye, n, nz,
                  plan.stride, plan.grid, plan.smem_bytes)
-    elasticity_grid_apply.launches += 1
+    count("launches", "elasticity_grid_apply")
     if slab:
-        elasticity_grid_apply.slab_launches += 1
+        count("launches", "grid_slab")
     return y
-
-
-elasticity_grid_apply.launches = 0
-elasticity_grid_apply.slab_launches = 0
 
 
 def make_grid_elasticity(element_matrix: np.ndarray, n: int,

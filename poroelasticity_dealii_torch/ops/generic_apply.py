@@ -30,8 +30,8 @@ wrapper returns its plain twin (:func:`generic_elasticity_apply_plain`,
 :func:`generic_q1_apply_plain`: the :mod:`.operators` applies on the
 stored ``jinv``/``jxw``, unchanged); on a CUDA tensor it launches its
 kernel (two CUDA launches, a cell product pass into a scratch and an
-ordered plan sum) and counts one launch in ``launches``, or raises on
-what the kernel does not take.
+ordered plan sum) and counts one launch (:func:`.comp_major.launch_counts`),
+or raises on what the kernel does not take.
 
 :func:`takes_elasticity` and :func:`takes_q1` are the degree rule: the
 kernels take Q2 displacements and Q1 pressures (2D or 3D) at the
@@ -51,6 +51,7 @@ from . import operators as ops
 from .cell_products import sm_count
 from .quadrature import gauss_tensor
 from .shape import shape_tables
+from ..utils.profiling import count
 
 MAX_LANES = 6          # lanes of one Q1 apply (kMaxLanes)
 Q1_CELLS = 32          # cells of a Q1 product block (kQ1Cells)
@@ -395,7 +396,7 @@ def generic_elasticity_apply(u, op: ElasticityOperands):
     _cuda.launch("generic_elasticity_apply", u, u, k.maps, *k.tables, k.plan,
                  y, ye, float(op.lam), float(op.mu), k.dim, k.E, k.V,
                  k.n_out, p.grid, p.smem_bytes)
-    generic_elasticity_apply.launches += 1
+    count("launches", "generic_elasticity_apply")
     return y
 
 
@@ -421,9 +422,5 @@ def generic_q1_apply(x, op: Q1Operands, alpha, beta):
     _cuda.launch("generic_q1_apply", x, x, k.maps, k.plan, y, ye,
                  float(alpha), float(beta), k.dim, lanes, x.shape[-1], k.E,
                  k.V, k.n_out, p.grid)
-    generic_q1_apply.launches += 1
+    count("launches", "generic_q1_apply")
     return y
-
-
-generic_elasticity_apply.launches = 0
-generic_q1_apply.launches = 0

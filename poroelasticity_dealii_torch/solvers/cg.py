@@ -10,7 +10,9 @@ chunks of at most ``chunk``: one iteration body freezes a solve whose
 condition fails (``torch.where``, as the reference's ``vmap`` of the
 ``while_loop`` freezes finished lanes), so the iterations a chunk runs past
 convergence change nothing, and the host reads one flag per chunk
-(:func:`.cuda_graphs.run_chunks`).  With a :class:`.cuda_graphs.ChunkGraphs`
+(:func:`.cuda_graphs.run_chunks`, which counts the reads and the chunks'
+iterations under the call site's name: ``graph_key``'s first item, else
+the solver's).  With a :class:`.cuda_graphs.ChunkGraphs`
 each chunk is the replay of a captured CUDA graph.  The batched form gives
 each right-hand side its own tolerance and count.  :func:`richardson_solve`
 keeps the same device-resident state and chunks, on one right-hand side or
@@ -66,6 +68,11 @@ class LocalReductions:
         return (a * b).sum(-1)
 
     lane_norm = staticmethod(lane_norm)
+
+
+def _site(graph_key, solver: str) -> str:
+    """The call site's name: ``graph_key``'s first item, else ``solver``."""
+    return graph_key[0] if graph_key else solver
 
 
 def _tol64(tol, like: torch.Tensor) -> torch.Tensor:
@@ -149,7 +156,8 @@ def cg_solve(apply_a: Callable, b: torch.Tensor, x0: torch.Tensor,
         *graph_key, "cg", b.dtype, tuple(b.shape), max_iter, flexible,
         precond is None)
     k, x, _, _, _, rnorm = run_chunks(init, step, cond, (b, x0), consts,
-                                      max_iter, chunk, graphs, key)
+                                      max_iter, chunk, graphs, key,
+                                      _site(graph_key, "cg"))
     converged = rnorm.double() <= consts[0]
     return CGResult(x=x, iterations=k, residual_norm=rnorm,
                     converged=converged, stalled=torch.zeros_like(converged))
@@ -207,7 +215,7 @@ def richardson_solve(apply_a: Callable, b: torch.Tensor, x0: torch.Tensor,
         *graph_key, "richardson", b.dtype, tuple(b.shape), max_iter)
     k, x, _, rnorm, rprev = run_chunks(
         init, step, lambda s, c: lanes(s, c).any(), (x0,), consts, max_iter,
-        chunk, graphs, key)
+        chunk, graphs, key, _site(graph_key, "richardson"))
     converged = rnorm.double() <= consts[0]
     return CGResult(x=x, iterations=k, residual_norm=rnorm,
                     converged=converged,
@@ -258,7 +266,7 @@ def cg_solve_batched(apply_a: Callable, b: torch.Tensor, x0: torch.Tensor,
         *graph_key, "cg_batched", b.dtype, tuple(b.shape), max_iter)
     k, x, _, _, _, rnorm = run_chunks(
         init, step, lambda s, c: lanes(s, c).any(), (b, x0), consts,
-        max_iter, chunk, graphs, key)
+        max_iter, chunk, graphs, key, _site(graph_key, "cg_batched"))
     converged = rnorm.double() <= consts[0]
     return CGResult(x=x, iterations=k, residual_norm=rnorm,
                     converged=converged, stalled=torch.zeros_like(converged))

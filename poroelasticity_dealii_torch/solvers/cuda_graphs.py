@@ -6,7 +6,12 @@ and freezes it once the loop's condition fails, and that condition,
 ``cond``, as a device flag.  :func:`run_chunks` runs up to ``size`` steps
 per chunk and reads the flag on the host once per chunk: the only host read
 of the loop.  Because a frozen step changes nothing, the result equals the
-one-step-per-read loop bit for bit.
+one-step-per-read loop bit for bit.  Each solve counts its flag reads under
+``host_reads[site]`` and the steps its chunks ran, frozen ones included,
+under ``chunk_steps[site]`` (:mod:`..utils.profiling`; ``site`` the call
+site's name), adding both to the recorder once, at its end, and while a
+profiler records it opens the leaf spans ``cg.solve``, ``cg.host_read``
+and, per graph replay, ``cg.replay``.
 
 :class:`ChunkGraphs` (the card only) stands in for the reference's ``jit``:
 each call site and shape (its key) gets static input and state buffers, a
@@ -27,9 +32,10 @@ which the discretization holds); the caller keeps the operators of one key
 the same.
 
 The kernel wrappers count a launch in Python, which a replay does not run:
-the counts a capture adds are recorded and taken back, and each replay adds
-them again (:func:`..ops.comp_major.add_launch_counts`), so the counts
-include the applies of frozen iterations.
+the counts a capture adds are recorded and taken back, and each solve adds
+them again for every replay it made
+(:func:`..ops.comp_major.add_launch_counts`), so the counts include the
+applies of frozen iterations.
 """
 
 from __future__ import annotations
@@ -42,11 +48,13 @@ from typing import Callable
 import torch
 
 from ..ops import comp_major as cm
+from ..utils import profiling
 
 
 def run_chunks(init: Callable, step: Callable, cond: Callable,
                inputs: tuple, consts: tuple, budget: int, size: int,
-               graphs: "ChunkGraphs" = None, key=None) -> tuple:
+               graphs: "ChunkGraphs" = None, key=None,
+               site: str = "cg") -> tuple:
     """From ``state = init(inputs, consts)``, apply ``step(state, consts)``
     in chunks of at most ``size`` while the host reads ``cond(state,
     consts)`` true at the chunk's start, at most ``budget`` times in all;
@@ -54,18 +62,26 @@ def run_chunks(init: Callable, step: Callable, cond: Callable,
 
     A chunk is cut to the budget left: a true flag means every step so far
     was live, so the host knows the count.  With ``graphs``, the start and
-    each chunk are replays under ``key`` (:meth:`ChunkGraphs.run`)."""
-    if graphs is not None:
-        return graphs.run(key, init, step, cond, inputs, consts, budget,
-                          size)
-    state = init(inputs, consts)
-    done = 0
-    while done < budget and bool(cond(state, consts)):
-        n = min(size, budget - done)
-        for _ in range(n):
-            state = step(state, consts)
-        done += n
-    return state
+    each chunk are replays under ``key``, whose first item is ``site``
+    (:meth:`ChunkGraphs.run`)."""
+    with profiling.leaf("cg.solve", site):
+        if graphs is not None:
+            return graphs.run(key, init, step, cond, inputs, consts, budget,
+                              size)
+        state = init(inputs, consts)
+        done = reads = 0
+        while done < budget:
+            reads += 1
+            with profiling.leaf("cg.host_read", site):
+                if not bool(cond(state, consts)):
+                    break
+            n = min(size, budget - done)
+            for _ in range(n):
+                state = step(state, consts)
+            done += n
+        profiling.count("host_reads", site, reads)
+        profiling.count("chunk_steps", site, done)
+        return state
 
 
 @dataclasses.dataclass
@@ -118,21 +134,38 @@ class ChunkGraphs:
         else:
             site.load(inputs, consts)
         self._replay(site, key, "init", init, cond)
-        done = 0
-        while done < budget and bool(site.flag):
+        replayed = {"init": 1}
+        done = reads = 0
+        while done < budget:
+            reads += 1
+            with profiling.leaf("cg.host_read", key[0]):
+                if not bool(site.flag):
+                    break
             n = min(size, budget - done)
             self._replay(site, key, n, step, cond)
+            replayed[n] = replayed.get(n, 0) + 1
             done += n
+        self._count(site, key[0], replayed, reads, done)
         return tuple(t.clone() for t in site.state)
 
     def _replay(self, site, key, which, fn, cond) -> None:
         """Replay graph ``which`` of ``site`` (capture it first if need
-        be) and add its launch counts."""
+        be)."""
         if which not in site.graphs:
             self._capture(site, key, which, fn, cond)
-        site.graphs[which].replay()
-        cm.add_launch_counts(site.deltas[which])
-        self.replays[key[0]] += 1
+        with profiling.leaf("cg.replay", key[0], which):
+            site.graphs[which].replay()
+
+    def _count(self, site, name, replayed, reads, done) -> None:
+        """Add one solve's counts: the launches of its replays (``replayed``
+        by graph), the replays, its flag reads and the steps its chunks
+        ran."""
+        for which, m in replayed.items():
+            cm.add_launch_counts(
+                {k: v * m for k, v in site.deltas[which].items()})
+        self.replays[name] += sum(replayed.values())
+        profiling.count("host_reads", name, reads)
+        profiling.count("chunk_steps", name, done)
 
     def _capture(self, site, key, which, fn, cond) -> None:
         """Capture the start (``which == "init"``, ``fn = init``: inputs
@@ -168,7 +201,10 @@ class ChunkGraphs:
         finally:
             if gc_enabled:
                 gc.enable()
-        delta = {k: v - before[k] for k, v in cm.launch_counts().items()}
+        # the launches the capture counted (only the counters it moved: a
+        # replay adds these)
+        delta = {k: v - before[k] for k, v in cm.launch_counts().items()
+                 if v != before[k]}
         cm.add_launch_counts({k: -v for k, v in delta.items()})
         site.graphs[which], site.deltas[which] = graph, delta
         self.captures[key[0]] += 1

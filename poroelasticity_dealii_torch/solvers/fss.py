@@ -12,7 +12,12 @@ loop state on the device and reads one flag per chunk of iterations
 (:class:`.cuda_graphs.ChunkGraphs`, one per solver; ``cuda_graphs=False``
 runs the same chunks eagerly).  The step's CG counts stay on the device
 until the step, or a block of steps (:meth:`FixedStressSolver.multi_step`),
-ends.
+ends.  Each step records its phases as spans (:mod:`..utils.profiling`):
+``fss.step`` around the whole, ``fss.bc_response``, one
+``fss.pressure_loop`` per FSS iteration, ``fss.mechanics`` (the coupling
+right-hand side and the solve) and ``fss.projection`` (the right-hand side
+and the volumetric solve in the loop, the shear solve after it), and counts
+each host read where it is made.
 
 The solver takes a structured discretization
 (:class:`.structured.GridDiscretization`) or a generic one
@@ -90,6 +95,7 @@ from ..ops.operators import SHEAR_ENTRIES, VOIGT_PAIRS, VOLUMETRIC_ENTRIES
 from ..ops.stencil import make_stencil_apply
 from . import structured
 from ..parallel.rows import ShardedKit
+from ..utils import profiling
 from .cg import (LocalReductions, cg_solve, cg_solve_batched,
                  lane_norm, richardson_solve)
 from .cuda_graphs import ChunkGraphs
@@ -180,11 +186,11 @@ def _read_stats(steps: list) -> list:
     if not steps:
         return []
     debug = isinstance(steps[0].nan_site, torch.Tensor)
-    dev = torch.stack([torch.stack([
+    dev = profiling.read("stats", torch.stack([torch.stack([
         s.pressure_cg_iterations, s.mech_cg_iterations,
         s.projection_cg_iterations, s.cg_converged.long(),
         s.cg_stalled.long()] + ([s.nan_site.long()] if debug else []))
-        for s in steps]).tolist()
+        for s in steps]).tolist)
     for i, row in enumerate(dev):
         if debug and row[5]:
             err = FloatingPointError(
@@ -332,7 +338,8 @@ class FixedStressSolver:
         float32 solve ``inner``, run eagerly (see :data:`CHUNK`)."""
         norm = lane_norm if batched else LocalReductions.norm
         return richardson_solve(apply, b, x0, inner, tol, max_iter, norm=norm,
-                                chunk=CHUNK["refinement"])
+                                chunk=CHUNK["refinement"],
+                                graph_key=("refinement",))
 
     # ---------------- mixed-precision refinement ----------------------------
 
@@ -690,8 +697,12 @@ class FixedStressSolver:
         ``State.u`` None on the rows backend (u stays in rows; see
         :meth:`materialize_u`); on the flat backend it is a no-op.  The
         stats are read from the device once, at the end of the step."""
-        state, stats = self._step(state, dt, bc_scale, bc_scale_prev, want_u)
-        return state, _read_stats([stats])[0]
+        with profiling.step():
+            state, stats = self._step(state, dt, bc_scale, bc_scale_prev,
+                                      want_u)
+            host = _read_stats([stats])
+        profiling.note_cg(host)
+        return state, host[0]
 
     def multi_step(self, state: State, dt: float, n_steps: int = None,
                    bc_scales=None, bc_scale_prev: Optional[float] = None,
@@ -710,7 +721,8 @@ class FixedStressSolver:
         Unlike the reference's one ``lax.scan`` dispatch, the block is K
         device-resident steps in a Python loop: every chunk boundary of a
         CG, and every pressure and FSS iteration, still reads one value on
-        the host."""
+        the host.  Each step is a ``fss.step`` span; the block's one read of
+        the stats comes after the last."""
         if bc_scales is None:
             if n_steps is None:
                 raise ValueError("pass n_steps or bc_scales")
@@ -719,12 +731,14 @@ class FixedStressSolver:
         prev = bc_scales[0] if bc_scale_prev is None else float(bc_scale_prev)
         steps = []
         for bc in bc_scales:
-            state, stats = self._step(state, dt, bc, prev, want_u=False)
+            with profiling.step():
+                state, stats = self._step(state, dt, bc, prev, want_u=False)
             steps.append(stats)
             prev = bc
         if want_u and self._rows:
             state = self.materialize_u(state)
         host = _read_stats(steps)
+        profiling.note_cg(host)
         return state, StepStats(**{
             f.name: np.stack([getattr(s, f.name) for s in host])
             for f in dataclasses.fields(StepStats)})
@@ -735,10 +749,12 @@ class FixedStressSolver:
         ds = 0.0 if bc_scale_prev is None else bc_scale - bc_scale_prev
         nan = torch.zeros((), dtype=torch.int32, device=self.disc.device) \
             if self.data.debug_nans else None
-        response = self._bc_response() if ds != 0.0 else None
-        if response is not None:
-            nan = self._note_nan(nan, "bc-response solve", response,
-                                 mechanics=True)
+        response = None
+        if ds != 0.0:
+            with profiling.span("fss.bc_response"):
+                response = self._bc_response()
+                nan = self._note_nan(nan, "bc-response solve", response,
+                                     mechanics=True)
         if self._rows:
             if state.u_rows is None:
                 state = dataclasses.replace(
@@ -795,7 +811,7 @@ class FixedStressSolver:
             delta_p = torch.zeros_like(p)     # reset per FSS iteration
             r = self._pressure_residual(p, p_old, eps_v, eps_v0, dt)
             nan = self._note_nan(nan, "pressure residual", r)
-            err = red.norm(r).item()
+            err = profiling.read("pressure_residual", red.norm(r).item)
             k = 0
             while k < data.max_pressure_iterations and err > pressure_tol:
                 ptol = data.pressure_cg_tol * red.norm(r)
@@ -815,7 +831,7 @@ class FixedStressSolver:
                     * delta_p
                 r = self._pressure_residual(p, p_old, eps_v, eps_v0, dt)
                 nan = self._note_nan(nan, "pressure residual", r)
-                err = red.norm(r).item()
+                err = profiling.read("pressure_residual", red.norm(r).item)
                 k += 1
                 cg_p = cg_p + res.iterations
                 cg_ok = cg_ok & res.converged
@@ -827,7 +843,8 @@ class FixedStressSolver:
         # projection RHS; otherwise the RHS must exist before the loop
         u = state.u_rows if self._rows else state.u
         if data.fss_tol >= 2.0 * data.pressure_tol:
-            proj_rhs = self._projection_rhs(u)
+            with profiling.span("fss.projection"):
+                proj_rhs = self._projection_rhs(u)
         else:
             proj_rhs = torch.zeros((n_voigt, d.n_pdofs), dtype=d.dtype,
                                    device=d.device)
@@ -839,20 +856,24 @@ class FixedStressSolver:
         err_hist = np.full((data.max_fss_iterations,), -1.0)
         it = press_total = 0
         while it < data.max_fss_iterations and err > fss_tol:
-            p, eps_v, n_press, cg_p, cg_ok = pressure_inner(p, eps_v, cg_p,
-                                                            cg_ok)
-            u, it_u, ok_u, st_u, mech_b = self._mechanics_solve(
-                p, u, bc_scale, b_prev=mech_b)
-            nan = self._note_nan(nan, "mechanics solve", u, mechanics=True)
-            proj_rhs = self._projection_rhs(u)
-            vol_strains, it_pr, ok_pr = self._project(vol, vol_strains,
-                                                      proj_rhs)
-            nan = self._note_nan(nan, "projection CG", vol_strains)
+            with profiling.span("fss.pressure_loop"):
+                p, eps_v, n_press, cg_p, cg_ok = pressure_inner(
+                    p, eps_v, cg_p, cg_ok)
+            with profiling.span("fss.mechanics"):
+                u, it_u, ok_u, st_u, mech_b = self._mechanics_solve(
+                    p, u, bc_scale, b_prev=mech_b)
+                nan = self._note_nan(nan, "mechanics solve", u,
+                                     mechanics=True)
+            with profiling.span("fss.projection"):
+                proj_rhs = self._projection_rhs(u)
+                vol_strains, it_pr, ok_pr = self._project(vol, vol_strains,
+                                                          proj_rhs)
+                nan = self._note_nan(nan, "projection CG", vol_strains)
             if resync:
                 eps_v = vol_strains.sum(0)
             r = self._pressure_residual(p, p_old, eps_v, eps_v0, dt)
             nan = self._note_nan(nan, "pressure residual", r)
-            err = red.norm(r).item()
+            err = profiling.read("fss_residual", red.norm(r).item)
             err_hist[it] = err
             it += 1
             press_total += n_press
@@ -864,9 +885,10 @@ class FixedStressSolver:
         strains[vol] = vol_strains
         if shear:
             # the final FSS iteration's projection RHS: the same u
-            shear_strains, it_sh, ok_sh = self._project(
-                shear, state.strains[shear], proj_rhs)
-            nan = self._note_nan(nan, "projection CG", shear_strains)
+            with profiling.span("fss.projection"):
+                shear_strains, it_sh, ok_sh = self._project(
+                    shear, state.strains[shear], proj_rhs)
+                nan = self._note_nan(nan, "projection CG", shear_strains)
             strains[shear] = shear_strains
             cg_proj = cg_proj + it_sh
             cg_ok = cg_ok & ok_sh

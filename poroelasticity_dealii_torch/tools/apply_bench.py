@@ -287,9 +287,9 @@ def run(n: int = 40, dtype=torch.float32, device="cuda", reps: int = 20,
 
     cm.reset_launch_counts()
     y6 = k6(u)
-    launches_k6 = eg.elasticity_grid_apply.launches
+    launches_k6 = cm.launch_counts()["elasticity_grid_apply"]
     y7 = k7(u)
-    launches_k7 = eg.elasticity_grid_apply.launches - launches_k6
+    launches_k7 = cm.launch_counts()["elasticity_grid_apply"] - launches_k6
     y_conv = disc.elasticity(u)
     y_plain = eg.elasticity_grid_apply_plain(u, ke, n)
     y_again = k7(u)

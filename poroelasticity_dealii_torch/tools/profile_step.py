@@ -168,14 +168,17 @@ RUNTIME_CALLS = ("cudaGraphLaunch", "cudaLaunchKernel", "cudaLaunchKernelExC")
 def device_summary(prof) -> dict:
     """Busy ms, the host's CUDA launch calls (:data:`RUNTIME_CALLS`), and
     per-kernel (ms, launches) of the device events, with each kernel
-    wrapper's CUDA kernels also summed under its name."""
+    wrapper's CUDA kernels also summed under its name.  The program's spans
+    (``record_function`` ranges), which the trace may also list on the
+    device as user annotations, are no device work and are left out."""
     per = defaultdict(lambda: [0.0, 0])
     intervals = []
     calls = dict.fromkeys(RUNTIME_CALLS, 0)
     for e in prof.events():
         if e.name in calls:
             calls[e.name] += 1
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or e.is_user_annotation:
             continue
         a, b = e.time_range.start, e.time_range.end
         intervals.append((a, b))
@@ -287,10 +290,10 @@ def _run(n, n_evolving, n_steady, device, backend, loop) -> list:
         (state, stats, ms), dev = _profiled(
             solver, lambda: _step(solver, state, bc, bc_prev))
         bc_prev = bc
+        calls = cm.launch_counts()
         for wrapper in WRAPPERS:
-            dev[wrapper]["calls"] = getattr(cm, wrapper).launches
-        dev["elasticity_grid_apply"]["slab_calls"] = \
-            cm.elasticity_grid_apply.slab_launches
+            dev[wrapper]["calls"] = calls[wrapper]
+        dev["elasticity_grid_apply"]["slab_calls"] = calls["grid_slab"]
         records.append({
             "step": k, "kind": kind, "n": n, "backend": backend,
             "loop": "captured" if graphs else "eager",

@@ -1,0 +1,11 @@
+"""Device idle ms per traced step inside the program's ``fss.projection``
+spans (the projection right-hand side and solves: the volumetric one in the
+loop, the shear one after it): the gaps between the union of the trace's
+device intervals, put on the spans' clock by the fit of
+``portbench/spans.py``."""
+
+from portbench import spans
+
+
+def read(ctx):
+    return spans.phase_idle_ms(ctx, "fss.projection")

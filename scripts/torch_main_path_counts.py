@@ -64,7 +64,7 @@ def main(tree: str) -> None:
     from poroelasticity_dealii_torch.ops import comp_major as cm
     _cuda.library()
     launches, states, stats, ms, solver = cs.main_path(torch.device("cuda"))
-    modes = cm.elasticity_rows_apply.mode_launches
+    modes = cs.mode_launches()
     print("MAIN_PATH_COUNTS " + json.dumps({
         "tree": tree, "gpu": cs.gpu_line(), "launches": launches,
         "modes": {"unmasked": modes[cm.UNMASKED], "free": modes[cm.FREE],

@@ -157,8 +157,7 @@ def test_row_ops_route_and_counters_on_cpu():
               "projection_rows"):
         assert torch.equal(getattr(ro, f)(x), getattr(rop, f)(x))
     assert torch.equal(ro.coupling_rows(p), rop.coupling_rows(p))
-    assert [fn.launches for fn in cm.KERNEL_WRAPPERS] == \
-        [0] * len(cm.KERNEL_WRAPPERS)
+    assert list(cm.launch_counts().values()) == [0] * len(cm.LAUNCH_KEYS)
     with pytest.raises(ValueError):
         cm.elasticity_rows_apply(x.to("meta"), None, ro.ke.to("meta"), 3,
                                  cm.UNMASKED)

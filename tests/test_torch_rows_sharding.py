@@ -661,7 +661,7 @@ def test_slab_kernel_matches_twin(cuda_dev, n, n_dev, dtype):
         y = cm.elasticity_rows_apply(x, None, ke, n, cm.UNMASKED, nz=Lz,
                                      nv=nv)
         stitched[d * Lz * 24:(d + 1) * Lz * 24 + 24] += y
-    assert cm.elasticity_rows_apply.slab_launches == 3 * n_dev
+    assert cm.launch_counts()["slab"] == 3 * n_dev
     want = cm.elasticity_rows_apply(xg, None, ke, n, cm.UNMASKED)
     got = stitched[:xg.shape[0]]
     assert (got - want).abs().max().item() <= tol * want.abs().max().item()

@@ -23,9 +23,8 @@ float64 on the CPU (golden 2D at level 3, the 3D deck at n = 4 on rows):
   the option on equals one with it off, bit for bit;
 * the adaptive loop on divergence: a step with a non-finite residual is
   logged and the run goes on, in both packages;
-* ``utils/profiling.py`` (``PhaseTimer``'s report is JAX's; ``device_trace``
-  writes a trace), the CLI's ``--resume`` and ``--profile``,
-  and ``run_from_deck``.
+* ``utils/profiling.py``'s ``device_trace`` writes a trace, the CLI's
+  ``--resume`` and ``--profile``, and ``run_from_deck``.
 """
 
 import dataclasses
@@ -55,8 +54,6 @@ from poroelasticity_dealii_tpu.solvers import \
     build_discretization as jbuild  # noqa: E402
 from poroelasticity_dealii_tpu.solvers.fss import State as JState  # noqa: E402
 from poroelasticity_dealii_tpu.utils import checkpoint as jckpt  # noqa: E402
-from poroelasticity_dealii_tpu.utils.profiling import \
-    PhaseTimer as JPhaseTimer  # noqa: E402
 
 from poroelasticity_dealii_torch.amr.driver import \
     AMRSimulationRunner  # noqa: E402
@@ -82,8 +79,8 @@ from poroelasticity_dealii_torch.solvers.fss import (  # noqa: E402
 from poroelasticity_dealii_torch.solvers.structured import \
     build_grid_discretization  # noqa: E402
 from poroelasticity_dealii_torch.utils import checkpoint as tckpt  # noqa: E402
-from poroelasticity_dealii_torch.utils.profiling import (  # noqa: E402
-    PhaseTimer, device_trace)
+from poroelasticity_dealii_torch.utils.profiling import \
+    device_trace  # noqa: E402
 
 GOLDEN = "configs/golden_2d.data"
 DECK_3D = "configs/consolidation_3d.data"
@@ -583,22 +580,6 @@ def test_adaptive_loop_goes_on_after_divergence():
 # ---------------------------------------------------------------------------
 # profiling, the CLI and run_from_deck
 # ---------------------------------------------------------------------------
-
-def test_phase_timer_report_is_jax_format():
-    t, j = PhaseTimer(), JPhaseTimer()
-    for timer in (t, j):
-        with timer.phase("step", block_on=None):
-            pass
-        with timer.phase("step"):
-            pass
-        timer.totals.update({"step": 0.25, "remesh": 1.5})
-        timer.counts["remesh"] = 1
-    assert t.report() == j.report()
-    assert t.report().splitlines()[0].startswith("remesh ")
-    with t.phase("sync", block_on=torch.zeros(2)):
-        pass
-    assert t.counts["sync"] == 1
-
 
 def _cli_deck(tmp_path):
     deck = tmp_path / "deck.data"

@@ -33,7 +33,7 @@ from poroelasticity_dealii_torch.mesh import hyper_rectangle
 from poroelasticity_dealii_torch.models.runner import (
     run_from_data, structured_generic_mesh)
 from poroelasticity_dealii_torch.ops import elasticity as eg
-from poroelasticity_dealii_torch.ops.comp_major import _width
+from poroelasticity_dealii_torch.ops.comp_major import _width, launch_counts
 from poroelasticity_dealii_torch.ops.parity2d import make_parity_ops
 from poroelasticity_dealii_torch.parallel import rows as pr
 from poroelasticity_dealii_torch.parallel.ghost import \
@@ -238,7 +238,7 @@ def test_flat_kernel_slab_twin_is_the_stencil_on_the_sub_grid():
     assert y.shape == ((2 * nz + 1) * g * g * 3,)
     assert torch.equal(y, eg.elasticity_grid_apply_plain(sub, ke, n, nz))
     assert torch.equal(y.reshape(2 * nz + 1, g, g, 3)[1:4], whole[3:6])
-    assert eg.elasticity_grid_apply.slab_launches == 0
+    assert launch_counts()["grid_slab"] == 0
 
 
 # ---------------------------------------------------------------------------
