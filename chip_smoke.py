@@ -12,6 +12,19 @@ timed; n = 21 and 7: ragged tiles), times each kernel's library yardstick
 paths through their entry points, each with the kernel launch counts reset
 just before and read just after:
 
+* the Jacobi-CG update's two kernels (``csrc/cg_update.cu``) at the
+  benchmark's vector shapes (the rows layout's 984 x 1792, the distorted
+  mesh's flat 1,594,323 and the projection's batch of six 68,921-value
+  lanes) in float64 and float32, with live, frozen and mixed lanes: each
+  wrapper against the same arithmetic in plain torch and the whole fused
+  update against the plain body, bit for bit; timed after an L2 flush
+  beside their plain twins and bounds (``apply_bench.cg_update_run``);
+  and, in the main path, the conv, generic, sharded (production, gspmd,
+  psum, ghost) and refinement phases, two steps (the first with the load's
+  bc-response solve, the projection's batched mass CG in each) on the
+  kernels held bit for bit against the same steps with the plain update
+  (:func:`held_to_plain`);
+
 * the main path: 3D Q2/Q1 fixed-stress steps at 40^3, float32, the bench
   configuration, on the rows backend, every CG chunk a captured CUDA graph
   (the launch counts include the replays), cross-checked against a run on
@@ -182,6 +195,7 @@ from poroelasticity_dealii_torch.mesh import hyper_rectangle
 from poroelasticity_dealii_torch.models.runner import SimulationRunner
 from poroelasticity_dealii_torch.ops import _cuda
 from poroelasticity_dealii_torch.ops import cell_products as cp
+from poroelasticity_dealii_torch.ops import cg_update
 from poroelasticity_dealii_torch.ops import comp_major as cm
 from poroelasticity_dealii_torch.ops import elasticity as eg
 from poroelasticity_dealii_torch.ops.parity2d import ElasticityParityOps
@@ -190,6 +204,7 @@ from poroelasticity_dealii_torch.parallel import rows as pr
 from poroelasticity_dealii_torch.parallel.sharding import (
     ShardedDiscretization, SlabGroup, SlabStencil, make_slab_group,
     shard_discretization, shard_grid_discretization)
+from poroelasticity_dealii_torch.solvers import cg as tcg
 from poroelasticity_dealii_torch.solvers.discretization import \
     build_discretization
 from poroelasticity_dealii_torch.solvers.fss import FixedStressSolver
@@ -200,6 +215,7 @@ from poroelasticity_dealii_torch.tools.apply_bench import cuda_time_ms, \
     device_and_host_ms, nonzeros
 from poroelasticity_dealii_torch.tools.profile_step import BC_RATE, \
     amr_data, amr_sizes, bench_data, data_2d, generic_mesh
+from poroelasticity_dealii_torch.utils import profiling
 
 REPO = Path(__file__).resolve().parent
 
@@ -439,6 +455,7 @@ def main_path(dev):
     states, stats, ms = run_steps(solver, N_EVOLVING, N_STEADY, log=True)
     torch.cuda.synchronize()
     launches = launch_counts()
+    launches["cg_update"] = cm.launch_counts()["cg_update"]
     modes = mode_launches()
     print(f"main path: initial_state + {N_EVOLVING} evolving + {N_STEADY} "
           f"steady steps in {time.perf_counter() - t0:.2f} s, launches "
@@ -452,11 +469,149 @@ def main_path(dev):
         "captures": dict(graphs.captures), "replays": dict(graphs.replays)}}),
         flush=True)
     check_steps(states, stats, disc, N_EVOLVING)
-    for name in MAIN_PATH_KERNELS:
+    for name in (*MAIN_PATH_KERNELS, "cg_update"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the main "
                                  "path")
+    held_to_plain("rows", lambda: FixedStressSolver(disc, data))
     return launches, states, stats, ms, solver
+
+
+@contextlib.contextmanager
+def plain_cg_update():
+    """Every Jacobi-CG solve started in the block runs its update in plain
+    torch (``solvers/cg.py::_jacobi_update_plain``, the twin of the update
+    kernels) instead of on the kernels."""
+    fused = tcg._jacobi_update
+    tcg._jacobi_update = lambda b, dinv, batched: tcg._jacobi_update_plain
+    try:
+        yield
+    finally:
+        tcg._jacobi_update = fused
+
+
+def _counted(fn) -> tuple:
+    """``(fn(), {(kind, site): n})``: the update kernels' launches, the CG
+    chunks' steps and their fused steps that ``fn`` added."""
+    kinds = ("launches", "chunk_steps", "fused_steps")
+    before = {k: v for k, v in profiling.RECORDER.counts.items()
+              if k[0] in kinds}
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v - before.get(k, 0)
+                 for k, v in profiling.RECORDER.counts.items()
+                 if k[0] in kinds and v != before.get(k, 0)}
+
+
+def _same_steps(a: tuple, b: tuple) -> bool:
+    """Whether two :func:`run_steps` runs have equal stats, field by field,
+    and every tensor of every state bit for bit."""
+    for sa, sb in zip(a[0], b[0]):
+        for f in dataclasses.fields(sa):
+            x, y = getattr(sa, f.name), getattr(sb, f.name)
+            if (x is None) != (y is None) or (
+                    x is not None and not torch.equal(x, y)):
+                return False
+    return len(a[0]) == len(b[0]) and all(
+        np.array_equal(getattr(x, f.name), getattr(y, f.name))
+        for x, y in zip(a[1], b[1]) for f in dataclasses.fields(x))
+
+
+def held_to_plain(tag: str, make_solver) -> None:
+    """One evolving step (the load changes: the bc-response solve) and one
+    steady step of a fresh ``make_solver()``, its Jacobi-CG updates on the
+    kernels, against the same steps of another with the plain update
+    (:func:`plain_cg_update`): equal stats and every state tensor bit for
+    bit; the first run's CG steps all fused where Jacobi, the kernels
+    launched, the second's none."""
+    def run():
+        return run_steps(make_solver(), 1, 1, log=False)
+    fused, counts = _counted(run)
+    with plain_cg_update():
+        plain, plain_counts = _counted(run)
+    chunks = {k[1]: v for k, v in counts.items() if k[0] == "chunk_steps"}
+    rec = {f"{tag}_fused_vs_plain": {
+        "bitwise": _same_steps(fused, plain),
+        "chunk_steps": chunks,
+        "fused_steps": {k[1]: v for k, v in counts.items()
+                        if k[0] == "fused_steps"},
+        "cg_update_launches": counts.get(("launches", "cg_update"), 0),
+        "plain_chunk_steps": {k[1]: v for k, v in plain_counts.items()
+                              if k[0] == "chunk_steps"},
+        "plain_fused": {k[1]: v for k, v in plain_counts.items()
+                        if k[0] == "fused_steps" or k == ("launches",
+                                                          "cg_update")}}}
+    print(json.dumps(rec), flush=True)
+    r = rec[f"{tag}_fused_vs_plain"]
+    if not r["bitwise"] or not r["fused_steps"] or r["plain_fused"] or \
+            r["cg_update_launches"] < 2 * sum(r["fused_steps"].values()) \
+            or r["plain_chunk_steps"] != chunks:
+        raise AssertionError(f"{tag}: fused against plain update: {r}")
+
+
+def cg_update_phase(dev) -> dict:
+    """The Jacobi-CG update's two kernels at the benchmark's vector shapes
+    (``apply_bench.CG_UPDATE_SHAPES``) in float64 and float32, every lane
+    live, none, and (the batch) every other one: ``jacobi_step`` and
+    ``direction`` against their arithmetic in plain torch, and the whole
+    fused update (``_jacobi_update_cuda``) against the plain body
+    (``_jacobi_update_plain``), each output bit for bit; then each timed
+    after an L2 flush and back to back beside its plain twin and its bound
+    (``apply_bench.cg_update_run``).  Returns the row layout's timing
+    record by dtype."""
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        for name, shape in apply_bench.CG_UPDATE_SHAPES.items():
+            batched = name == "batched"
+            g = torch.Generator().manual_seed(len(shape) + shape[-1])
+
+            def vec(sh=shape, scale=1.0):
+                return (scale * torch.randn(sh, generator=g,
+                                            dtype=torch.float64)).to(
+                    dtype).to(dev)
+            x, r, p, ap = vec(), vec(), vec(), vec(scale=1e3)
+            d = vec(shape[1:] if batched else shape).abs() + 0.5
+            if batched:
+                dot, norm = tcg.LocalReductions.lane_dot, tcg.lane_norm
+                lane = (lambda t: t[:, None])
+                lives = ([True] * shape[0], [False] * shape[0],
+                         [k % 2 == 0 for k in range(shape[0])])
+            else:
+                dot, norm = tcg.LocalReductions.dot, torch.linalg.norm
+                lane = (lambda t: t)
+                lives = (True, False)
+            for live in lives:
+                active = torch.as_tensor(live, device=dev)
+                rz, rnorm = dot(r, r * d), norm(r)
+                alpha = rz / dot(p, ap)
+                x_out, r_out, z = cg_update.jacobi_step(x, r, p, ap, d,
+                                                        alpha, active)
+                beta = dot(r_out, z) / rz
+                p_out = cg_update.direction(z, p, beta, active)
+                a, r_new = lane(active), r - lane(alpha) * ap
+                want = (torch.where(a, x + lane(alpha) * p, x),
+                        torch.where(a, r_new, r), r_new * d,
+                        torch.where(a, z + lane(beta) * p, p))
+                args = (x, r, p, ap, rz, rnorm, d, active, dot, norm)
+                wrappers = [torch.equal(u, v) for u, v in zip(
+                    (x_out, r_out, z, p_out), want)]
+                whole = [torch.equal(u, v) for u, v in zip(
+                    tcg._jacobi_update_cuda(*args),
+                    tcg._jacobi_update_plain(*args))]
+                rec = {"cg_update_bitwise": {
+                    "case": name, "shape": list(shape), "dtype": str(dtype),
+                    "active": live, "wrappers": wrappers, "whole": whole}}
+                print(json.dumps(rec), flush=True)
+                if not all(wrappers + whole):
+                    raise AssertionError(f"CG update kernels against plain "
+                                         f"torch: {rec}")
+        for rec in apply_bench.cg_update_run(dtype, dev):
+            print(json.dumps({"cg_update_times": rec}), flush=True)
+            if not rec["bitwise"]:
+                raise AssertionError(f"CG update timing run: {rec}")
+            if rec["case"] == "rows":
+                out[dtype] = rec
+    return out
 
 
 def launch_counts() -> dict:
@@ -893,6 +1048,7 @@ def gspmd_phase(dev) -> int:
         calls = dict(SlabStencil.calls)
         phase_record("gspmd", t1, ms, solver, states[-1],
                      _last_scale(N_CONV_EVOLVING))
+        held_to_plain("gspmd", lambda: FixedStressSolver(sdisc, data))
     check_steps(states, stats, sdisc, N_CONV_EVOLVING)
     mech = sum(s.mech_cg_iterations for s in stats)
     rec = {"gspmd": {"setup_and_reference_s": t1 - t0,
@@ -960,6 +1116,7 @@ def sharded_path_phase(dev, rows_states, rows_stats, rows_ms,
         calls = dict(SlabStencil.calls)
         phase_record("sharded", t0, ms, solver, states[-1],
                      _last_scale(N_SHARDED_EVOLVING))
+        held_to_plain("sharded", lambda: FixedStressSolver(sdisc, data))
     print(f"sharded path: initial_state + {N_SHARDED_EVOLVING} evolving + "
           f"{N_SHARDED_STEADY} steady steps in {wall:.2f} s, launches "
           f"{launches}, slab form {slab}, whole-grid modes {modes}, gspmd "
@@ -1043,6 +1200,7 @@ def conv_phase(dev, rows_states) -> tuple:
           f"{dict(solver.graphs.replays)}", flush=True)
     check_steps(states, stats, disc, N_CONV_EVOLVING)
     captured_vs_eager("conv", solver, disc, data)
+    held_to_plain("conv", lambda: FixedStressSolver(disc, data))
     mech = sum(s.mech_cg_iterations for s in stats)
     if launches["elasticity_grid_apply"] < mech:
         raise AssertionError(f"conv backend: the flat kernel launched "
@@ -1762,6 +1920,7 @@ def generic_phase(dev) -> tuple:
         "replays": dict(solver.graphs.replays)}}), flush=True)
     check_steps(run[0], run[1], disc, N_GENERIC_EVOLVING)
     captured_vs_eager("generic", solver, disc, data, captured_run=run)
+    held_to_plain("generic", lambda: FixedStressSolver(disc, data))
     states, stats = run[0], run[1]
     del solver, run
     gc.collect()
@@ -1871,6 +2030,7 @@ def psum_phase(dev, disc, ref_states, ref_stats) -> None:
                                       N_GENERIC_STEADY, log=True)
         phase_record("psum", t0, ms, solver, states[-1],
                      _last_scale(N_GENERIC_EVOLVING))
+        held_to_plain("psum", lambda: FixedStressSolver(sdisc, data))
     check_steps(states, stats, sdisc, N_GENERIC_EVOLVING)
     print(json.dumps({"psum_setup": {"shard_s": t1 - t0,
                                      "cells": list(sdisc.cells)}}),
@@ -2022,6 +2182,7 @@ def ghost_phase(dev, disc, ref_states, ref_stats) -> None:
         comm = dataclasses.asdict(sdisc.kit.comm)
         phase_record("ghost", t0, ms, solver, states[-1],
                      _last_scale(N_GENERIC_EVOLVING))
+        held_to_plain("ghost", lambda: FixedStressSolver(sdisc, data))
     check_steps(states, stats, sdisc, N_GENERIC_EVOLVING)
     n_steps = N_GENERIC_EVOLVING + N_GENERIC_STEADY
     print(json.dumps({"ghost_setup": {
@@ -3184,6 +3345,10 @@ def refinement_check(dev) -> None:
         cm.reset_launch_counts()
         states, stats, ms = run_steps(solver, N_OPT_EVOLVING, 0, log=False)
         check_steps(states, stats, disc, N_OPT_EVOLVING)
+        if mode == "on":
+            # the f32 inner solves: flat Jacobi-CG, batched mass CG
+            held_to_plain("refinement", lambda: FixedStressSolver(disc,
+                                                                  data))
         runs[mode] = {"states": states, "rec": {
             "setup_s": setup_s, "ms": ms,
             "counts": [_counts(x) for x in stats],
@@ -3346,6 +3511,7 @@ def structured_options_phase(dev, rows_step1, conv_step1, rows_ms) -> None:
 
 TENSOR_CORE_OP = re.compile(r"\b([DHIBQ]G?MMA)\b")
 TMA_LOAD_OP = re.compile(r"\bUTMALDG\b")
+FMA_OP = re.compile(r"\b[DF]FMA\b")
 
 
 def sass_check(lib_path: Path) -> dict:
@@ -3357,21 +3523,25 @@ def sass_check(lib_path: Path) -> dict:
     float32 kernel any tensor-core instruction (no TF32); and every
     instance of the generic product passes (elasticity and Q1, float32 and
     float64, 2D and 3D, the Q1 pass's one- and six-lane, mass and
-    Laplacian instances) its tiles' TMA loads (UTMALDG)."""
+    Laplacian instances) its tiles' TMA loads (UTMALDG); and no instance
+    of the Jacobi-CG update's two kernels (float32 and float64, packed and
+    one value a thread) a fused multiply-add (DFMA, FFMA), which would round
+    otherwise than the plain torch update they equal bitwise."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True).stdout
-    ops, tma, name = {}, {}, None
+    ops, tma, fma, name = {}, {}, {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            ops[name], tma[name] = {}, 0
+            ops[name], tma[name], fma[name] = {}, 0, 0
         elif name is not None:
             for op in TENSOR_CORE_OP.findall(line):
                 ops[name][op] = ops[name].get(op, 0) + 1
             tma[name] += len(TMA_LOAD_OP.findall(line))
+            fma[name] += len(FMA_OP.findall(line))
     # mangled (kernelId / kernelIf, row count Li81E / Li48E) or demangled
     # (kernel<double, 81 / kernel<float); the layout by its struct's name
     products64 = [k for k in ops if re.search(
@@ -3386,8 +3556,15 @@ def sass_check(lib_path: Path) -> dict:
     float32 = [k for k in ops if re.search(r"kernel(If|<float)", k)]
     generic = [k for k in ops if re.search(
         r"generic_(elasticity|q1)_products_kernel", k)]
-    rec = {"sass": ops, "utmaldg": {k: tma[k] for k in generic}}
+    update = [k for k in ops if re.search(
+        r"cg_(jacobi_step|direction)_kernel", k)]
+    rec = {"sass": ops, "utmaldg": {k: tma[k] for k in generic},
+           "cg_update_fma": {k: fma[k] for k in update}}
     print(json.dumps(rec), flush=True)
+    # 2 kernels x 2 dtypes x (16-byte packs, one value a thread)
+    if len(update) != 8 or any(fma[k] for k in update):
+        raise AssertionError(f"CG update kernels missing or contracted: "
+                             f"{rec['cg_update_fma']}")
     # elasticity: 2 dtypes x 2 dims; Q1: 2 dtypes x 2 dims x (1 lane, 6)
     # x (the mass alone, with the Laplacian)
     if len(generic) != 20 or not all(tma[k] > 0 for k in generic):
@@ -3471,6 +3648,7 @@ def main() -> int:
           flush=True)
 
     sass_check(lib.path)
+    cg_records = timed_phase("cg update", cg_update_phase, dev)
     records = {}
     slab_rec = None
     for n in KERNEL_SHAPES_N:
@@ -3564,6 +3742,22 @@ def main() -> int:
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+    # the main path's float64 row-layout vector, after an L2 flush; one
+    # launch of each kernel a fused iteration, so half the counter each
+    rec = cg_records[torch.float64]
+    for kernel, timed in (("cg_jacobi_step_kernel", "step"),
+                          ("cg_direction_kernel", "direction")):
+        summary.append({
+            "name": kernel, "route": "cuda",
+            "source": "poroelasticity_dealii_torch/csrc/cg_update.cu",
+            "replaces": "no TPU kernel: XLA fuses the JAX package's CG "
+                        "vector algebra",
+            "launches": launches["cg_update"] // 2, "max_abs_err": 0.0,
+            "dtype": rec["dtype"], "ms": rec["ms"][f"{timed}_kernel"],
+            "warm_ms": rec["warm_ms"][f"{timed}_kernel"],
+            "plain_ms": rec["ms"][f"{timed}_plain"],
+            "bound_ms": rec["bound_ms"][f"{timed}_kernel"],
+            "bound_by": "bytes", "library_ms": None})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
           flush=True)
     print(json.dumps({"kernels": summary}), flush=True)

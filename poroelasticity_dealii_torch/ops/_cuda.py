@@ -27,7 +27,8 @@ import torch
 from ..utils import profiling
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "comp_major.cu", _PKG / "csrc" / "generic.cu")
+SOURCES = (_PKG / "csrc" / "cg_update.cu", _PKG / "csrc" / "comp_major.cu",
+           _PKG / "csrc" / "generic.cu")
 # headers the sources include: part of the build's hash
 HEADERS = (_PKG / "csrc" / "cell_products.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
@@ -59,6 +60,12 @@ _SIGNATURES = {
     # alpha, beta, dim, lanes, input length, E, V, output length, grid
     "generic_q1_apply": (_P, _P, _P, _P, _P, _D, _D, _I, _I, _I, _I, _I,
                          _I, _I, _P),
+    # cg_update.cu: x, r, p, ap, dinv, alpha, active, x_out, r_out, z_out,
+    # n, lane length, blocks per lane, 16-byte packs
+    "cg_jacobi_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _I, _P),
+    # z, p, beta, active, p_out, n, lane length, blocks per lane, packs
+    "cg_direction": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 # generic.cu's tensor-map encoder (no dtype suffix, no stream): the host

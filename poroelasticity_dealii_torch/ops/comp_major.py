@@ -305,10 +305,11 @@ KERNEL_WRAPPERS = (elasticity_rows_apply, coupling_rows, projection_rows,
 # the launch counters (``"launches"`` in the recorder's registry): each
 # wrapper's by its name, ``elasticity_rows_apply``'s on the whole grid by
 # mode (UNMASKED = K5, FREE = K1, CONSTRAINED = K2) and of K5's slab form,
-# and the flat apply's slab mode's
+# the flat apply's slab mode's, and the Jacobi-CG update's two kernels'
+# (:mod:`.cg_update`)
 LAUNCH_KEYS = tuple(fn.__name__ for fn in KERNEL_WRAPPERS) + tuple(
-    ("mode", m) for m in (UNMASKED, FREE, CONSTRAINED)) + ("slab",
-                                                             "grid_slab")
+    ("mode", m) for m in (UNMASKED, FREE, CONSTRAINED)) + (
+        "slab", "grid_slab", "cg_update")
 
 
 def reset_launch_counts() -> None:
@@ -318,8 +319,9 @@ def reset_launch_counts() -> None:
 def launch_counts() -> dict:
     """Every launch counter of the kernel wrappers (:data:`LAUNCH_KEYS`):
     each wrapper's by its name, ``elasticity_rows_apply``'s by mode
-    (``("mode", m)``) and its slab form's (``"slab"``), and the flat
-    apply's slab mode's (``"grid_slab"``)."""
+    (``("mode", m)``) and its slab form's (``"slab"``), the flat apply's
+    slab mode's (``"grid_slab"``), and the CG update's (``"cg_update"``,
+    two a fused iteration)."""
     c = profiling.RECORDER.counts
     return {k: c[("launches", k)] for k in LAUNCH_KEYS}
 

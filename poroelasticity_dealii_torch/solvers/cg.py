@@ -14,7 +14,11 @@ convergence change nothing, and the host reads one flag per chunk
 iterations under the call site's name: ``graph_key``'s first item, else
 the solver's).  With a :class:`.cuda_graphs.ChunkGraphs`
 each chunk is the replay of a captured CUDA graph.  The batched form gives
-each right-hand side its own tolerance and count.  :func:`richardson_solve`
+each right-hand side its own tolerance and count.  A Jacobi (Fletcher-Reeves)
+iteration runs its vector update after the apply as one piece: on CUDA
+vectors the kernels of :mod:`..ops.cg_update` (:func:`_jacobi_update_cuda`),
+else plain torch (:func:`_jacobi_update_plain`), bit for bit the same; the
+chunks count its iterations under ``fused_steps``.  :func:`richardson_solve`
 keeps the same device-resident state and chunks, on one right-hand side or
 a batch.
 """
@@ -22,11 +26,13 @@ a batch.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
 
 import numpy as np
 import torch
 
+from ..ops import cg_update
 from .cuda_graphs import run_chunks
 
 
@@ -88,6 +94,62 @@ def _tol64(tol, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(np.asarray(tol, np.float64), device=like.device)
 
 
+def _jacobi_update_plain(x, r, p, ap, rz, rnorm, dinv, active, dot, norm,
+                         pre=None, flexible=False):
+    """The CG iteration after its apply ``ap = A p``: the new ``(x, r, p,
+    rz, rnorm)``, each left as it was where ``active`` is false.  ``rz``,
+    ``rnorm`` and ``active`` are 0-d, or one per lane of a batch ``(n_rhs,
+    n)``; ``dinv`` is the Jacobi inverse diagonal, or ``pre`` the
+    preconditioner; ``flexible``: Polak-Ribiere beta clipped at 0, else
+    Fletcher-Reeves; ``dot`` and ``norm`` as :func:`cg_solve` (a batch's:
+    one value per lane).  Plain torch: every iteration on the CPU, and the
+    operator-preconditioned and flexible ones everywhere; with ``dinv`` and
+    Fletcher-Reeves, the twin of :func:`_jacobi_update_cuda`."""
+    lane = (lambda t: t[:, None]) if active.dim() else (lambda t: t)
+    alpha = rz / dot(p, ap)
+    x_new = x + lane(alpha) * p
+    r_new = r - lane(alpha) * ap
+    z = r_new * dinv if pre is None else pre(r_new)
+    rz_new = dot(r_new, z)
+    if flexible:
+        beta = torch.clamp(dot(z, r_new - r) / rz, min=0.0)
+    else:
+        beta = rz_new / rz
+    p_new = z + lane(beta) * p
+    a = lane(active)
+    return (torch.where(a, x_new, x), torch.where(a, r_new, r),
+            torch.where(a, p_new, p), torch.where(active, rz_new, rz),
+            torch.where(active, norm(r_new), rnorm))
+
+
+def _jacobi_update_cuda(x, r, p, ap, rz, rnorm, dinv, active, dot, norm):
+    """:func:`_jacobi_update_plain`'s Jacobi, Fletcher-Reeves update with
+    its vector algebra in two kernels (:mod:`..ops.cg_update`), each
+    element rounded as there: the same bits.  The dots and the norm read
+    the frozen residual ``r_out`` for ``r_new``; the two differ only where
+    ``active`` is false, whose values the freeze discards."""
+    alpha = rz / dot(p, ap)
+    # an apply or a caller's vectors may be strided (a no-op when
+    # contiguous)
+    x, r_out, z = cg_update.jacobi_step(
+        x.contiguous(), r.contiguous(), p.contiguous(), ap.contiguous(),
+        dinv.contiguous(), alpha, active)
+    rz_new = dot(r_out, z)
+    p = cg_update.direction(z, p.contiguous(), rz_new / rz, active)
+    return (x, r_out, p, torch.where(active, rz_new, rz),
+            torch.where(active, norm(r_out), rnorm))
+
+
+def _jacobi_update(b: torch.Tensor, dinv: torch.Tensor, batched: bool):
+    """The update a Jacobi, Fletcher-Reeves CG solve of right-hand side
+    ``b`` runs: the kernels on CUDA vectors, which raise on what they do
+    not take (:func:`..ops.cg_update.check`), else the plain twin."""
+    if b.device.type != "cuda":
+        return _jacobi_update_plain
+    cg_update.check(b, dinv, batched)
+    return _jacobi_update_cuda
+
+
 def cg_solve(apply_a: Callable, b: torch.Tensor, x0: torch.Tensor,
              diag: torch.Tensor = None, tol=0.0, max_iter: int = 1000,
              precond: Callable = None, apply_iter: Callable = None,
@@ -118,6 +180,11 @@ def cg_solve(apply_a: Callable, b: torch.Tensor, x0: torch.Tensor,
     consts = (_tol64(tol, b),)
     if precond is None:
         consts += (1.0 / diag,)    # a per-solve input of a captured chunk
+    if precond is None and not flexible:
+        update = _jacobi_update(b, consts[1], False)
+    else:
+        update = functools.partial(_jacobi_update_plain, pre=precond,
+                                   flexible=flexible)
 
     def pre(r, consts):
         return precond(r) if precond is not None else r * consts[1]
@@ -136,28 +203,17 @@ def cg_solve(apply_a: Callable, b: torch.Tensor, x0: torch.Tensor,
     def step(state, consts):
         k, x, r, p, rz, rnorm = state
         active = cond(state, consts)
-        ap = apply_iter(p)
-        alpha = rz / dot(p, ap)
-        x_new = x + alpha * p
-        r_new = r - alpha * ap
-        z = pre(r_new, consts)
-        rz_new = dot(r_new, z)
-        if flexible:
-            beta = torch.clamp(dot(z, r_new - r) / rz, min=0.0)
-        else:
-            beta = rz_new / rz
-        p_new = z + beta * p
-        return (k + active.long(), torch.where(active, x_new, x),
-                torch.where(active, r_new, r), torch.where(active, p_new, p),
-                torch.where(active, rz_new, rz),
-                torch.where(active, norm(r_new), rnorm))
+        dinv = consts[1] if precond is None else None
+        return (k + active.long(), *update(x, r, p, apply_iter(p), rz, rnorm,
+                                            dinv, active, dot, norm))
 
+    fused = update is _jacobi_update_cuda
     key = None if graphs is None else (
         *graph_key, "cg", b.dtype, tuple(b.shape), max_iter, flexible,
-        precond is None)
+        precond is None, fused)
     k, x, _, _, _, rnorm = run_chunks(init, step, cond, (b, x0), consts,
                                       max_iter, chunk, graphs, key,
-                                      _site(graph_key, "cg"))
+                                      _site(graph_key, "cg"), fused)
     converged = rnorm.double() <= consts[0]
     return CGResult(x=x, iterations=k, residual_norm=rnorm,
                     converged=converged, stalled=torch.zeros_like(converged))
@@ -234,6 +290,7 @@ def cg_solve_batched(apply_a: Callable, b: torch.Tensor, x0: torch.Tensor,
     active.  ``dot``, ``norm``: one inner product and one residual norm
     per lane (the ghost kit passes its all-reduced ones)."""
     consts = (_tol64(tol, b), 1.0 / diag)
+    update = _jacobi_update(b, consts[1], True)
 
     def init(inputs, consts):
         b, x0 = inputs
@@ -249,24 +306,15 @@ def cg_solve_batched(apply_a: Callable, b: torch.Tensor, x0: torch.Tensor,
     def step(state, consts):
         k, x, r, p, rz, rnorm = state
         active = lanes(state, consts)
-        ap = apply_a(p)
-        alpha = rz / dot(p, ap)
-        x_new = x + alpha[:, None] * p
-        r_new = r - alpha[:, None] * ap
-        z = r_new * consts[1]
-        rz_new = dot(r_new, z)
-        p_new = z + (rz_new / rz)[:, None] * p
-        a = active[:, None]
-        return (k + active.long(), torch.where(a, x_new, x),
-                torch.where(a, r_new, r), torch.where(a, p_new, p),
-                torch.where(active, rz_new, rz),
-                torch.where(active, norm(r_new), rnorm))
+        return (k + active.long(), *update(x, r, p, apply_a(p), rz, rnorm,
+                                            consts[1], active, dot, norm))
 
+    fused = update is _jacobi_update_cuda
     key = None if graphs is None else (
-        *graph_key, "cg_batched", b.dtype, tuple(b.shape), max_iter)
+        *graph_key, "cg_batched", b.dtype, tuple(b.shape), max_iter, fused)
     k, x, _, _, _, rnorm = run_chunks(
         init, step, lambda s, c: lanes(s, c).any(), (b, x0), consts,
-        max_iter, chunk, graphs, key, _site(graph_key, "cg_batched"))
+        max_iter, chunk, graphs, key, _site(graph_key, "cg_batched"), fused)
     converged = rnorm.double() <= consts[0]
     return CGResult(x=x, iterations=k, residual_norm=rnorm,
                     converged=converged, stalled=torch.zeros_like(converged))

@@ -8,8 +8,10 @@ per chunk and reads the flag on the host once per chunk: the only host read
 of the loop.  Because a frozen step changes nothing, the result equals the
 one-step-per-read loop bit for bit.  Each solve counts its flag reads under
 ``host_reads[site]`` and the steps its chunks ran, frozen ones included,
-under ``chunk_steps[site]`` (:mod:`..utils.profiling`; ``site`` the call
-site's name), adding both to the recorder once, at its end, and while a
+under ``chunk_steps[site]``, and those steps again under
+``fused_steps[site]`` when its iteration runs the fused Jacobi-CG update
+(:mod:`..utils.profiling`; ``site`` the call site's name), adding them to
+the recorder once, at its end, and while a
 profiler records it opens the leaf spans ``cg.solve``, ``cg.host_read``
 and, per graph replay, ``cg.replay``.
 
@@ -54,7 +56,7 @@ from ..utils import profiling
 def run_chunks(init: Callable, step: Callable, cond: Callable,
                inputs: tuple, consts: tuple, budget: int, size: int,
                graphs: "ChunkGraphs" = None, key=None,
-               site: str = "cg") -> tuple:
+               site: str = "cg", fused: bool = False) -> tuple:
     """From ``state = init(inputs, consts)``, apply ``step(state, consts)``
     in chunks of at most ``size`` while the host reads ``cond(state,
     consts)`` true at the chunk's start, at most ``budget`` times in all;
@@ -63,11 +65,13 @@ def run_chunks(init: Callable, step: Callable, cond: Callable,
     A chunk is cut to the budget left: a true flag means every step so far
     was live, so the host knows the count.  With ``graphs``, the start and
     each chunk are replays under ``key``, whose first item is ``site``
-    (:meth:`ChunkGraphs.run`)."""
+    (:meth:`ChunkGraphs.run`).  ``fused``: ``step`` runs the fused
+    Jacobi-CG update (:func:`.cg._jacobi_update_cuda`), counted under
+    ``fused_steps``."""
     with profiling.leaf("cg.solve", site):
         if graphs is not None:
             return graphs.run(key, init, step, cond, inputs, consts, budget,
-                              size)
+                              size, fused)
         state = init(inputs, consts)
         done = reads = 0
         while done < budget:
@@ -79,9 +83,17 @@ def run_chunks(init: Callable, step: Callable, cond: Callable,
             for _ in range(n):
                 state = step(state, consts)
             done += n
-        profiling.count("host_reads", site, reads)
-        profiling.count("chunk_steps", site, done)
+        _count_steps(site, reads, done, fused)
         return state
+
+
+def _count_steps(site: str, reads: int, done: int, fused: bool) -> None:
+    """Add one solve's flag reads and chunk steps (and, for a fused update,
+    its fused steps) to the recorder."""
+    profiling.count("host_reads", site, reads)
+    profiling.count("chunk_steps", site, done)
+    if fused:
+        profiling.count("fused_steps", site, done)
 
 
 @dataclasses.dataclass
@@ -121,7 +133,7 @@ class ChunkGraphs:
         self._sites.clear()
 
     def run(self, key, init, step, cond, inputs, consts, budget,
-            size) -> tuple:
+            size, fused=False) -> tuple:
         """:func:`run_chunks` with the start and each chunk a graph
         replay."""
         site = self._sites.get(key)
@@ -145,7 +157,7 @@ class ChunkGraphs:
             self._replay(site, key, n, step, cond)
             replayed[n] = replayed.get(n, 0) + 1
             done += n
-        self._count(site, key[0], replayed, reads, done)
+        self._count(site, key[0], replayed, reads, done, fused)
         return tuple(t.clone() for t in site.state)
 
     def _replay(self, site, key, which, fn, cond) -> None:
@@ -156,16 +168,15 @@ class ChunkGraphs:
         with profiling.leaf("cg.replay", key[0], which):
             site.graphs[which].replay()
 
-    def _count(self, site, name, replayed, reads, done) -> None:
+    def _count(self, site, name, replayed, reads, done, fused) -> None:
         """Add one solve's counts: the launches of its replays (``replayed``
         by graph), the replays, its flag reads and the steps its chunks
-        ran."""
+        ran (fused ones too)."""
         for which, m in replayed.items():
             cm.add_launch_counts(
                 {k: v * m for k, v in site.deltas[which].items()})
         self.replays[name] += sum(replayed.values())
-        profiling.count("host_reads", name, reads)
-        profiling.count("chunk_steps", name, done)
+        _count_steps(name, reads, done, fused)
 
     def _capture(self, site, key, which, fn, cond) -> None:
         """Capture the start (``which == "init"``, ``fn = init``: inputs

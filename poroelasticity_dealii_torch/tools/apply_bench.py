@@ -2,6 +2,7 @@
 counterpart of ``scripts/pallas_apply_bench.py``):
 
     python -m poroelasticity_dealii_torch.tools.apply_bench [n] [generic]
+    python -m poroelasticity_dealii_torch.tools.apply_bench 40 cg_update
 
 prints CUDA-event times per apply at ``n`` cells per axis (default 40,
 float32) of the conv backend's plain stencil (``disc.elasticity`` built
@@ -22,8 +23,11 @@ pass and the plan sum, from ``torch.profiler``; calls back to back and
 calls after an L2 flush) and its least host enqueue per call.  To
 compare two trees on one card, run it in each checkout, parent, change,
 change, parent, in one command (an older checkout with this file copied
-into its ``tools/``).  It needs a CUDA device; :func:`run` and
-:func:`generic_run` also take the CPU for tests, with no times.
+into its ``tools/``).  With ``cg_update`` it times the Jacobi-CG
+iteration's update, plain against fused, at the benchmark's vector sizes,
+after an L2 flush and back to back (:func:`cg_update_run`).  It needs a
+CUDA device; :func:`run` and :func:`generic_run` also take the CPU for
+tests, with no times.
 
 :func:`library_csr` (structured grids), :func:`generic_library_csr`
 (generic meshes), :func:`spmv_ms` and :func:`spmm_ms` give every
@@ -842,6 +846,114 @@ def generic_run(n: int = 40, device="cuda", reps: int = 20,
     return out
 
 
+# the Jacobi-CG update's vectors in the benchmark's 40^3 cells: the row
+# layout's mechanics vector (14.1 MB in float64), the distorted mesh's flat
+# one (12.75 MB) and the projection's batch of six Q1 vectors
+CG_UPDATE_SHAPES = {"rows": (984, 1792), "flat": (1_594_323,),
+                    "batched": (6, 68_921)}
+
+
+def flushed_ms(fn, reps: int = 10, calls: int = 10) -> float:
+    """Median device ms of one ``fn()`` that starts from an L2 holding none
+    of its operands: each call follows a read of :data:`FLUSH_BYTES` of
+    other data, outside the call's pair of CUDA events; a sleep kernel
+    holds the stream until the host has enqueued the window, as in
+    :func:`device_and_host_ms`."""
+    other = torch.ones(FLUSH_BYTES // 4, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    other.sum()
+    fn()
+    host0 = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(min(4e9 * calls * host0 + 2e6, 4e9))
+    dev = []
+    for _ in range(reps):
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in range(calls)]
+        torch.cuda._sleep(cycles)
+        for a, b in events:
+            other.sum()
+            a.record()
+            fn()
+            b.record()
+        events[-1][1].synchronize()
+        dev += [a.elapsed_time(b) for a, b in events]
+    return float(np.median(dev))
+
+
+def cg_update_run(dtype=torch.float64, device="cuda", reps: int = 20):
+    """Per-call device ms of the Jacobi-CG iteration's update after its
+    apply (:data:`CG_UPDATE_SHAPES`), each call from an L2 that holds none
+    of its operands (:func:`flushed_ms`; ``warm_ms``: back to back, the
+    vectors partly in L2): the plain body
+    (``solvers/cg.py::_jacobi_update_plain``) against the fused one
+    (``_jacobi_update_cuda``: two kernels, the dots and the norm), each
+    whole; each kernel alone and its plain torch twin (the same outputs in
+    plain torch), its least bytes (every vector it reads or writes once:
+    eight and three vectors, the batch's diagonal one lane), the bound
+    bytes / :data:`PEAK_BYTES` and GB/s; whether the two bodies agree
+    bitwise.  Yields one record per shape."""
+    from ..ops import cg_update
+    from ..solvers import cg as tcg
+    for name, shape in CG_UPDATE_SHAPES.items():
+        g = torch.Generator().manual_seed(3)
+
+        def vec(sh=shape):
+            return torch.randn(sh, generator=g, dtype=torch.float64).to(
+                dtype).to(device)
+        batched = name == "batched"
+        x, r, p, ap = vec(), vec(), vec(), vec()
+        d = vec(shape[1:] if batched else shape).abs() + 0.5
+        if batched:
+            dot, norm = tcg.LocalReductions.lane_dot, tcg.lane_norm
+        else:
+            dot, norm = tcg.LocalReductions.dot, torch.linalg.norm
+        active = torch.ones(shape[:1] if batched else (), dtype=torch.bool,
+                            device=device)
+        lane = (lambda t: t[:, None]) if batched else (lambda t: t)
+        rz, rnorm = dot(r, r * d), norm(r)
+        args = (x, r, p, ap, rz, rnorm, d, active, dot, norm)
+        alpha = rz / dot(p, ap)
+        _, _, z = cg_update.jacobi_step(x, r, p, ap, d, alpha, active)
+
+        def step_plain():
+            r_new = r - lane(alpha) * ap
+            return (torch.where(lane(active), x + lane(alpha) * p, x),
+                    torch.where(lane(active), r_new, r), r_new * d)
+        calls = {
+            "plain": lambda: tcg._jacobi_update_plain(*args),
+            "fused": lambda: tcg._jacobi_update_cuda(*args),
+            "step_kernel": lambda: cg_update.jacobi_step(
+                x, r, p, ap, d, alpha, active),
+            "step_plain": step_plain,
+            "direction_kernel": lambda: cg_update.direction(
+                z, p, alpha, active),
+            "direction_plain": lambda: torch.where(
+                lane(active), z + lane(alpha) * p, p)}
+        ms = {k: flushed_ms(fn, reps // 2) for k, fn in calls.items()}
+        warm = {k: cuda_time_ms(fn, reps) for k, fn in calls.items()}
+        size = x.element_size()
+        nbytes = {"step_kernel": (7 * x.numel() + d.numel()) * size,
+                  "direction_kernel": 3 * x.numel() * size}
+        gbs = {k: nbytes[k] / ms[k] / 1e6 for k in nbytes}
+        same = all(torch.equal(u, v) for u, v in zip(
+            tcg._jacobi_update_plain(*args), tcg._jacobi_update_cuda(*args)))
+        yield {"case": name, "shape": list(shape), "dtype": str(dtype),
+               "vector_mb": x.numel() * size / 1e6,
+               "device": torch.cuda.get_device_name(x.device),
+               "ms": ms, "warm_ms": warm, "bytes": nbytes,
+               "bound_ms": {k: v / PEAK_BYTES * 1e3
+                            for k, v in nbytes.items()},
+               "gb_per_s": gbs,
+               "peak_share": {k: v * 1e9 / PEAK_BYTES
+                              for k, v in gbs.items()},
+               "kernels_ms": ms["step_kernel"] + ms["direction_kernel"],
+               "bitwise": same}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     n = int(argv[0]) if argv else 40
@@ -851,6 +963,11 @@ def main(argv=None) -> int:
     if argv[1:] == ["generic"]:
         for rec in generic_run(n, passes=True):
             print(json.dumps(rec), flush=True)
+        return 0
+    if argv[1:] == ["cg_update"]:
+        for dtype in (torch.float64, torch.float32):
+            for rec in cg_update_run(dtype):
+                print(json.dumps(rec), flush=True)
         return 0
     rec = run(n)
     print(f"# {rec['device']} n={n} {rec['dtype']} dofs={rec['dofs']}")

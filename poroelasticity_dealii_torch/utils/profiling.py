@@ -13,7 +13,9 @@
   solve's end (:mod:`..solvers.cuda_graphs`);
 * ``("chunk_steps", site)``: the iterations the chunks at a CG call site
   ran, frozen ones included, known on the host from the chunk lengths and
-  added the same way.
+  added the same way;
+* ``("fused_steps", site)``: those of them that ran the fused Jacobi-CG
+  update (:mod:`..ops.cg_update`), added beside ``chunk_steps``.
 
 **Spans.** A span has a name, the attributes it was opened with, a start
 and an end in ns on one host clock (``time.time_ns()``), and its parent;
