@@ -13,14 +13,21 @@ one call a step at the deck's load, u asked for on the episode's last
 step only, each step
 ended by ``torch.cuda.synchronize()`` and timed by the host clock.  It
 ends with the first episode that ends after ``seconds``.  With ``trace``
-two episodes (:data:`TRACE_EPISODES`) run under ``torch.profiler``, and
-the per-layer metrics are read from that trace and the program's
-counters.
+the mix's traced episodes (``trace_episodes``, :mod:`.traffic`) run under
+``torch.profiler``, and the per-layer metrics are read from that trace
+and the program's counters.
+
+A system whose mesh changes within an episode runs the episode itself
+(``System.episode``, see :class:`Ran`): a remesh counts in the wall of
+the step it comes before, and the system's return to the start mesh
+before each episode is set-up, left out of ``step_ms``.
 
 Then the program's state is freed and the states of three episodes of the
-window (the first, one drawn from the seed among the next seven, the last)
-are judged against the reference (``portbench/reference/``), built from
-the same deck values and mesh arrays.
+window (the first, one drawn from the seed among the next ``drawn_max``
+- 1, the last) are judged against the reference
+(``portbench/reference/``), built from the same deck values and mesh
+arrays; an episode whose mesh changes is judged mesh by mesh, with each
+remesh's marks and transfer (:func:`judge_segments`).
 """
 
 from __future__ import annotations
@@ -35,15 +42,11 @@ import time
 import numpy as np
 import torch
 
-from . import spec, tracing, traffic, work
-from .reference import fem, judge
+from . import meshes, spec, tracing, traffic, work
+from .reference import fem, hanging, judge, remesh
 
-# the seed draws one checked episode from episodes 1 .. DRAWN_MAX - 1
-DRAWN_MAX = 8
-# the episodes of the window under the profiler in a traced run: after
-# the drawn one, so that the states kept for the check no longer grow the
-# caching allocator (its cudaMalloc calls would read as idle device time)
-TRACE_EPISODES = (DRAWN_MAX, DRAWN_MAX + 1)
+# the fields a remesh carries over (the source's SolutionTransfer)
+TRANSFERRED = ("p", "eps_v", "eps_v0")
 FORBIDDEN = ("jax", "jaxlib", "flax", "poroelasticity_dealii_tpu")
 
 
@@ -65,11 +68,50 @@ def _streams(seed: int):
 class Context:
     """What a per-layer metric's reader reads: every step's counts, the
     trace of the traced episodes, the program's launch counters over
-    them, and the sizes the kernels' least work counts."""
+    them, the sizes the kernels' least work counts, and every step's
+    segment (0 on the episode's start mesh, one more after each
+    remesh)."""
     stats: list
     trace: dict = None
     launches: dict = None
     sizes: dict = None
+    segments: list = None
+
+
+@dataclasses.dataclass
+class Segment:
+    """The mesh a run of an episode's steps lives on: its arrays, the
+    coordinates of its Q1 and Q2 nodes in the program's order, the state
+    its first step starts from (the episode's start, or what a remesh's
+    transfer gave), and the state before that remesh (on the previous
+    segment's mesh; None on the start mesh).  States are real-sized."""
+    index: int
+    mesh: meshes.HexMesh
+    x_p: np.ndarray
+    x_u: np.ndarray
+    start: object
+    before: object = None
+
+
+@dataclasses.dataclass
+class Ran:
+    """One episode: each step's state, wall (s), counts and
+    :class:`Segment` (None: one mesh all through), and the seconds the
+    system took before the first step to go back to the start mesh."""
+    states: list
+    walls: list
+    stats: list
+    segments: list = None
+    return_s: float = 0.0
+
+
+def _run_episode(system, start, sched, sync) -> Ran:
+    """The system's own episode, or :func:`_episode` for a system
+    without one."""
+    own = getattr(system, "episode", None)
+    if own is None:
+        return Ran(*_episode(system, start, sched, sync))
+    return own(start, sched, sync)
 
 
 def _episode(system, start, sched, sync):
@@ -129,7 +171,8 @@ def prepare(cell: spec.Cell, seed: int, dtype: str = None) -> Inputs:
         deck.setdefault("TPU", {})["Dtype"] = dtype
     props = deck["Properties"]
     props["Flow rate"] = repr(float(props["Flow rate"]) * sched.flow_factor)
-    return Inputs(sched, deck, int(sample_rng.integers(1, DRAWN_MAX)))
+    return Inputs(sched, deck,
+                  int(sample_rng.integers(1, sched.drawn_max)))
 
 
 def reference(hm, numbering: str, deck: dict, dtype, device) -> fem.Problem:
@@ -151,12 +194,101 @@ def judge_episodes(P: fem.Problem, start: dict, episodes) -> dict:
     return numbers
 
 
+def _group(ran: Ran):
+    """An episode's steps split where its mesh changes: (segment, its
+    steps' states)."""
+    groups = []
+    for seg, state in zip(ran.segments, ran.states):
+        if not groups or groups[-1][0] is not seg:
+            groups.append((seg, []))
+        groups[-1][1].append(state)
+    return groups
+
+
+def segment_fields(system, ran: Ran) -> list:
+    """An episode's meshes as the judge reads them: per segment its mesh,
+    node coordinates, start, the state before its remesh and its steps,
+    each state as :meth:`System.fields` gives it."""
+    out = []
+    for seg, states in _group(ran):
+        out.append(dict(
+            mesh=seg.mesh, x_p=seg.x_p, x_u=seg.x_u,
+            start=system.fields(seg.start),
+            before=None if seg.before is None else system.fields(seg.before),
+            steps=[system.fields(s) for s in states]))
+    return out
+
+
+class References:
+    """The reference's problems on the meshes of a run, each built once."""
+
+    def __init__(self, deck: dict, device):
+        self.phys = fem.physics_from_deck(deck)
+        self.device = device
+        self.levels = tuple(int(deck["Mesh"][k]) for k in (
+            "Initial refinement level", "Max refinement level"))
+        self._made = {}
+
+    def __call__(self, hm: meshes.HexMesh):
+        key = (hm.vertices.tobytes(), np.asarray(hm.cells).tobytes())
+        if key not in self._made:
+            P = hanging.Problem(hanging.Mesh(hm.vertices, hm.cells),
+                                self.phys, torch.float64, self.device)
+            self._made[key] = (P, remesh.Boxes(P.mesh.X))
+        return self._made[key]
+
+
+def judge_segments(refs: References, episodes) -> dict:
+    """The worst of each number over ``episodes`` (each a list of
+    :func:`segment_fields`), every segment on the reference's constrained
+    problem of its own mesh; each remesh's marks and transfer judged from
+    the state before it."""
+    numbers = {}
+
+    def note(k, v):
+        numbers[k] = judge.worst(numbers.get(k, v), v)
+    for segments in episodes:
+        prev = None
+        for g in segments:
+            P, B = refs(g["mesh"])
+            read = hanging.Reader(P, g["x_p"], g["x_u"])
+            # a transferred start's u and strains are a solve's warm start
+            start, gap = read(g["start"] if g["before"] is None else {
+                k: g["start"][k] for k in TRANSFERRED})
+            steps = []
+            for s in g["steps"]:
+                fields, g_s = read(s)
+                steps.append(fields)
+                gap = max(gap, g_s)
+            for k, v in judge.judge(P, start, steps,
+                                    at_t0=g["before"] is None).items():
+                note(k, v)
+            note("hanging_gap", gap)
+            if g["before"] is not None:
+                P0, B0 = refs(prev["mesh"])
+                old, _ = hanging.Reader(P0, prev["x_p"], prev["x_u"])(
+                    {k: g["before"][k] for k in TRANSFERRED})
+                cells0 = P0.mesh.q1.cell_nodes
+                old3 = torch.stack([old[k] for k in TRANSFERRED]) \
+                    .cpu().numpy()
+                masters = np.setdiff1d(np.arange(P.n_p), P.mesh.q1.hanging)
+                new3 = torch.stack([start[k] for k in TRANSFERRED]) \
+                    .cpu().numpy()[:, masters]
+                note("transfer_gap", remesh.transfer_gap(
+                    B0, cells0, old3, P.mesh.q1.coords[masters], new3))
+                note("marks_mismatch", remesh.marks_mismatch(
+                    B0, cells0, old3[0], B, *refs.levels))
+            prev = g
+    return numbers
+
+
 @dataclasses.dataclass
 class Window:
-    """What the measured window ran: every step's wall (s) and counts, its
-    length, the states of the episodes kept for the check, and with a
-    trace the profiler, its episodes' wall and steps and the program's
-    launch counters over them."""
+    """What the measured window ran: every step's wall (s), counts and
+    segment, its length and the seconds its episodes spent going back to
+    the start mesh, the episodes kept for the check, and with a trace the
+    profiler, its episodes' wall and steps and the program's launch
+    counters over them."""
     walls: list
     stats: list
     seconds: float
@@ -165,6 +297,8 @@ class Window:
     traced_s: float = 0.0
     traced_steps: int = 0
     launches: dict = None
+    segments: list = dataclasses.field(default_factory=list)
+    returns: float = 0.0
 
 
 def _window(system, start, sched, sync, seconds: float, trace: bool,
@@ -173,10 +307,11 @@ def _window(system, start, sched, sync, seconds: float, trace: bool,
     with ``trace``, the traced episodes have run)."""
     from poroelasticity_dealii_torch.ops import comp_major as cm
     w = Window([], [], 0.0, {})
+    first, last = sched.trace_episodes
     ep, t0 = 0, time.perf_counter()
     while ep == 0 or time.perf_counter() < t0 + seconds or (
-            trace and ep <= TRACE_EPISODES[-1]):
-        if trace and ep == TRACE_EPISODES[0]:
+            trace and ep <= last):
+        if trace and ep == first:
             from torch.profiler import ProfilerActivity, profile
             # on the card, kernels and the runtime calls only: recording
             # every host operator would slow the host-bound loop and read
@@ -187,18 +322,21 @@ def _window(system, start, sched, sync, seconds: float, trace: bool,
             sync()
             w.prof.start()
             t_tr = time.perf_counter()
-        states, walls, stats = _episode(system, start, sched, sync)
-        if trace and TRACE_EPISODES[0] <= ep <= TRACE_EPISODES[-1]:
-            w.traced_steps += len(walls)
-        if trace and ep == TRACE_EPISODES[-1]:
+        ran = _run_episode(system, start, sched, sync)
+        if trace and first <= ep <= last:
+            w.traced_steps += len(ran.walls)
+        if trace and ep == last:
             w.traced_s = time.perf_counter() - t_tr
             w.launches = dict(cm.launch_counts())
             w.prof.stop()
-        w.walls += walls
-        w.stats += stats
+        w.walls += ran.walls
+        w.stats += ran.stats
+        w.segments += [0] * len(ran.walls) if ran.segments is None \
+            else [seg.index for seg in ran.segments]
+        w.returns += ran.return_s
         if ep in (0, drawn):
-            w.kept[ep] = states
-        w.kept["last"] = states
+            w.kept[ep] = ran
+        w.kept["last"] = ran
         ep += 1
     w.seconds = time.perf_counter() - t0
     return w
@@ -219,7 +357,7 @@ def run(root, workload: str, seed: int, seconds: float, trace: bool,
 
     system = cell.system().build(cell.config, inp.deck, device)
     start = system.solver.initial_state()
-    _episode(system, start, sched, sync)                 # warm episode
+    _run_episode(system, start, sched, sync)             # warm episode
     sync()
     setup_s = time.perf_counter() - t0
 
@@ -229,9 +367,14 @@ def run(root, workload: str, seed: int, seconds: float, trace: bool,
     attempted = len(win.walls)
     failed = sum(1 for s in win.stats if not bool(s.cg_converged)
                  or not np.isfinite(float(s.pressure_error)))
-    start_fields = system.fields(start)
-    episodes = [[system.fields(s) for s in states]
-                for states in win.kept.values()]
+    adaptive = hasattr(system, "episode")
+    if adaptive:
+        episodes = [segment_fields(system, ran)
+                    for ran in win.kept.values()]
+    else:
+        start_fields = system.fields(start)
+        episodes = [[system.fields(s) for s in ran.states]
+                    for ran in win.kept.values()]
     hm, numbering, dtype = system.mesh, system.numbering, system.dtype
     win.kept.clear()
     del start, system
@@ -240,10 +383,21 @@ def run(root, workload: str, seed: int, seconds: float, trace: bool,
         torch.cuda.empty_cache()
 
     # the reference, after the window and with the program's state freed
-    P = reference(hm, numbering, inp.deck, torch.float64, device)
-    numbers = judge_episodes(P, start_fields, episodes)
+    if adaptive:
+        refs = References(inp.deck, device)
+        numbers = judge_segments(refs, episodes)
+        P = refs(hm)[0]
+    else:
+        P = reference(hm, numbering, inp.deck, torch.float64, device)
+        numbers = judge_episodes(P, start_fields, episodes)
+    names = judge.NUMBERS + tuple(k for k in judge.ADAPTIVE
+                                  if k in cell.limits)
+    missing = [k for k in names if k not in numbers]
+    if missing:
+        raise ValueError(f"portbench: the limits of {workload} name "
+                         f"{missing}, which no judged episode gives")
     checks = {k: {"value": numbers[k], "limit": float(cell.limits[k])}
-              for k in judge.NUMBERS}
+              for k in names}
     correct = all(c["value"] <= c["limit"] for c in checks.values())
 
     dev = {"platform": "gpu" if cuda else "cpu",
@@ -255,7 +409,8 @@ def run(root, workload: str, seed: int, seconds: float, trace: bool,
     if trace:
         summary = tracing.summarize(win.prof.events(), win.traced_s * 1e6,
                                     win.traced_steps)
-        ctx = Context(win.stats, summary, win.launches, _sizes(P, hm, dtype))
+        ctx = Context(win.stats, summary, win.launches, _sizes(P, hm, dtype),
+                      win.segments)
         for m in cell.per_layer:
             value = cell.reader(m["name"]).read(ctx)
             if value is not None:
@@ -266,7 +421,8 @@ def run(root, workload: str, seed: int, seconds: float, trace: bool,
         extra["breakdown"] = tracing.breakdown(summary)
     else:
         values = {"setup_s": setup_s,
-                  "step_ms": win.seconds * 1e3 / attempted,
+                  "step_ms": (win.seconds - win.returns) * 1e3
+                  / attempted,
                   "step_ms_p95": float(np.percentile(win.walls, 95)) * 1e3}
         for m in cell.end_to_end:
             metrics[m["name"]] = {"value": values[m["name"]],

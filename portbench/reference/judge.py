@@ -22,7 +22,18 @@ reference built itself.  Three numbers, each the worst over the states:
 
 The start state is judged at the deck's initial pressure.  A step is
 judged from the state before it: its pressure is the step's old pressure,
-and the flow equation takes the start state's t = 0 strain.
+and the flow equation takes the start state's t = 0 strain.  After a
+remesh the start is the transferred state (:mod:`.remesh` judges the
+transfer): its pressure is the first step's old pressure and the
+predictor's origin, its strains the predictor's start and the t = 0
+strain; its displacement and strains are a solve's warm start and are
+not judged.
+
+Adaptive meshes add three numbers, each compared only for a cell whose
+limits name it (:data:`ADAPTIVE`): ``hanging_gap``, the largest distance
+of a hanging value from its masters' combination
+(:class:`.hanging.Reader`); ``transfer_gap`` and ``marks_mismatch``
+(:mod:`.remesh`).
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ import torch
 from .fem import SHEAR, VOLUMETRIC, Problem
 
 NUMBERS = ("mech_residual", "flow_residual", "projection_residual")
+ADAPTIVE = ("hanging_gap", "transfer_gap", "marks_mismatch")
 
 
 def _f64(x):
@@ -66,25 +78,31 @@ def projection_residual(P: Problem, u, strains, lanes, eps_sum=()) -> float:
     return float(top / scale)
 
 
-def judge(P: Problem, start: dict, steps: list) -> dict:
+def judge(P: Problem, start: dict, steps: list, at_t0: bool = True) -> dict:
     """The three numbers of an episode at the deck's load: ``start`` and
     each of ``steps`` a dict of ``p``, ``u``, ``eps_v``, ``strains`` (any
-    float dtype, any device; ``start`` also ``eps_v0``)."""
+    float dtype, any device; ``start`` also ``eps_v0``).  ``at_t0``
+    false: ``start`` is what a remesh's transfer gave, not a solved state,
+    so only the steps are judged, from its pressure and strains."""
     ph = P.phys
     s0 = {k: _f64(v).to(P.device) for k, v in start.items()}
-    p_init = torch.full_like(s0["p"], ph.p_init)
     vol = list(VOLUMETRIC)
-    out = {"mech_residual": mech_residual(P, p_init, s0["u"], 1.0),
-           "flow_residual": 0.0,
-           "projection_residual": projection_residual(
-               P, s0["u"], s0["strains"][vol], vol,
-               (s0["eps_v0"], s0["eps_v"]))}
-    p_old = p_init
+    if at_t0:
+        p_start = torch.full_like(s0["p"], ph.p_init)
+        out = {"mech_residual": mech_residual(P, p_start, s0["u"], 1.0),
+               "flow_residual": 0.0,
+               "projection_residual": projection_residual(
+                   P, s0["u"], s0["strains"][vol], vol,
+                   (s0["eps_v0"], s0["eps_v"]))}
+    else:
+        p_start = s0["p"]
+        out = dict.fromkeys(NUMBERS, 0.0)
+    p_old = p_start
     for state in steps:
         s = {k: _f64(v).to(P.device) for k, v in state.items()}
         out["mech_residual"] = worst(out["mech_residual"],
                                       mech_residual(P, s["p"], s["u"], 1.0))
-        eps_v = s0["eps_v"] + (ph.biot / ph.bulk) * (s["p"] - p_init)
+        eps_v = s0["eps_v"] + (ph.biot / ph.bulk) * (s["p"] - p_start)
         for e in (s["eps_v"], eps_v):
             r = P.flow_residual(s["p"], p_old, e, s0["eps_v0"])
             out["flow_residual"] = worst(out["flow_residual"],
